@@ -1,31 +1,43 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # the card run (needs CUDA)
+    python3 chip_smoke.py --cpu-rehearsal # the GMG solves on the CPU only
 
-Phases (each prints its own lines; any failure raises and the exit code
-is non-zero):
+Phases of the card run (each prints its own lines and its seconds; any
+failure raises and the exit code is non-zero):
 
 1. device  — needs torch.cuda; prints the card's name and power limit.
-2. build   — compiles the cell kernel K1 (firedrake_tpu_torch/csrc) with
-             nvcc for sm_90a and loads it.
+2. build   — compiles both hand-written kernels (firedrake_tpu_torch/csrc:
+             K1 cell_eval.cu, K2 batched_inv.cu) with nvcc for sm_90a, one
+             nvcc each, concurrently; prints seconds, registers and spills.
 3. kernels — K1 against its plain PyTorch version and the torch
-             BatchedLowerer on the card: P1 and P2 grad.grad + mass on
-             both triangle types, the P2 k*w*grad.grad form, tets, and
-             f*v; float64 (max|err| <= 1e-12 max|ref|) and float32
-             (max|err| <= 2e-6 max|ref| + 1e-7).  Times K1 and the plain
-             version at the main path's shapes with CUDA events.
-4. main    — the README Helmholtz problem at UnitSquareMesh(1024, 1024),
-             P1, CG + Jacobi to ksp_rtol 1e-10, then Dirichlet Poisson with
-             P2 on UnitSquareMesh(512, 512); each checks convergence, the
-             nodal error, that the solution lives on the card, and that
-             the assemblies went through K1 (launch counts) and not the
-             lowerer.
+             BatchedLowerer (P1/P2 grad.grad + mass on both triangle types,
+             P2 k*w*grad.grad, tets, f*v); K2 against its plain version on
+             random SPD blocks (n = 4, 7, 15, 19, 32) and on the real star
+             patch matrices of P2 at UnitSquareMesh(512) and P1 at 1024^2.
+             float64 within 1e-12 max|ref|; float32 within 2e-6 max|ref| +
+             1e-7 (K1) and 1e-5 max|ref| (K2); K2 also max|A K2(A) - I| <
+             1e-9 in float64.  Times each kernel, its plain version and
+             (K2) torch.linalg.inv at the main path's shapes with CUDA
+             events, beside the bytes/operations bound.
+4. main    — four solves through LinearVariationalSolver, each with every
+             launch count set to 0 just before it and read just after:
+             the README Helmholtz problem (UnitSquareMesh(1024), P1, CG +
+             Jacobi), Dirichlet Poisson P2 at 512^2 (CG + Jacobi), and the
+             two multigrid solves of -lap u = 2 pi^2 sin(pi x) sin(pi y),
+             u = 0 on the boundary, at 1,050,625 dofs: gmg_p1_1m
+             (UnitSquareMesh(32) + 5 levels, P1, Chebyshev(2) + Jacobi)
+             and gmg_star_p2_1m (UnitSquareMesh(16) + 5 levels, P2,
+             Chebyshev(2) + vertex-star patch, whose patch solves are K2).
+             Each checks convergence, the relative residual, the nodal
+             error, that the solution is on the card, and the launches.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 import json
 import subprocess
+import sys
 import time
 import warnings
 
@@ -34,14 +46,40 @@ import torch
 
 F64_TOL = 1e-12
 F32_RTOL, F32_ATOL = 2e-6, 1e-7
+K2_F32_RTOL = 1e-5
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_FLOPS = 67e12                 # f32 outside the tensor cores, and f64
+                                   # on the tensor cores (data sheet)
+
+# The GMG solves of the main phase, as built by _gmg_problem.
+GMG = {
+    "gmg_p1_1m": dict(n0=32, levels=5, degree=1, err=5e-5,
+                      params={"ksp_type": "cg", "ksp_rtol": 1e-10,
+                              "pc_type": "mg"}),
+    "gmg_star_p2_1m": dict(n0=16, levels=5, degree=2, err=1e-6,
+                           params={"ksp_type": "cg", "ksp_rtol": 1e-10,
+                                   "pc_type": "mg",
+                                   "mg_levels_ksp_type": "chebyshev",
+                                   "mg_levels_pc_type": "patch"}),
+}
+# Iterations of the same solves on the CPU (python3 chip_smoke.py
+# --cpu-rehearsal, run on the 8-core host of an H100 machine); the card
+# must agree within one.
+CPU_REHEARSAL_ITS = {"gmg_p1_1m": 10, "gmg_star_p2_1m": 6}
 
 
 def phase(name):
     print(f"== {name}", flush=True)
+    return time.perf_counter()
+
+
+def phase_done(name, t0):
+    print(f"phase {name} seconds {time.perf_counter() - t0:.3f}",
+          flush=True)
 
 
 def device_phase():
-    phase("device")
+    t0 = phase("device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda is not available")
     smi = subprocess.run(
@@ -54,20 +92,30 @@ def device_phase():
     # float32 products in full float32 (no TF32) for the f32 checks
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_done("device", t0)
 
 
 def build_phase():
-    phase("build")
-    from firedrake_tpu_torch.compiler import cell_eval as K
-    secs = K.build()
-    lines = K.build_log.splitlines()
-    regs = [int(l.split("Used ")[1].split(" ")[0])
-            for l in lines if "Used " in l]
-    spills = [l.strip() for l in lines
-              if "spill stores" in l and " 0 bytes spill stores" not in l]
-    print(f"build_s {secs:.3f} kernels {len(regs)} max_registers "
-          f"{max(regs) if regs else 'n/a'} instantiations_with_spills "
-          f"{len(spills)}")
+    t0 = phase("build")
+    from firedrake_tpu_torch.compiler import cell_eval as K, nvcc
+    from firedrake_tpu_torch.ops import batched_inverse as BI
+    srcs = {"cell_eval": K._SRC, "batched_inv": BI._SRC}
+    nvcc.compile_sources(list(srcs.values()))
+    K.build()
+    BI.build()
+    for name, src in srcs.items():
+        secs, log = nvcc.build_logs.get(src, (0.0, ""))
+        lines = log.splitlines()
+        regs = [int(l.split("Used ")[1].split(" ")[0])
+                for l in lines if "Used " in l]
+        spills = [l.strip() for l in lines
+                  if "spill stores" in l and " 0 bytes spill stores" not in l]
+        print(f"{name}: build_s {secs:.3f} instantiations {len(regs)} "
+              f"max_registers {max(regs) if regs else 'n/a'} "
+              f"instantiations_with_spills {len(spills)}")
+        for l in spills:
+            print(f"  {l}")
+    phase_done("build", t0)
 
 
 def _cuda_ms(fn, reps=20, warm=3):
@@ -84,15 +132,20 @@ def _cuda_ms(fn, reps=20, warm=3):
     return s.elapsed_time(e) / reps
 
 
-def _cases(fd):
+def _pair_ms(kernel, plain, reps=20, plain_reps=20):
+    """Mean times of kernel and plain, taken in the order plain, kernel,
+    kernel, plain."""
+    p1 = _cuda_ms(plain, plain_reps, 1)
+    k1, k2 = _cuda_ms(kernel, reps), _cuda_ms(kernel, reps)
+    p2 = _cuda_ms(plain, plain_reps, 1)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
+
+
+def _cases(fd, sp):
     """(label, form, timed) — forms of K1's family on the main path's
     meshes (P1 at 1024^2, P2 at 512^2) plus a small tet mesh."""
-    m1 = fd.UnitSquareMesh(1024, 1024)
-    V1 = fd.FunctionSpace(m1, "CG", 1)
-    m2 = fd.UnitSquareMesh(512, 512)
-    V2 = fd.FunctionSpace(m2, "CG", 2)
-    m3 = fd.UnitCubeMesh(16, 16, 16)
-    V3 = fd.FunctionSpace(m3, "CG", 1)
+    V1, V2 = sp["P1"], sp["P2"]
+    V3 = fd.FunctionSpace(fd.UnitCubeMesh(16, 16, 16), "CG", 1)
     rng = np.random.default_rng(0)
     out = []
     for lab, V in (("P1", V1), ("P2", V2)):
@@ -113,15 +166,12 @@ def _cases(fd):
     return out
 
 
-def kernels_phase():
-    phase("kernels")
-    import firedrake_tpu_torch as fd
+def k1_checks(fd, sp):
     from firedrake_tpu_torch.assemble import FormAssembler
     from firedrake_tpu_torch.compiler import cell_eval as K
     from firedrake_tpu_torch.compiler.precision import trace_ctx
-    fd.set_device(torch.device("cuda"))
     rows, main = [], None
-    for label, form, timed in _cases(fd):
+    for label, form, timed in _cases(fd, sp):
         asm = FormAssembler(form)
         coords, coeffs, consts = asm._inputs()
         for ci in asm._compiled:
@@ -153,28 +203,111 @@ def kernels_phase():
                     if not ok:
                         raise AssertionError(f"{label}: K1 disagrees")
                     if timed and t == 0:
-                        def run_k1():
-                            K.cell_eval(spec, ce_, ws_, cv_)
-
-                        def run_plain():
-                            K.cell_eval_plain(spec, ce_, ws_, cv_)
-                        p1, k_1 = _cuda_ms(run_plain), _cuda_ms(run_k1)
-                        k_2, p2 = _cuda_ms(run_k1), _cuda_ms(run_plain)
+                        ms, pms, runs = _pair_ms(
+                            lambda: K.cell_eval(spec, ce_, ws_, cv_),
+                            lambda: K.cell_eval_plain(spec, ce_, ws_, cv_))
+                        nbytes = (ce_.numel() + sum(w.numel() for w in ws_)
+                                  + k1.numel()) * k1.element_size()
                         row = dict(form=label, dtype=str(dt)[6:],
-                                   C=ce.shape[-1], ms=(k_1 + k_2) / 2,
-                                   plain_ms=(p1 + p2) / 2,
-                                   max_abs_err=e_plain)
+                                   C=ce.shape[-1], ms=ms, plain_ms=pms,
+                                   max_abs_err=e_plain,
+                                   bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
                         rows.append(row)
-                        print(f"  time K1 {row['ms']:.4f} ms  plain "
-                              f"{row['plain_ms']:.4f} ms "
-                              f"(runs {k_1:.4f}/{k_2:.4f} vs "
-                              f"{p1:.4f}/{p2:.4f})")
+                        print(f"  time K1 {ms:.4f} ms  plain {pms:.4f} ms "
+                              f"bound {row['bound_ms']:.4f} ms (runs "
+                              + "/".join(f"{x:.4f}" for x in runs) + ")")
                         if main is None:
                             main = row
         del asm
     torch.cuda.synchronize()
-    print("kernel_timings " + json.dumps(rows))
+    print("k1_timings " + json.dumps(rows))
     return main
+
+
+def _spd(nb, n, seed, dtype):
+    B = np.random.default_rng(seed).standard_normal((nb, n, n))
+    return torch.as_tensor(B @ B.transpose(0, 2, 1) + n * np.eye(n),
+                           dtype=dtype, device="cuda")
+
+
+def _k2_compare(BI, label, A):
+    out = BI.batched_inv(A)
+    plain = BI.batched_inv_plain(A)
+    torch.cuda.synchronize()
+    ref = float(plain.abs().max())
+    err = float((out - plain).abs().max())
+    f64 = A.dtype == torch.float64
+    tol = F64_TOL * ref if f64 else K2_F32_RTOL * ref
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    res = float((A @ out - eye).abs().max()) if f64 else float("nan")
+    ok = err <= tol and (not f64 or res < 1e-9)
+    print(f"K2 {label:28s} {str(A.dtype)[6:]:8s} shape "
+          f"{tuple(A.shape)} err_vs_plain {err:.3e} max|ref| {ref:.3e} "
+          f"tol {tol:.3e} max|A X - I| {res:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K2 {label}: disagrees")
+    return err
+
+
+def _real_patches(fd, V):
+    from firedrake_tpu_torch.solvers.preconditioners import (
+        star_patches, patch_matrices)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    A = fd.assemble(fd.inner(fd.grad(u), fd.grad(v)) * fd.dx,
+                    bcs=fd.DirichletBC(V, 0.0, "on_boundary"))
+    idx, mask = star_patches(V)
+    return patch_matrices(A, idx, mask)
+
+
+def k2_checks(fd, sp):
+    from firedrake_tpu_torch.ops import batched_inverse as BI
+    for n in (4, 7, 15, 19, 32):
+        for dt in (torch.float64, torch.float32):
+            _k2_compare(BI, f"random SPD n={n}", _spd(4096, n, n, dt))
+    rows = {}
+    for lab, V in (("P2 star patches 512^2", sp["P2"]),
+                   ("P1 star patches 1024^2", sp["P1"])):
+        A64 = _real_patches(fd, V)
+        for dt in (torch.float64, torch.float32):
+            A = A64.to(dt)
+            err = _k2_compare(BI, lab, A)
+            nb, n = A.shape[0], A.shape[-1]
+            ms, pms, runs = _pair_ms(lambda: BI.batched_inv(A),
+                                     lambda: BI.batched_inv_plain(A),
+                                     reps=20, plain_reps=3)
+            lib1 = _cuda_ms(lambda: torch.linalg.inv(A), 3, 1)
+            lib2 = _cuda_ms(lambda: torch.linalg.inv(A), 3, 1)
+            bytes_ms = 1e3 * 2 * A.numel() * A.element_size() \
+                / HBM_BYTES_PER_S
+            ops_ms = 1e3 * 4 * n ** 3 * nb / PEAK_FLOPS
+            row = dict(shape=list(A.shape), dtype=str(dt)[6:], ms=ms,
+                       plain_ms=pms, library_ms=(lib1 + lib2) / 2,
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms
+                       else "operations", max_abs_err=err)
+            rows[(lab, row["dtype"])] = row
+            print(f"  time K2 {ms:.4f} ms  plain {pms:.4f} ms  "
+                  f"torch.linalg.inv {row['library_ms']:.4f} ms  bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) (runs "
+                  + "/".join(f"{x:.4f}" for x in runs + (lib1, lib2))
+                  + ")")
+        del A64, A
+    print("k2_timings " + json.dumps(list(rows.values())))
+    return rows[("P2 star patches 512^2", "float64")]
+
+
+def kernels_phase():
+    t0 = phase("kernels")
+    import firedrake_tpu_torch as fd
+    fd.set_device(torch.device("cuda"))
+    sp = {"P1": fd.FunctionSpace(fd.UnitSquareMesh(1024, 1024), "CG", 1),
+          "P2": fd.FunctionSpace(fd.UnitSquareMesh(512, 512), "CG", 2)}
+    k1 = k1_checks(fd, sp)
+    k2 = k2_checks(fd, sp)
+    del sp
+    torch.cuda.empty_cache()
+    phase_done("kernels", t0)
+    return k1, k2
 
 
 def _sync_time(fn):
@@ -185,111 +318,284 @@ def _sync_time(fn):
     return out, time.perf_counter() - t0
 
 
-def _check_run(label, uh, solver, exact, bound, launches0, lowerer0, K):
+class _Counts:
+    """Every launch counter set to 0 on entry and read on exit."""
+
+    def __enter__(self):
+        from firedrake_tpu_torch.compiler import cell_eval as K
+        from firedrake_tpu_torch.ops import batched_inverse as BI
+        self.K, self.BI = K, BI
+        K.kernel_launches = K.lowerer_evals = BI.kernel_launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.k1 = self.K.kernel_launches
+        self.k2 = self.BI.kernel_launches
+        self.lowerer = self.K.lowerer_evals
+
+
+def _check(label, uh, solver, exact, bound, counts, k2=0):
     err = float((uh.dat - exact.dat).abs().max())
-    launched = K.kernel_launches - launches0
     print(f"{label}: dofs {uh.function_space().dim} iterations "
           f"{solver.ksp_iterations} converged {solver.converged} "
           f"max_nodal_err {err:.3e} on {uh.dat.device} k1_launches "
-          f"{launched} lowerer_evals {K.lowerer_evals - lowerer0}")
+          f"{counts.k1} k2_launches {counts.k2} lowerer_evals "
+          f"{counts.lowerer}")
     if not uh.dat.is_cuda:
         raise AssertionError(f"{label}: solution is not on the card")
     if not solver.converged:
         raise AssertionError(f"{label}: solve did not converge")
     if not err < bound:
         raise AssertionError(f"{label}: nodal error {err} >= {bound}")
-    if launched <= 0 or K.lowerer_evals != lowerer0:
+    if counts.k1 <= 0 or counts.lowerer:
         raise AssertionError(f"{label}: assembly bypassed K1")
+    if counts.k2 != k2:
+        raise AssertionError(f"{label}: K2 launched {counts.k2} times, "
+                             f"expected {k2}")
+
+
+class _StageTimes:
+    """Seconds spent in the GMG set-up's stages during one solve: each
+    named module function is wrapped, synchronised on both sides."""
+
+    STAGES = (("pc_setup", "firedrake_tpu_torch.mg.vcycle",
+               "GMGPreconditioner"),
+              ("level_assembly", "firedrake_tpu_torch.assemble",
+               "assemble"),
+              ("patch_setup", "firedrake_tpu_torch.solvers.preconditioners",
+               "make_star_patch"),
+              ("k2", "firedrake_tpu_torch.ops.batched_inverse",
+               "batched_inv"),
+              ("solve", "firedrake_tpu_torch.solving", "_run_ksp"))
+
+    def __enter__(self):
+        import importlib
+        self.secs = {name: 0.0 for name, _, _ in self.STAGES}
+        self.saved = []
+        for name, mod, attr in self.STAGES:
+            m = importlib.import_module(mod)
+            fn = getattr(m, attr)
+            self.saved.append((m, attr, fn))
+            setattr(m, attr, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def run(*a, **kw):
+            out, s = _sync_time(lambda: fn(*a, **kw))
+            self.secs[name] += s
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for m, attr, fn in self.saved:
+            setattr(m, attr, fn)
+
+
+def _gmg_problem(fd, n0, levels, degree, params, **_):
+    t0 = time.perf_counter()
+    hier = fd.MeshHierarchy(fd.UnitSquareMesh(n0, n0), levels)
+    hier_s = time.perf_counter() - t0
+    mesh = hier.meshes[-1]
+    V = fd.FunctionSpace(mesh, "CG", degree)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    x, y = fd.SpatialCoordinate(mesh)
+    f = fd.Function(V).interpolate(2 * fd.pi ** 2 * fd.sin(fd.pi * x)
+                                   * fd.sin(fd.pi * y))
+    a = fd.inner(fd.grad(u), fd.grad(v)) * fd.dx
+    L = fd.inner(f, v) * fd.dx
+    bc = fd.DirichletBC(V, 0, "on_boundary")
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(a, L, uh, bcs=bc),
+        solver_parameters=params)
+    exact = fd.Function(V).interpolate(fd.sin(fd.pi * x)
+                                       * fd.sin(fd.pi * y))
+    return hier_s, hier, a, L, bc, uh, solver, exact
+
+
+def _rel_residual(fd, a, L, bc, uh):
+    A = fd.assemble(a, bcs=bc)
+    b = fd.assemble(L, bcs=bc).dat
+    return float(torch.linalg.vector_norm(b - A.matvec(uh.dat))
+                 / torch.linalg.vector_norm(b))
+
+
+def gmg_run(fd, label):
+    cfg = GMG[label]
+    t0 = time.perf_counter()
+    hier_s, hier, a, L, bc, uh, solver, exact = _gmg_problem(fd, **cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    nsmoothed = len(hier) - 1
+    with _Counts() as counts, _StageTimes() as st:
+        _, first_s = _sync_time(solver.solve)
+    its = solver.ksp_iterations
+    rel = _rel_residual(fd, a, L, bc, uh)
+    _check(label, uh, solver, exact, cfg["err"], counts,
+           k2=nsmoothed if "patch" in cfg["params"].values() else 0)
+    sec = st.secs
+    print(f"{label}: levels {len(hier)} hierarchy_s {hier_s:.3f} "
+          f"problem_setup_s {setup_s:.3f} (hierarchy included) "
+          f"first_solve_s {first_s:.3f} "
+          f"pc_setup_s {sec['pc_setup']:.3f} level_assembly_s "
+          f"{sec['level_assembly']:.3f} patch_setup_s "
+          f"{sec['patch_setup']:.3f} k2_s {sec['k2']:.4f} solve_s "
+          f"{sec['solve']:.4f} ms_per_iteration "
+          f"{1e3 * sec['solve'] / max(its, 1):.4f} rel_residual {rel:.3e}")
+    if not rel <= 1e-10:
+        raise AssertionError(f"{label}: relative residual {rel}")
+    want = CPU_REHEARSAL_ITS[label]
+    if abs(its - want) > 1:
+        raise AssertionError(f"{label}: {its} iterations, the CPU "
+                             f"rehearsal took {want}")
+    # a second solve from zero reuses the solver's multigrid hierarchy
+    uh.dat = torch.zeros_like(uh.dat)
+    _, again_s = _sync_time(solver.solve)
+    print(f"{label}: second_solve_s {again_s:.4f} iterations "
+          f"{solver.ksp_iterations}")
+    return counts
 
 
 def main_phase():
-    phase("main")
-    import firedrake_tpu_torch as fdt
+    t0 = phase("main")
+    import firedrake_tpu_torch as fd
     from firedrake_tpu_torch import (UnitSquareMesh, FunctionSpace,
                                      TrialFunction, TestFunction,
                                      SpatialCoordinate, Function, pi, cos,
                                      sin, inner, grad, dx, assemble,
                                      DirichletBC, LinearVariationalProblem,
                                      LinearVariationalSolver)
-    from firedrake_tpu_torch.compiler import cell_eval as K
-    fdt.set_device(torch.device("cuda"))
+    fd.set_device(torch.device("cuda"))
     params = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": 1e-10}
     used = {}
-    K.kernel_launches = 0
-    K.lowerer_evals = 0
     with warnings.catch_warnings():
         warnings.simplefilter("error")   # a non-converged solve warns
         # --- the README problem; solve(a == L, uh, ...) spelled out as the
         # solver object it builds, so that the iteration count is readable
-        t0 = time.perf_counter()
-        mesh = UnitSquareMesh(1024, 1024)
-        V = FunctionSpace(mesh, "CG", 1)
-        u, v = TrialFunction(V), TestFunction(V)
-        x, y = SpatialCoordinate(mesh)
-        f = Function(V).interpolate((1 + 8*pi**2) * cos(2*pi*x)
-                                    * cos(2*pi*y))
-        a = (inner(grad(u), grad(v)) + inner(u, v)) * dx
-        L = inner(f, v) * dx
-        uh = Function(V)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        _, cold_s = _sync_time(lambda: (assemble(a), assemble(L)))
-        _, asm_s = _sync_time(lambda: (assemble(a), assemble(L)))
-        solver = LinearVariationalSolver(
-            LinearVariationalProblem(a, L, uh), solver_parameters=params)
-        _, solve_s = _sync_time(solver.solve)
-        exact = Function(V).interpolate(cos(2*pi*x) * cos(2*pi*y))
-        _check_run("helmholtz_p1_1024", uh, solver, exact, 1e-4, 0, 0, K)
+        with _Counts() as counts:
+            t1 = time.perf_counter()
+            mesh = UnitSquareMesh(1024, 1024)
+            V = FunctionSpace(mesh, "CG", 1)
+            u, v = TrialFunction(V), TestFunction(V)
+            x, y = SpatialCoordinate(mesh)
+            f = Function(V).interpolate((1 + 8*pi**2) * cos(2*pi*x)
+                                        * cos(2*pi*y))
+            a = (inner(grad(u), grad(v)) + inner(u, v)) * dx
+            L = inner(f, v) * dx
+            uh = Function(V)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t1
+            _, cold_s = _sync_time(lambda: (assemble(a), assemble(L)))
+            _, asm_s = _sync_time(lambda: (assemble(a), assemble(L)))
+            solver = LinearVariationalSolver(
+                LinearVariationalProblem(a, L, uh),
+                solver_parameters=params)
+            _, solve_s = _sync_time(solver.solve)
+            exact = Function(V).interpolate(cos(2*pi*x) * cos(2*pi*y))
+        _check("helmholtz_p1_1024", uh, solver, exact, 1e-4, counts)
         print(f"helmholtz_p1_1024: setup_s {setup_s:.3f} "
               f"assembly_cold_s {cold_s:.4f} assembly_s {asm_s:.4f} "
               f"solve_s {solve_s:.4f} ms_per_iteration "
               f"{1e3 * solve_s / max(solver.ksp_iterations, 1):.4f}")
-        used["helmholtz"] = K.kernel_launches
+        used["helmholtz_p1_1024"] = counts
 
         # --- Dirichlet Poisson, P2: -div grad u = f, u = 0 on the boundary
-        n0, l0 = K.kernel_launches, K.lowerer_evals
-        t0 = time.perf_counter()
-        mesh = UnitSquareMesh(512, 512)
-        V = FunctionSpace(mesh, "CG", 2)
-        u, v = TrialFunction(V), TestFunction(V)
-        x, y = SpatialCoordinate(mesh)
-        f = Function(V).interpolate(2*pi**2 * sin(pi*x) * sin(pi*y))
-        a = inner(grad(u), grad(v)) * dx
-        L = inner(f, v) * dx
-        uh = Function(V)
-        bc = DirichletBC(V, 0, "on_boundary")
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        solver = LinearVariationalSolver(
-            LinearVariationalProblem(a, L, uh, bcs=bc),
-            solver_parameters=params)
-        _, solve_s = _sync_time(solver.solve)
-        exact = Function(V).interpolate(sin(pi*x) * sin(pi*y))
-        _check_run("poisson_p2_512", uh, solver, exact, 1e-6, n0, l0, K)
+        with _Counts() as counts:
+            t1 = time.perf_counter()
+            mesh = UnitSquareMesh(512, 512)
+            V = FunctionSpace(mesh, "CG", 2)
+            u, v = TrialFunction(V), TestFunction(V)
+            x, y = SpatialCoordinate(mesh)
+            f = Function(V).interpolate(2*pi**2 * sin(pi*x) * sin(pi*y))
+            a = inner(grad(u), grad(v)) * dx
+            L = inner(f, v) * dx
+            uh = Function(V)
+            bc = DirichletBC(V, 0, "on_boundary")
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t1
+            solver = LinearVariationalSolver(
+                LinearVariationalProblem(a, L, uh, bcs=bc),
+                solver_parameters=params)
+            _, solve_s = _sync_time(solver.solve)
+            exact = Function(V).interpolate(sin(pi*x) * sin(pi*y))
+        _check("poisson_p2_512", uh, solver, exact, 1e-6, counts)
         print(f"poisson_p2_512: setup_s {setup_s:.3f} solve_s "
               f"{solve_s:.4f} ms_per_iteration "
               f"{1e3 * solve_s / max(solver.ksp_iterations, 1):.4f}")
-    return K.kernel_launches
+        used["poisson_p2_512"] = counts
+        del mesh, V, f, uh, solver, exact
+        torch.cuda.empty_cache()
+
+        # --- geometric multigrid at 1,050,625 dofs
+        for label in GMG:
+            used[label] = gmg_run(fd, label)
+            torch.cuda.empty_cache()
+    phase_done("main", t0)
+    return used
+
+
+def cpu_rehearsal():
+    """The GMG solves of the main phase on the CPU (plain kernel
+    versions); prints each iteration count."""
+    import firedrake_tpu_torch as fd
+    fd.set_device("cpu")
+    for label, cfg in GMG.items():
+        t0 = time.perf_counter()
+        _, _, a, L, bc, uh, solver, exact = _gmg_problem(fd, **cfg)
+        solver.solve()
+        err = float((uh.dat - exact.dat).abs().max())
+        print(f"cpu_rehearsal {label}: dofs {uh.function_space().dim} "
+              f"iterations {solver.ksp_iterations} converged "
+              f"{solver.converged} max_nodal_err {err:.3e} rel_residual "
+              f"{_rel_residual(fd, a, L, bc, uh):.3e} seconds "
+              f"{time.perf_counter() - t0:.1f}", flush=True)
 
 
 def main():
+    t0 = time.perf_counter()
     device_phase()
     build_phase()
-    timing = kernels_phase()
-    launches = main_phase()
-    print(json.dumps({"kernels": [{
-        "name": "cell_eval",
-        "route": "cuda",
-        "source": "firedrake_tpu_torch/csrc/cell_eval.cu",
-        "replaces": "firedrake_tpu/compiler/pallas_eval.py:88",
-        "launches": launches,
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"]}]}))
+    k1, k2 = kernels_phase()
+    used = main_phase()
+    for label, c in used.items():
+        print(f"launches {label}: k1 {c.k1} k2 {c.k2}")
+    main_path = used["gmg_star_p2_1m"]
+    print(f"total_s {time.perf_counter() - t0:.1f}")
+    print(json.dumps({"kernels": [
+        {"name": "cell_eval",
+         "route": "cuda",
+         "source": "firedrake_tpu_torch/csrc/cell_eval.cu",
+         "replaces": "firedrake_tpu/compiler/pallas_eval.py:88",
+         "launches": main_path.k1,
+         "launches_by_path": {k: c.k1 for k, c in used.items()},
+         "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"],
+         "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"],
+         "bound_by": "bytes",
+         "library_ms": None,
+         "torch_ms": None},
+        {"name": "batched_inv",
+         "route": "cuda",
+         "source": "firedrake_tpu_torch/csrc/batched_inv.cu",
+         "replaces": "firedrake_tpu/ops/batched_inverse.py:60",
+         "launches": main_path.k2,
+         "launches_by_path": {k: c.k2 for k, c in used.items()},
+         "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"],
+         "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"],
+         "library_ms": k2["library_ms"],
+         "torch_ms": k2["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--cpu-rehearsal"]:
+        cpu_rehearsal()
+    else:
+        main()

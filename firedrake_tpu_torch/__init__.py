@@ -1,13 +1,17 @@
 """firedrake_tpu_torch: the PyTorch/CUDA port of firedrake_tpu.
 
 Same module layout and public names as the JAX package, so a script
-switches backend by its import line.  Imports torch, never jax.  The
-device is explicit: call ``set_device(torch.device("cuda"))`` before
-building Functions to run on a GPU; the default is the CPU.
+switches backend by its import line.  Imports torch, never jax.  Everything
+runs on the CUDA card unless the caller asks for the CPU with
+``set_device("cpu")`` before building Functions.
 
 Ported so far: the main path of the README problem — structured meshes,
 Lagrange spaces, stencil assembly with the hand-written cell kernel
-(compiler/cell_eval.py), Dirichlet conditions and CG with Jacobi.
+(compiler/cell_eval.py), Dirichlet conditions and CG with Jacobi — and
+geometric multigrid on structured hierarchies (mg/), with Chebyshev or
+Richardson smoothing, Jacobi or vertex-star patch smoothers (patch solves
+through the batched-inverse kernel, ops/batched_inverse.py) and an LU
+coarse solve.
 """
 from .language import *            # noqa: F401,F403  (UFL surface)
 from .mesh.utility import *        # noqa: F401,F403
@@ -20,5 +24,6 @@ from .assemble import assemble, get_assembler
 from .interpolation import interpolate
 from .solving import (solve, LinearVariationalProblem,
                       LinearVariationalSolver)
+from .mg import MeshHierarchy, prolong, restrict, inject
 from .device import set_device, get_device
 from math import pi

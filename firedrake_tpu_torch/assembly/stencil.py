@@ -129,6 +129,36 @@ def _map_ref_points(verts, pts):
     return None
 
 
+def parity_class_weights(tverts, p):
+    """P1 interpolation weights of the fine-grid point at half-integer
+    parity class p (in {0,1}^D, quad units p/2) over coarse vertex
+    offsets: [(offset_tuple, weight)].  Drives structured refinement
+    and grid transfers; any containing cell type gives the same values
+    (P1 continuity across shared entities)."""
+    D = len(p)
+    pt = np.asarray(p, dtype=np.float64) / 2.0
+    for verts in tverts:
+        V = np.asarray(verts, dtype=np.float64)
+        if len(V) == D + 1:
+            E = (V[1:] - V[:1]).T
+            lam = np.linalg.solve(E, pt - V[0])
+            if lam.min() < -1e-12 or lam.sum() > 1 + 1e-12:
+                continue
+            w = np.concatenate([[1.0 - lam.sum()], lam])
+        else:
+            w = np.ones(len(V))
+            for c in range(len(V)):
+                for ax in range(D):
+                    w[c] *= pt[ax] if V[c, ax] > 0.5 else 1.0 - pt[ax]
+        out = {}
+        for c in range(len(V)):
+            if abs(w[c]) > 1e-14:
+                key = tuple(int(round(x)) for x in V[c])
+                out[key] = out.get(key, 0.0) + w[c]
+        return sorted(out.items())
+    raise AssertionError(f"parity class {p} not inside any cell type")
+
+
 class _SpaceGrid:
     """Grid-affine dof layout of a function space on a structured mesh:
     node id = sum_ax gi_ax * prod(gdims[:ax]), with per-cell-type
@@ -428,6 +458,40 @@ class StencilMatrix:
     def diagonal(self):
         return self.channels[self.plan.diag_channel].reshape(-1)
 
+    def copy(self):
+        return StencilMatrix(self.plan, self.channels, self.row_space,
+                             self.col_space, self.bcs)
+
+    def entries(self, rows, cols):
+        """A[rows, cols] for int64 index tensors of one shape, gathered on
+        the channels' device: the channel of the grid offset col - row,
+        read at the row's grid point; 0 off the stencil."""
+        m = self._margins()[::-1]                 # per axis, x first
+        span = [2 * mm + 1 for mm in m]
+        table = np.full(int(np.prod(span)), -1, dtype=np.int64)
+        for ch, off in enumerate(self.offsets):
+            key = 0
+            for ax in reversed(range(self.D)):
+                key = key * span[ax] + off[ax] + m[ax]
+            table[key] = ch
+        table = torch.as_tensor(table, device=self.channels.device)
+        key = torch.zeros_like(rows)
+        inside = torch.ones(rows.shape, dtype=torch.bool,
+                            device=rows.device)
+        stride = int(np.prod(self.gdims))
+        for ax in reversed(range(self.D)):        # node = sum gi * stride
+            g = self.gdims[ax]
+            stride //= g
+            d = (cols // stride) % g - (rows // stride) % g
+            inside &= d.abs() <= m[ax]
+            key = key * span[ax] + d.clamp(-m[ax], m[ax]) + m[ax]
+        ch = table[key]
+        ok = inside & (ch >= 0)
+        vals = self.channels.reshape(len(self.offsets), -1)[
+            ch.clamp(min=0), rows]
+        return torch.where(ok, vals, torch.zeros((), dtype=vals.dtype,
+                                                 device=vals.device))
+
     # ----------------------------------------------------------------- bcs
     def with_dirichlet(self, bc_rows, symmetric=True):
         n = int(np.prod(self.gdims))
@@ -484,6 +548,28 @@ class StencilMatrix:
         vals = dat[tuple(chs)]
         n = int(np.prod(self.gdims))
         return coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+
+    def to_dense(self):
+        return self.to_scipy().toarray()
+
+    @property
+    def nnz(self):
+        """CSR-equivalent nonzero count (pattern entries actually touched
+        by assembly), for flop accounting."""
+        if getattr(self.plan, "_nnz", None) is None:
+            total = 0
+            k = self.plan.test_g.k
+            dims = self.plan.dims
+            for contribs in self.plan.contribs:
+                touched = np.zeros(self.plane_shape, dtype=bool)
+                for (t, i, j, oR) in contribs:
+                    sl = tuple(
+                        slice(oR[ax], oR[ax] + k * (dims[ax] - 1) + 1, k)
+                        for ax in reversed(range(self.D)))
+                    touched[sl] = True
+                total += int(touched.sum())
+            self.plan._nnz = total
+        return self.plan._nnz
 
     def __repr__(self):
         return (f"StencilMatrix({self.shape}, nch={len(self.offsets)}, "

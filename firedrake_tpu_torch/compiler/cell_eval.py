@@ -30,11 +30,6 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import numpy as np
 import torch
@@ -44,6 +39,7 @@ from ..language.core import (Sum, Product, ScalarValue, ConstantBase,
 from ..language.tensor_algebra import Inner, Dot
 from .batched import _detC, _invC
 from .lowering import _cell_rule, _tables_at, einsum
+from . import nvcc
 
 #: launches of the CUDA kernel (counted where it launches, nowhere else)
 kernel_launches = 0
@@ -56,10 +52,7 @@ MAX_COEFFS = 2
 _SPEC_INTS = 30
 _SMEM_LIMIT = 48 * 1024
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                    "cell_eval.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                          "_build")
+_SRC = nvcc.source("cell_eval.cu")
 
 
 # ------------------------------------------------------------- the family
@@ -308,32 +301,15 @@ def build():
     global _lib, build_log
     if _lib is not None:
         return 0.0
-    with open(_SRC, "rb") as fh:
-        tag = hashlib.sha1(fh.read()).hexdigest()[:12]
-    so = os.path.join(_BUILD_DIR, f"libcell_eval_{tag}.so")
-    t0 = time.perf_counter()
-    if not os.path.exists(so):
-        nvcc = shutil.which("nvcc") or os.path.join(
-            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, _SRC]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
+    lib = nvcc.load(_SRC)
+    secs, build_log = nvcc.build_logs.get(_SRC, (0.0, build_log))
     fn = lib.fdt_cell_eval
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
                    + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                       ctypes.c_void_p])
     _lib = lib
-    return time.perf_counter() - t0
+    return secs
 
 
 def _launch(spec, ce, ws, consts):

@@ -1,16 +1,18 @@
 """The device that new Functions, assembled tensors and solver state live on.
 
-The caller chooses it: no code in the package probes for a GPU.  The
-default is the CPU, where every kernel wrapper runs its plain PyTorch
-version.  Host-side setup (meshes, dof numbering, tabulations) stays in
-numpy whatever the device.
+The default is the CUDA card; nothing probes for one, and nothing
+carries on on the CPU when there is none.  The CPU is used only when the
+caller asks for it with ``set_device("cpu")`` (the CPU tests do), and
+there every kernel wrapper runs its plain PyTorch version.  Host-side
+setup (meshes, dof numbering, tabulations) stays in numpy whatever the
+device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-_device = [torch.device("cpu")]
+_device = [torch.device("cuda")]
 
 
 def set_device(device):

@@ -5,9 +5,11 @@ Reference: firedrake/solving.py:34 (solve), firedrake/variational_solver.py
 loops of solvers/krylov.py; the `solver_parameters` dict API is kept.
 
 Ported so far: linear problems assembled as operators (mat_type aij)
-with Dirichlet conditions, solved by CG with none/jacobi.  Nonlinear
-problems, matrix-free operators, direct solves, nullspaces,
-hybridization, SCPC and distributed solves raise NotImplementedError.
+with Dirichlet conditions, solved by CG, Richardson or Chebyshev (or
+preonly) with the PCs of solvers/composition.py: none, jacobi, lu, ksp,
+mg (geometric multigrid) and patch; preonly + lu is a host sparse LU.
+Nonlinear problems, matrix-free operators, nullspaces, hybridization,
+SCPC, fieldsplit and distributed solves raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -92,8 +94,16 @@ class LinearVariationalProblem:
         self.constant_jacobian = constant_jacobian
 
 
-_UNPORTED = {"hybridization", "scpc", "mg", "lu", "cholesky", "ilu",
-             "fieldsplit"}
+_UNPORTED = {"hybridization", "scpc", "ilu", "fieldsplit"}
+
+
+def direct_solve(A, b):
+    """Host sparse LU of the assembled operator (the PETSc `preonly` +
+    `lu` role at the outermost level); the solution goes back to b's
+    device."""
+    from scipy.sparse.linalg import spsolve
+    x = spsolve(A.to_scipy().tocsc(), b.detach().cpu().numpy())
+    return torch.as_tensor(x, dtype=b.dtype, device=b.device)
 
 
 class LinearVariationalSolver:
@@ -110,11 +120,11 @@ class LinearVariationalSolver:
         p = self.problem
         params = self.params
         if params.get("pc_type") in _UNPORTED or params.get("distributed") \
-                or params.get("mat_type", "aij") != "aij" \
-                or params.get("ksp_type") == "preonly":
+                or params.get("mat_type", "aij") != "aij":
             raise NotImplementedError(
-                "only mat_type 'aij' with a Krylov method and pc_type "
-                "none/jacobi is ported yet")
+                f"pc_type {params.get('pc_type')!r} / distributed / "
+                "matrix-free solves are not ported yet; ported: mat_type "
+                "'aij' with pc_type none, jacobi, lu, ksp, mg or patch")
         if self.nullspace is not None:
             raise NotImplementedError("nullspaces are not ported yet")
         V = p.u.function_space()
@@ -135,10 +145,28 @@ class LinearVariationalSolver:
             A = A0.with_dirichlet(bc_idx)
         else:
             bvec, A = b, A0
+        if params.get("ksp_type") == "preonly" and \
+                params.get("pc_type") in ("lu", "cholesky"):
+            p.u.dat = direct_solve(A, bvec)
+            self.ksp_iterations = 1
+            self.converged = True
+            return
         from .solvers.composition import OpCtx, build_pc
         ctx = OpCtx(mat=A, space=V, form=p.a, bcs=p.bcs,
                     appctx=self.appctx)
-        pc = build_pc(ctx, params, "")
+        # the GMG hierarchy (level operators, smoothers) is built once per
+        # solver and reused by later solves, as in the JAX package
+        if params.get("pc_type") == "mg":
+            if not hasattr(self, "_gmg"):
+                self._gmg = build_pc(ctx, params, "")
+            pc = self._gmg
+        else:
+            pc = build_pc(ctx, params, "")
+        if params.get("ksp_type") == "preonly":
+            p.u.dat = pc(bvec)
+            self.ksp_iterations = 1
+            self.converged = True
+            return
         res = _run_ksp(A.matvec, bvec, params, pc=pc,
                        x0=as_tensor(p.u.dat))
         p.u.dat = res.x

@@ -19,6 +19,7 @@ from firedrake_tpu_torch.assemble import _assembler_cache as t_cache
 def _few_threads():
     n = torch.get_num_threads()
     torch.set_num_threads(2)
+    T.set_device("cpu")
     yield
     torch.set_num_threads(n)
 

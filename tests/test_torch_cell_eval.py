@@ -30,6 +30,7 @@ from firedrake_tpu_torch.compiler.precision import trace_ctx
 def _few_threads():
     n = torch.get_num_threads()
     torch.set_num_threads(2)
+    T.set_device("cpu")
     yield
     torch.set_num_threads(n)
 

@@ -1,18 +1,25 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version, and
-the launch count.  Marked `cuda`; skips where torch has no CUDA device.
+"""K1 and K2 on the card: each CUDA kernel against its plain PyTorch
+version, and the launch counts.  Marked `cuda`; skips where torch has no CUDA device.
 Run on a machine with an NVIDIA GPU with
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 (--noconftest: tests/conftest.py configures jax, which these tests do not
 use and such a machine need not have).
 """
+import numpy as np
 import pytest
 import torch
 
 import firedrake_tpu_torch as T
 from firedrake_tpu_torch.assemble import FormAssembler
 from firedrake_tpu_torch.compiler import cell_eval as K
+from firedrake_tpu_torch.ops import batched_inverse as BI
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_by_default():
+    T.set_device("cpu")
 
 
 @pytest.fixture
@@ -55,3 +62,18 @@ def test_kernel_matches_plain_on_card(on_cuda, dtype, rtol):
             ref = K.cell_eval_plain(spec, ce, ws, cv)
             err = float((out - ref).abs().max())
             assert err <= rtol * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float64, 1e-12, 0.0),
+                                             (torch.float32, 2e-6, 1e-7)])
+def test_batched_inv_matches_plain_on_card(on_cuda, dtype, rtol, atol):
+    for n in (4, 7, 15, 19, 32):
+        B = np.random.default_rng(n).standard_normal((1000, n, n))
+        A = torch.as_tensor(B @ B.transpose(0, 2, 1) + n * np.eye(n),
+                            dtype=dtype, device="cuda")
+        n0 = BI.kernel_launches
+        out = BI.batched_inv(A)
+        assert BI.kernel_launches == n0 + 1
+        ref = BI.batched_inv_plain(A)
+        err = float((out - ref).abs().max())
+        assert err <= rtol * float(ref.abs().max()) + atol, err

@@ -18,6 +18,7 @@ from firedrake_tpu_torch.compiler.lowering import (_cell_rule as t_rule,
 def _few_threads():
     n = torch.get_num_threads()
     torch.set_num_threads(2)
+    T.set_device("cpu")
     yield
     torch.set_num_threads(n)
 

@@ -1,11 +1,23 @@
 """The PyTorch port imports neither jax nor triton: every module of
 firedrake_tpu_torch is imported in a fresh interpreter and sys.modules is
-inspected afterwards."""
+inspected afterwards.  Its device defaults to the CUDA card, also where
+there is none (nothing probes for one)."""
 import os
 import subprocess
 import sys
 
+import pytest
+import torch
+
+import firedrake_tpu_torch as T
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu():
+    T.set_device("cpu")
+
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -25,3 +37,14 @@ def test_port_imports_no_jax_or_triton():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "", f"port imported: {res.stdout}"
+
+
+def test_device_defaults_to_cuda():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import firedrake_tpu_torch as T; print(T.get_device())"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "cuda"
+    assert T.get_device() == torch.device("cpu")   # this module asked
