@@ -12,14 +12,19 @@ failure raises and the exit code is non-zero):
              nvcc each, concurrently; prints seconds, registers and spills.
 3. kernels — K1 against its plain PyTorch version and the torch
              BatchedLowerer (P1/P2 grad.grad + mass on both triangle types,
-             P2 k*w*grad.grad, tets, f*v); K2 against its plain version on
-             random SPD blocks (n = 4, 7, 15, 19, 32) and on the real star
-             patch matrices of P2 at UnitSquareMesh(512) and P1 at 1024^2.
+             P2 k*w*grad.grad, two Constants and two coefficients, P1 and
+             P2 tets, f*v); K2 against its plain version on random SPD
+             blocks (n = 4, 7, 15, 19, 32) and on the real star patch
+             matrices of P2 at UnitSquareMesh(512) and P1 at 1024^2.
              float64 within 1e-12 max|ref|; float32 within 2e-6 max|ref| +
              1e-7 (K1) and 1e-5 max|ref| (K2); K2 also max|A K2(A) - I| <
-             1e-9 in float64.  Times each kernel, its plain version and
-             (K2) torch.linalg.inv at the main path's shapes with CUDA
-             events, beside the bytes/operations bound.
+             1e-9 in float64.  Times each kernel at the main path's shapes
+             (and P2 tets at UnitCubeMesh(64)) beside the bytes/operations
+             bound: `ms` is device time alone (_device_ms: per-launch CUDA
+             events queued while the card sleeps, L2 flushed before each
+             launch), `call_ms` the time per call of back-to-back calls
+             (host and card together); the plain version and (K2)
+             torch.linalg.inv by call time.
 4. main    — four solves through LinearVariationalSolver, each with every
              launch count set to 0 just before it and read just after:
              the README Helmholtz problem (UnitSquareMesh(1024), P1, CG +
@@ -47,6 +52,7 @@ import torch
 F64_TOL = 1e-12
 F32_RTOL, F32_ATOL = 2e-6, 1e-7
 K2_F32_RTOL = 1e-5
+TET_N = 64                         # UnitCubeMesh of the timed P2-tet K1 row
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = 67e12                 # f32 outside the tensor cores, and f64
                                    # on the tensor cores (data sheet)
@@ -87,8 +93,12 @@ def device_phase():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(smi)
+    from firedrake_tpu_torch.compiler import nvcc
+    ver = subprocess.run([nvcc._nvcc(), "--version"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
+          f"device {torch.cuda.get_device_name(0)} nvcc "
+          f"{ver[-1] if ver else 'not found'}")
     # float32 products in full float32 (no TF32) for the f32 checks
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -108,17 +118,22 @@ def build_phase():
         lines = log.splitlines()
         regs = [int(l.split("Used ")[1].split(" ")[0])
                 for l in lines if "Used " in l]
-        spills = [l.strip() for l in lines
-                  if "spill stores" in l and " 0 bytes spill stores" not in l]
+        spill = [int(l.split(" bytes spill stores")[0].split()[-1])
+                 for l in lines if " bytes spill stores" in l]
         print(f"{name}: build_s {secs:.3f} instantiations {len(regs)} "
               f"max_registers {max(regs) if regs else 'n/a'} "
-              f"instantiations_with_spills {len(spills)}")
-        for l in spills:
-            print(f"  {l}")
+              f"instantiations_with_spills {sum(b > 0 for b in spill)} "
+              f"max_spill_store_bytes {max(spill) if spill else 'n/a'}")
+        for l in lines:
+            if "spill stores" in l and " 0 bytes spill stores" not in l:
+                print(f"  {l.strip()}")
     phase_done("build", t0)
 
 
 def _cuda_ms(fn, reps=20, warm=3):
+    """Call time: CUDA events around `reps` back-to-back calls, per call.
+    Whichever is slower, the host issuing the calls or the card running
+    them, sets it."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -132,13 +147,53 @@ def _cuda_ms(fn, reps=20, warm=3):
     return s.elapsed_time(e) / reps
 
 
+_FLUSH = []
+SLEEP_CYCLES = 10 ** 8          # ~50 ms of the card's clock
+
+
+def _device_ms(fn, reps=20):
+    """Device time of one launch, mean over `reps`: the card first sleeps
+    (torch.cuda._sleep) while the host queues every launch, each between
+    its own pair of events and after a write of 256 MB that evicts the
+    50 MB L2, so each launch finds its inputs in device memory and the
+    card never waits for the host inside an event pair.  The sleep is
+    doubled until the host is done queueing before the card wakes."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(2 ** 25, dtype=torch.float64,
+                                  device="cuda"))
+    fn()
+    cycles = SLEEP_CYCLES
+    for _ in range(4):
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        woke = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        woke.record()
+        for s, e in ev:
+            _FLUSH[0].zero_()
+            s.record()
+            fn()
+            e.record()
+        queued_early = not woke.query()
+        torch.cuda.synchronize()
+        if queued_early:
+            return sum(s.elapsed_time(e) for s, e in ev) / reps
+        cycles *= 2
+    raise AssertionError("the host could not queue the launches before "
+                         "the card woke")
+
+
 def _pair_ms(kernel, plain, reps=20, plain_reps=20):
-    """Mean times of kernel and plain, taken in the order plain, kernel,
-    kernel, plain."""
+    """Device time of the kernel (`ms`), its call time (`call_ms`) and the
+    plain version's call time, in the turns plain, kernel, kernel,
+    plain: each kernel turn takes both the device and the call time."""
     p1 = _cuda_ms(plain, plain_reps, 1)
-    k1, k2 = _cuda_ms(kernel, reps), _cuda_ms(kernel, reps)
+    d1, c1 = _device_ms(kernel, reps), _cuda_ms(kernel, reps)
+    d2, c2 = _device_ms(kernel, reps), _cuda_ms(kernel, reps)
     p2 = _cuda_ms(plain, plain_reps, 1)
-    return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
+    return dict(ms=(d1 + d2) / 2, call_ms=(c1 + c2) / 2,
+                plain_ms=(p1 + p2) / 2, runs=(d1, d2, c1, c2, p1, p2))
 
 
 def _cases(fd, sp):
@@ -163,6 +218,19 @@ def _cases(fd, sp):
     u, v = fd.TrialFunction(V3), fd.TestFunction(V3)
     out.append(("tet P1 grad.grad", fd.inner(fd.grad(u), fd.grad(v))
                 * fd.dx, False))
+    # two Constants and two coefficients (the kernel's quadrature variant)
+    u, v = fd.TrialFunction(V1), fd.TestFunction(V1)
+    f = fd.Function(V1, val=rng.uniform(0.5, 1.5, V1.dim))
+    g = fd.Function(V1, val=rng.uniform(0.5, 1.5, V1.dim))
+    k1, k2 = fd.Constant(1.5), fd.Constant(-0.25)
+    out.append(("P1 k1*k2*f*g*grad.grad+k2*g*mass",
+                (k1 * k2 * f * g * fd.inner(fd.grad(u), fd.grad(v))
+                 + k2 * g * u * v) * fd.dx, False))
+    # P2 tets at UnitCubeMesh(64): 262,144 cells of each of 6 types
+    V4 = fd.FunctionSpace(fd.UnitCubeMesh(TET_N, TET_N, TET_N), "CG", 2)
+    u, v = fd.TrialFunction(V4), fd.TestFunction(V4)
+    out.append(("tet P2 grad.grad+mass", (fd.inner(fd.grad(u), fd.grad(v))
+                                          + fd.inner(u, v)) * fd.dx, True))
     return out
 
 
@@ -203,18 +271,24 @@ def k1_checks(fd, sp):
                     if not ok:
                         raise AssertionError(f"{label}: K1 disagrees")
                     if timed and t == 0:
-                        ms, pms, runs = _pair_ms(
+                        tm = _pair_ms(
                             lambda: K.cell_eval(spec, ce_, ws_, cv_),
-                            lambda: K.cell_eval_plain(spec, ce_, ws_, cv_))
+                            lambda: K.cell_eval_plain(spec, ce_, ws_, cv_),
+                            plain_reps=5)
+                        runs = tm.pop("runs")
                         nbytes = (ce_.numel() + sum(w.numel() for w in ws_)
                                   + k1.numel()) * k1.element_size()
                         row = dict(form=label, dtype=str(dt)[6:],
-                                   C=ce.shape[-1], ms=ms, plain_ms=pms,
+                                   C=ce.shape[-1], mode=spec.mode, **tm,
                                    max_abs_err=e_plain,
                                    bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
                         rows.append(row)
-                        print(f"  time K1 {ms:.4f} ms  plain {pms:.4f} ms "
-                              f"bound {row['bound_ms']:.4f} ms (runs "
+                        print(f"  time K1 device {tm['ms']:.4f} ms  call "
+                              f"{tm['call_ms']:.4f} ms  plain "
+                              f"{tm['plain_ms']:.4f} ms  bound "
+                              f"{row['bound_ms']:.4f} ms  share "
+                              f"{row['bound_ms'] / tm['ms']:.3f} (runs "
+                              "device/device/call/call/plain/plain "
                               + "/".join(f"{x:.4f}" for x in runs) + ")")
                         if main is None:
                             main = row
@@ -272,23 +346,27 @@ def k2_checks(fd, sp):
             A = A64.to(dt)
             err = _k2_compare(BI, lab, A)
             nb, n = A.shape[0], A.shape[-1]
-            ms, pms, runs = _pair_ms(lambda: BI.batched_inv(A),
-                                     lambda: BI.batched_inv_plain(A),
-                                     reps=20, plain_reps=3)
+            tm = _pair_ms(lambda: BI.batched_inv(A),
+                          lambda: BI.batched_inv_plain(A),
+                          reps=20, plain_reps=3)
+            runs = tm.pop("runs")
             lib1 = _cuda_ms(lambda: torch.linalg.inv(A), 3, 1)
             lib2 = _cuda_ms(lambda: torch.linalg.inv(A), 3, 1)
             bytes_ms = 1e3 * 2 * A.numel() * A.element_size() \
                 / HBM_BYTES_PER_S
-            ops_ms = 1e3 * 4 * n ** 3 * nb / PEAK_FLOPS
-            row = dict(shape=list(A.shape), dtype=str(dt)[6:], ms=ms,
-                       plain_ms=pms, library_ms=(lib1 + lib2) / 2,
+            ops_ms = 1e3 * 2 * n ** 3 * nb / PEAK_FLOPS
+            row = dict(shape=list(A.shape), dtype=str(dt)[6:], **tm,
+                       library_ms=(lib1 + lib2) / 2,
                        bound_ms=max(bytes_ms, ops_ms),
                        bound_by="bytes" if bytes_ms >= ops_ms
                        else "operations", max_abs_err=err)
             rows[(lab, row["dtype"])] = row
-            print(f"  time K2 {ms:.4f} ms  plain {pms:.4f} ms  "
+            print(f"  time K2 device {tm['ms']:.4f} ms  call "
+                  f"{tm['call_ms']:.4f} ms  plain {tm['plain_ms']:.4f} ms  "
                   f"torch.linalg.inv {row['library_ms']:.4f} ms  bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) (runs "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})  share "
+                  f"{row['bound_ms'] / tm['ms']:.3f} (runs device/device/"
+                  "call/call/plain/plain/lib/lib "
                   + "/".join(f"{x:.4f}" for x in runs + (lib1, lib2))
                   + ")")
         del A64, A
@@ -571,6 +649,7 @@ def main():
          "launches_by_path": {k: c.k1 for k, c in used.items()},
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"],
+         "call_ms": k1["call_ms"],
          "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"],
          "bound_by": "bytes",
@@ -584,6 +663,7 @@ def main():
          "launches_by_path": {k: c.k2 for k, c in used.items()},
          "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"],
+         "call_ms": k2["call_ms"],
          "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"],

@@ -96,7 +96,7 @@ class FormAssembler:
             raise NotImplementedError(_GATHER_ROUTE)
 
     def _inputs(self):
-        coords = as_tensor(self.mesh.coordinates.dat)
+        coords = self.mesh.device_coordinates()
         coeffs = {c.count: as_tensor(c.dat) for c in self.coefficients}
         consts = {c.count: as_tensor(c.values()) for c in self.constants}
         return coords, coeffs, consts

@@ -3,17 +3,21 @@
 Replaces ``firedrake_tpu/compiler/pallas_eval.py`` (``pallas_cell_eval``
 and its dispatcher ``run_cell_kernel``).  The TPU kernel evaluates any
 traced cell-last kernel inside one ``pallas_call``; on Hopper the work
-per cell is small dense algebra of odd sizes (3 or 6 dofs, 3, 6 or 12
-quadrature points), which a thread per cell with unrolled loops fits,
-so the kernel here (``csrc/cell_eval.cu``, CUDA C++) computes a fixed
-form family instead of replaying a trace:
+per cell is small dense algebra of odd sizes (3, 6, 4 or 10 dofs), which
+a thread per cell with unrolled loops fits, so the kernel here
+(``csrc/cell_eval.cu``, CUDA C++) computes a fixed form family instead
+of replaying a trace, in one of two variants (``FamilySpec.mode``):
+forms without coefficients contract reference tensors precomputed here
+with each cell's geometry, forms with coefficients sum over quadrature
+points.  The family:
 
 * affine simplices (triangles, tetrahedra) with P1 coordinates;
 * scalar Lagrange P1/P2 test and trial spaces;
 * integrands that are sums of ``c * prod(w) * inner(grad u, grad v)``,
   ``c * prod(w) * u * v`` (rank 2) or ``c * prod(w) * v`` (rank 1), where
-  ``c`` is a product of literals and scalar Constants and ``prod(w)`` a
-  product of at most two scalar Lagrange Functions on the same mesh.
+  ``c`` is a product of literals and at most two scalar Constants (four
+  in the integral) and ``prod(w)`` a product of at most two scalar
+  Lagrange Functions on the same mesh.
 
 This covers the README's Helmholtz problem and Dirichlet Poisson.
 ``family_spec`` recognises the family from a ``CompiledIntegral``;
@@ -49,8 +53,15 @@ lowerer_evals = 0
 MASS, GRADGRAD, LOAD = 0, 1, 2
 MAX_TERMS = 4
 MAX_COEFFS = 2
-_SPEC_INTS = 30
-_SMEM_LIMIT = 48 * 1024
+MAX_CONSTS = 4
+#: Constants in one term
+PER_TERM = 2
+# the kernel's two variants and ref_kernel's term-kind bits
+# (csrc/cell_eval.cu)
+REF, QUAD = 0, 1
+_REF_MASS, _REF_GRAD = 1, 2
+_SPEC_INTS = 46
+_HEAD = MAX_TERMS + 12
 
 _SRC = nvcc.source("cell_eval.cu")
 
@@ -60,7 +71,12 @@ class FamilySpec:
     """One cell integral of the family: its terms and host tables.
 
     terms: tuple of (kind, literal, const_idx, coeff_idx) where the
-    indices point into ci.constants / ci.coefficients."""
+    indices point into ci.constants / ci.coefficients.
+
+    mode: REF for forms without coefficients (and equal test and trial
+    spaces): the kernel contracts precomputed reference tensors with the
+    cell's geometry; QUAD otherwise: the kernel sums over quadrature
+    points."""
 
     def __init__(self, ci, tdim, terms):
         self.tdim = tdim
@@ -86,8 +102,12 @@ class FamilySpec:
             tabs[f"w{k}"] = _tables_at(c.space.element, pts, 0)[0]
             self.wdof.append(c.space.element.ndof)
         self.host_tables = tabs
+        self.mode = REF if (not any(cidx for *_, cidx in self.terms)
+                            and self.nj in (1, self.ni)) else QUAD
+        self.kernel_ints, self.kernel_doubles = self._kernel_spec()
         self._dev_tables = {}
-        self._blob = {}
+        self._dev_quad = {}
+        self._launch_args = {}
 
     # --- tables on the device, built once per (dtype, device)
     def tables(self, dtype, device):
@@ -98,39 +118,89 @@ class FamilySpec:
                 for k, v in self.host_tables.items()}
         return self._dev_tables[key]
 
-    def blob(self, dtype, device):
-        """(flat table tensor, int32 spec array) for the CUDA kernel."""
+    _QUAD_ORDER = ("wq", "bt", "bs", "dt", "ds", "w0", "w1")
+
+    def quad_tables(self, dtype, device):
+        """Flat table tensor of the QUAD variant, in _QUAD_ORDER."""
         key = (dtype, str(device))
-        if key not in self._blob:
-            order = ["wq", "cgrad", "bt", "dt", "bs", "ds", "w0", "w1"]
-            offs, parts, n = {}, [], 0
-            for name in order:
-                a = self.host_tables.get(name)
-                offs[name] = n
-                if a is not None:
-                    parts.append(np.asarray(a, dtype=np.float64).ravel())
-                    n += parts[-1].size
-            flat = np.concatenate(parts)
-            spec = np.zeros(_SPEC_INTS, dtype=np.int32)
-            spec[0], spec[1], spec[2] = len(self.terms), self.nq, \
-                len(self.wdof)
-            spec[3:3 + len(self.wdof)] = self.wdof
-            for t, (kind, _, _, cidx) in enumerate(self.terms):
-                spec[5 + 4 * t] = kind
-                spec[6 + 4 * t] = len(cidx)
-                spec[7 + 4 * t:7 + 4 * t + len(cidx)] = cidx
-            spec[21:29] = [offs[k] for k in order]
-            spec[29] = n
-            if n * torch.finfo(dtype).bits // 8 > _SMEM_LIMIT:
-                raise ValueError(f"cell_eval tables ({n} values) exceed "
-                                 "the kernel's shared memory")
-            self._blob[key] = (torch.as_tensor(flat, dtype=dtype,
-                                               device=device), spec)
-        return self._blob[key]
+        if key not in self._dev_quad:
+            flat = np.concatenate([
+                np.asarray(self.host_tables[k], dtype=np.float64).ravel()
+                for k in self._QUAD_ORDER if k in self.host_tables])
+            self._dev_quad[key] = torch.as_tensor(flat, dtype=dtype,
+                                                  device=device)
+        return self._dev_quad[key]
+
+    def reference_tensors(self):
+        """(kinds, values) of the REF variant: for each entry (i, j) of
+        the upper triangle (rank 2) or each i (rank 1), the reference mass
+        value sum_q w_q phi_i phi_j if the form has mass terms, then the
+        stiffness values sum_q w_q (dphi_i/dX_t dphi_j/dX_s + [t != s]
+        dphi_i/dX_s dphi_j/dX_t) for t <= s if it has grad.grad terms."""
+        tb = self.host_tables
+        w = np.asarray(tb["wq"])
+        if self.nj == 1:
+            return _REF_MASS, np.einsum("q,qi->i", w, tb["bt"])[:, None]
+        kinds = 0
+        for kind, *_ in self.terms:
+            kinds |= _REF_GRAD if kind == GRADGRAD else _REF_MASS
+        iu, ju = np.triu_indices(self.ni)
+        cols = []
+        if kinds & _REF_MASS:
+            M = np.einsum("q,qi,qj->ij", w, tb["bt"], tb["bs"])
+            cols.append(M[iu, ju][:, None])
+        if kinds & _REF_GRAD:
+            D = np.einsum("q,qit,qjs->ijts", w, tb["dt"], tb["ds"])
+            for t in range(self.tdim):
+                for s in range(t, self.tdim):
+                    R = D[:, :, t, s] + (D[:, :, s, t] if s != t else 0.0)
+                    cols.append(R[iu, ju][:, None])
+        return kinds, np.concatenate(cols, axis=1)
+
+    def _kernel_spec(self):
+        """(int32 spec, float64 values) of csrc/cell_eval.cu's Args."""
+        ints = np.zeros(_SPEC_INTS, dtype=np.int32)
+        ints[0] = self.mode
+        ints[2], ints[3], ints[4] = len(self.terms), self.nq, len(self.wdof)
+        ints[5:5 + len(self.wdof)] = self.wdof
+        lits = np.zeros(MAX_TERMS)
+        for t, (kind, lit, kidx, cidx) in enumerate(self.terms):
+            row = ints[7 + 7 * t:14 + 7 * t]
+            row[0], row[1], row[4] = kind, len(kidx), len(cidx)
+            row[2:2 + len(kidx)] = kidx
+            row[5:5 + len(cidx)] = cidx
+            lits[t] = lit
+        n = 0
+        for k, name in enumerate(self._QUAD_ORDER):
+            ints[35 + k] = n
+            n += np.size(self.host_tables.get(name, ()))
+        ref = np.zeros(0)
+        if self.mode == REF:
+            ints[1], ref = self.reference_tensors()
+        ints[42] = ref.size
+        ints[43:46] = self.tdim, self.ni, self.nj
+        cgrad = np.zeros(12)
+        cgrad[:np.size(self.host_tables["cgrad"])] = np.ravel(
+            self.host_tables["cgrad"])
+        return ints, np.concatenate([lits, cgrad, ref.ravel()])
+
+    def launch_args(self, dtype, device):
+        """The launch's arguments that depend on the form, the dtype and
+        the device only, in fdt_cell_eval's order."""
+        key = (dtype, device)
+        if key not in self._launch_args:
+            tab = (self.quad_tables(dtype, device).data_ptr()
+                   if self.mode == QUAD else None)
+            ints, dbl = self.kernel_ints, self.kernel_doubles
+            self._launch_args[key] = (
+                int(dtype == torch.float64), tab, ints.ctypes.data,
+                len(ints), dbl.ctypes.data, len(dbl))
+        return self._launch_args[key]
 
     def term_scales(self, consts, dtype, device):
         """(MAX_TERMS,) tensor: literal * product of the term's Constants,
-        computed on the device (no host read of Constant values)."""
+        computed on the device (no host read of Constant values); the
+        plain version's, the kernel multiplies them itself."""
         vals = []
         for kind, lit, kidx, _ in self.terms:
             v = torch.full((), lit, dtype=dtype, device=device)
@@ -194,7 +264,7 @@ def _match_term(term, ci, rank):
             grads += 1
         else:
             return None
-    if len(cidx) > MAX_COEFFS:
+    if len(cidx) > MAX_COEFFS or len(kidx) > PER_TERM:
         return None
     if rank == 2 and grads == 1 and not args:
         kind = GRADGRAD
@@ -232,7 +302,8 @@ def _build_spec(ci):
     if len(ci.coefficients) > MAX_COEFFS or not all(
             _scalar_lagrange(c.space, mesh) for c in ci.coefficients):
         return None
-    if any(c.shape != () for c in ci.constants):
+    if len(ci.constants) > MAX_CONSTS or any(c.shape != ()
+                                             for c in ci.constants):
         return None
     rank = 1 if ci.trial is None else 2
     terms = []
@@ -290,6 +361,9 @@ def cell_eval_plain(spec, ce, ws, consts):
 
 # --------------------------------------------------------- the CUDA kernel
 _lib = None
+#: fdt_cell_eval's pointer arguments: coordinates, two coefficients, the
+#: QUAD tables, the output, the Constants
+_Ptrs = ctypes.c_void_p * (5 + MAX_CONSTS)
 #: compiler output of the last build (ptxas register/spill report)
 build_log = ""
 
@@ -305,41 +379,49 @@ def build():
     secs, build_log = nvcc.build_logs.get(_SRC, (0.0, build_log))
     fn = lib.fdt_cell_eval
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
-                   + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
     _lib = lib
     return secs
 
 
 def _launch(spec, ce, ws, consts):
+    """One kernel launch; the only tensor operation is the output's
+    allocation (inputs already of the kernel's dtype and contiguous, as
+    the assembler passes them, are used as they are)."""
     global kernel_launches
     dt = _compute_dtype(ce.dtype)
     C = ce.shape[-1]
-    if tuple(ce.shape) != (spec.tdim + 1, spec.tdim, C):
+    if ce.shape != (spec.tdim + 1, spec.tdim, C):
         raise ValueError(f"cell_eval: coordinates {tuple(ce.shape)} are not "
                          f"({spec.tdim + 1}, {spec.tdim}, C)")
     if len(ws) != len(spec.wdof) or any(
-            tuple(w.shape) != (n, C) for w, n in zip(ws, spec.wdof)):
+            w.shape != (n, C) for w, n in zip(ws, spec.wdof)):
         raise ValueError("cell_eval: coefficient inputs do not match the "
                          "form")
-    if any(w.device != ce.device for w in ws):
-        raise ValueError("cell_eval: inputs on different devices")
-    build()
-    ce = ce.to(dt).contiguous()
-    ws = [w.to(dt).contiguous() for w in ws]
-    tab, ints = spec.blob(dt, ce.device)
-    cterm = spec.term_scales(consts, dt, ce.device)
-    out = torch.empty((spec.ni, spec.nj, C), dtype=dt, device=ce.device)
-    w0 = ws[0] if ws else ce
-    w1 = ws[1] if len(ws) > 1 else w0
-    with torch.cuda.device(ce.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib.fdt_cell_eval(
-            int(dt == torch.float64), spec.tdim, spec.ni, spec.nj,
-            ce.data_ptr(), w0.data_ptr(), w1.data_ptr(), cterm.data_ptr(),
-            tab.data_ptr(), out.data_ptr(), C,
-            ints.ctypes.data_as(ctypes.c_void_p), len(ints), stream)
+    dev = ce.device
+    if any(x.device != dev for x in ws) or any(
+            k.device != dev or k.numel() != 1 for k in consts):
+        raise ValueError("cell_eval: coefficients and scalar Constants "
+                         "must be on the coordinates' device")
+    if _lib is None:
+        build()
+    if ce.dtype != dt or not ce.is_contiguous():
+        ce = ce.to(dt).contiguous()
+    ws = [w if w.dtype == dt and w.is_contiguous() else w.to(dt).contiguous()
+          for w in ws]
+    consts = [k if k.dtype == dt else k.to(dt) for k in consts]
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(spec, ce, ws, consts)
+    out = ce.new_empty((spec.ni, spec.nj, C))
+    is_double, tab, ints, nints, dbl, ndbl = spec.launch_args(dt, dev)
+    ptrs = _Ptrs(ce.data_ptr(), ws[0].data_ptr() if ws else None,
+                 ws[1].data_ptr() if len(ws) > 1 else None, tab,
+                 out.data_ptr(), *[k.data_ptr() for k in consts])
+    rc = _lib.fdt_cell_eval(is_double, ptrs, C, ints, nints, dbl, ndbl,
+                            nvcc.current_stream(dev))
     if rc != 0:
         raise RuntimeError(f"cell_eval kernel launch failed: code {rc}")
     kernel_launches += 1

@@ -15,6 +15,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -22,6 +24,13 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 #: per source path: (build seconds, nvcc output with the ptxas report) of
 #: the build made by this process
 build_logs: dict = {}
+
+
+def current_stream(device):
+    """Handle of PyTorch's current stream on a CUDA device, as an int for
+    a kernel's launch (the raw query; ``torch.cuda.current_stream``
+    builds a Python Stream object on every call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def source(name):

@@ -8,23 +8,52 @@
 // vertex-star patch smoothers (solvers/preconditioners.py), with n = 7
 // (P1 triangles), 15 (P1 Kuhn tets) and 19 (P2 triangles).
 //
-// What bounds it: bytes on paper, shared memory in this design.  Each
-// matrix is read once and its inverse written once (2 n^2 values), while
-// the elimination does about 4 n^3 flops: 19 x 19 in float64 moves 5.8 kB
-// for 27 kflop.  Design: one warp per matrix.  The warp stages [A | I]
-// (n rows of 2n values) in shared memory with coalesced loads; each lane
-// owns the columns lane and lane + 32 of it.  Step k copies column k into
-// a small buffer, then every lane scales the pivot row entries of its
-// columns by 1 / A[k][k] and eliminates them from every other row, with a
-// __syncwarp() between the copy and the update and after the update; the
-// warp needs no block-level barrier.  The right half is written back
-// coalesced.  The sequential dependence between pivot steps stays inside
-// the warp; the batch spreads over warps and SMs.
+// What bounds it: bytes on paper (each matrix read once and its inverse
+// written once, 2 n^2 values, against 2 n^3 multiplies and subtractions),
+// and in practice the latency of the n dependent pivot steps of each
+// matrix.  The design attacks the latency:
+//
+// * In place on n x n.  After pivot step k, column k of the eliminated
+//   matrix is a unit column and column k of the inverse is the only new
+//   column, so the inverse's column k is stored where A's was.  The
+//   operations this skips are exact in IEEE arithmetic (x * 0, 0 - p,
+//   1 * r), so every stored value is rounded exactly as in the plain
+//   version on [A | I] (ops/batched_inverse.py: batched_inv_plain),
+//   signed zeros aside.
+// * Registers.  One lane holds one row of one matrix; floor(32 / n)
+//   matrices share a warp (4 at n = 7, 2 at n = 15, 1 at n = 19).  A row
+//   lives in NB registers, n rounded up to a multiple of 4 (eight
+//   template buckets).  Registers cannot be indexed at run time, so the
+//   row rotates: at step k column j sits at position (j - k) mod NB, the
+//   pivot column at a position fixed at compile time.  The steps run as a
+//   loop over groups of four unrolled steps with one rotation per group;
+//   unrolling all NB steps instead (the first version of this design)
+//   made a body of ~4k instructions at NB = 32 and took 2.19 ms where
+//   this takes 1.23 ms (chip_smoke.py on an H100, float64, n = 19), most
+//   likely because the instruction cache refilled on every matrix.  At step k the lane
+//   holding row k scales it and writes it to a small per-matrix buffer in
+//   shared memory (two buffers, alternating, so one __syncwarp() per step
+//   orders writer and readers); the other lanes read it back as 16-byte
+//   vectors and update their rows.  A shuffle moves 4 bytes, so a double
+//   row broadcast by shuffles would cost two per value, more issue slots
+//   than the arithmetic it feeds.
+// * Loads that overlap the elimination.  A persistent grid (as many
+//   blocks as fit on the SMs) walks the batch in chunks of one matrix
+//   group per warp.  Each block copies the next chunk into shared memory
+//   with cp.async while it eliminates the current one (two buffers), and
+//   each warp writes its results back through shared memory, coalesced.
 //
 // Rounding: the products and differences use the _rn intrinsics, so nvcc
-// contracts nothing into an FMA and each value is rounded as in the plain
-// PyTorch version (ops/batched_inverse.py: batched_inv_plain), the same
-// order of operations as _gj_kernel.
+// contracts nothing into an FMA, and 1 / pivot is the correctly rounded
+// reciprocal; the result equals the plain version bit for bit.  An FMA
+// in the update gives other roundings for less than 10% less time
+// (scripts/torch_k2_fma.py), too little to give up exact agreement.
+//
+// What bounds it now: issue slots and the latency of the pivot steps.
+// In float64 at n = 19 each step costs a warp ~2n f64 operations for
+// 19 busy lanes of 32, about 0.36 ms of the f64 pipe for the batch
+// against 0.45 ms of bytes; the rest is the serial pivot-lane work
+// (reciprocal, scaling, the write) that the other lanes wait for.
 //
 // Interface: plain C, called through ctypes.  The launch goes on the
 // caller's stream and is not synchronised; the return value is
@@ -35,7 +64,9 @@
 namespace {
 
 constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
 constexpr int kMaxN = 32;
+constexpr int kGroup = 4;  // pivot steps between two register rotations
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
@@ -49,68 +80,245 @@ __device__ __forceinline__ float sub_rn(float a, float b) {
 __device__ __forceinline__ double sub_rn(double a, double b) {
   return __dsub_rn(a, b);
 }
+__device__ __forceinline__ float rcp_rn(float a) { return __frcp_rn(a); }
+__device__ __forceinline__ double rcp_rn(double a) { return __drcp_rn(a); }
 
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// 16-byte moves of a pivot row between registers and shared memory.
+__device__ __forceinline__ void put16(double* dst, const double* v) {
+  *reinterpret_cast<double2*>(dst) = make_double2(v[0], v[1]);
+}
+__device__ __forceinline__ void put16(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void get16(double* v, const double* src) {
+  const double2 x = *reinterpret_cast<const double2*>(src);
+  v[0] = x.x;
+  v[1] = x.y;
+}
+__device__ __forceinline__ void get16(float* v, const float* src) {
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+
+// The pivot-row buffer of one matrix: NB values, padded so that 16-byte
+// reads stay aligned and the matrices of a warp start on other banks.
+template <typename T, int NB>
+__host__ __device__ constexpr int pivot_stride() {
+  return NB + 16 / (int)sizeof(T);
+}
+
+// Copy chunk `ch` (matrices [ch * per_chunk, ...) clipped to nb) into
+// shared memory; every thread of the block takes part.
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-    gj_inverse_kernel(const T* __restrict__ a, T* __restrict__ out,
-                      long long nb, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int w2 = 2 * n;
-  T* M = reinterpret_cast<T*>(smem_raw) + (size_t)warp * (n * w2 + n);
-  T* col = M + n * w2;
-  const long long p = (long long)blockIdx.x * kWarps + warp;
-  if (p >= nb) return;  // the whole warp leaves together
-  const T* src = a + p * n * n;
-  for (int e = lane; e < n * n; e += 32) {
-    const int i = e / n, j = e - i * n;
-    M[i * w2 + j] = src[e];
-    M[i * w2 + n + j] = (i == j) ? T(1) : T(0);
+__device__ __forceinline__ void stage(T* buf, const T* __restrict__ a,
+                                      long long ch, int per_chunk, int nn,
+                                      long long nb) {
+  const long long first = ch * per_chunk;
+  long long count = nb - first;
+  if (count > per_chunk) count = per_chunk;
+  const long long elems = count * nn;
+  const T* src = a + first * nn;
+  for (long long e = threadIdx.x; e < elems; e += kThreads)
+    cp_async(buf + e, src + e, (int)sizeof(T));
+}
+
+// One pivot step, the pivot column at register position P: the lane
+// holding the pivot row scales it by the correctly rounded 1 / pivot and
+// writes it to `row`; every other lane of the matrix eliminates.  The
+// padding positions (n <= p < NB) hold values that never meet a column.
+template <int P, typename T, int NB>
+__device__ __forceinline__ void gj_step(T (&r)[NB], T* row, bool pivot,
+                                        bool other) {
+  constexpr int V = 16 / (int)sizeof(T);  // values per 16-byte move
+  if (pivot) {
+    const T inv = rcp_rn(r[P]);
+    r[P] = T(1);  // 1 * inv == inv: the inverse's entry (k, k)
+#pragma unroll
+    for (int p = 0; p < NB; ++p) r[p] = mul_rn(r[p], inv);
+#pragma unroll
+    for (int p = 0; p < NB; p += V) put16(row + p, r + p);
   }
   __syncwarp();
-  for (int k = 0; k < n; ++k) {
-    if (lane < n) col[lane] = M[lane * w2 + k];
-    __syncwarp();
-    const T inv_piv = T(1) / col[k];
-    for (int c = lane; c < w2; c += 32) {
-      const T r = mul_rn(M[k * w2 + c], inv_piv);
-      for (int i = 0; i < n; ++i)
-        M[i * w2 + c] =
-            (i == k) ? r : sub_rn(M[i * w2 + c], mul_rn(col[i], r));
+  if (other) {
+    const T c = r[P];
+    r[P] = T(0);  // 0 - c * inv: the inverse's entry (i, k)
+#pragma unroll
+    for (int p = 0; p < NB; p += V) {
+      T x[V];
+      get16(x, row + p);
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        r[p + v] = sub_rn(r[p + v], mul_rn(c, x[v]));
     }
-    __syncwarp();
-  }
-  T* dst = out + p * n * n;
-  for (int e = lane; e < n * n; e += 32) {
-    const int i = e / n, j = e - i * n;
-    dst[e] = M[i * w2 + n + j];
   }
 }
 
-template <typename T>
+// Move every value U register positions down, cyclically.
+template <int U, typename T, int NB>
+__device__ __forceinline__ void rotate(T (&r)[NB]) {
+  T t[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) t[u] = r[u];
+#pragma unroll
+  for (int p = 0; p + U < NB; ++p) r[p] = r[p + U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) r[NB - U + u] = t[u];
+}
+
+template <typename T, int NB>
+__global__ void __launch_bounds__(kThreads)
+    gj_inverse_kernel(const T* __restrict__ a, T* __restrict__ out,
+                      long long nb, int n, long long nchunks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int PS = pivot_stride<T, NB>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int G = 32 / n;              // matrices per warp
+  const int per_chunk = kWarps * G;  // matrices per chunk
+  const int nn = n * n;
+  T* bufs = reinterpret_cast<T*>(smem_raw);
+  T* pivots = bufs + 2 * per_chunk * nn;
+  // two alternating pivot-row buffers per matrix of this warp
+  T* pw = pivots + (size_t)warp * 2 * G * PS;
+  const int m = lane / n, i = lane - (lane / n) * n;  // matrix, row
+  const bool active = m < G;
+
+  long long ch = blockIdx.x;
+  stage(bufs, a, ch, per_chunk, nn, nb);
+  cp_async_commit();
+  stage(bufs + per_chunk * nn, a, ch + gridDim.x, per_chunk, nn, nb);
+  cp_async_commit();
+  for (int t = 0; ch < nchunks; ch += gridDim.x, ++t) {
+    T* buf = bufs + (t & 1) * per_chunk * nn;
+    cp_async_wait_one();  // this chunk's copy is done (the next may run)
+    __syncthreads();
+
+    T* mine = buf + (size_t)(warp * G + (active ? m : 0)) * nn + i * n;
+    T* prow = pw + (active ? m : 0) * PS;  // + (k & 1) * G * PS at step k
+    T r[NB];
+#pragma unroll
+    for (int p = 0; p < NB; ++p) r[p] = (active && p < n) ? mine[p] : T(0);
+
+    // At the start of step k, column j sits at register position
+    // (j - k) mod NB: the pivot column is at a position known at compile
+    // time, and the loop over steps stays a loop (a short body instead
+    // of NB unrolled steps, which overflowed the instruction cache).
+    int k = 0;
+#pragma unroll 1
+    for (; k + kGroup <= n; k += kGroup) {
+      gj_step<0>(r, prow + (k & 1) * G * PS, active && i == k,
+                 active && i != k);
+      gj_step<1>(r, prow + ((k + 1) & 1) * G * PS, active && i == k + 1,
+                 active && i != k + 1);
+      gj_step<2>(r, prow + (k & 1) * G * PS, active && i == k + 2,
+                 active && i != k + 2);
+      gj_step<3>(r, prow + ((k + 1) & 1) * G * PS, active && i == k + 3,
+                 active && i != k + 3);
+      rotate<kGroup>(r);
+    }
+#pragma unroll 1
+    for (; k < n; ++k) {
+      gj_step<0>(r, prow + (k & 1) * G * PS, active && i == k,
+                 active && i != k);
+      rotate<1>(r);
+    }
+
+    // results back through this warp's part of the buffer, coalesced
+    if (active) {
+#pragma unroll
+      for (int p = 0; p < NB; ++p) {
+        const int j = p + n < NB ? p + n : p + n - NB;  // (p + n) mod NB
+        if (j < n) mine[j] = r[p];
+      }
+    }
+    __syncwarp();
+    const long long first = ch * per_chunk + warp * G;
+    long long count = nb - first;
+    if (count > G) count = G;
+    if (count > 0) {
+      const T* src = buf + (size_t)warp * G * nn;
+      T* dst = out + first * nn;
+      for (long long e = lane; e < count * nn; e += 32) dst[e] = src[e];
+    }
+    __syncthreads();  // every warp is done with this buffer
+    stage(buf, a, ch + 2 * (long long)gridDim.x, per_chunk, nn, nb);
+    cp_async_commit();
+  }
+}
+
+template <typename T, int NB>
 int launch(const void* a, void* out, long long nb, int n,
            cudaStream_t stream) {
-  const size_t smem = (size_t)kWarps * (n * 2 * n + n) * sizeof(T);
+  const int G = 32 / n, per_chunk = kWarps * G;
+  const size_t smem =
+      (2 * (size_t)per_chunk * n * n + (size_t)kWarps * 2 * G *
+                                           pivot_stride<T, NB>()) *
+      sizeof(T);
+  auto kernel = gj_inverse_kernel<T, NB>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gj_inverse_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const long long blocks = (nb + kWarps - 1) / kWarps;
-  gj_inverse_kernel<T><<<(unsigned)blocks, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<T*>(out), nb, n);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return -4;
+  const long long nchunks = (nb + per_chunk - 1) / per_chunk;
+  long long blocks = (long long)sms * per_sm;
+  if (blocks > nchunks) blocks = nchunks;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<T*>(out), nb, n, nchunks);
   return (int)cudaGetLastError();
+}
+
+// Row lengths in registers: n rounded up to a multiple of 4 (whole
+// 16-byte moves in both types).
+template <typename T>
+int launch_bucket(const void* a, void* out, long long nb, int n,
+                  cudaStream_t s) {
+  switch ((n + 3) / 4) {
+    case 1: return launch<T, 4>(a, out, nb, n, s);
+    case 2: return launch<T, 8>(a, out, nb, n, s);
+    case 3: return launch<T, 12>(a, out, nb, n, s);
+    case 4: return launch<T, 16>(a, out, nb, n, s);
+    case 5: return launch<T, 20>(a, out, nb, n, s);
+    case 6: return launch<T, 24>(a, out, nb, n, s);
+    case 7: return launch<T, 28>(a, out, nb, n, s);
+    default: return launch<T, 32>(a, out, nb, n, s);
+  }
 }
 
 }  // namespace
 
 extern "C" int fdt_batched_inv(int is_double, const void* a, void* out,
                                long long nb, int n, void* stream) {
-  if (nb <= 0 || n < 1 || n > kMaxN ||
-      (nb + kWarps - 1) / kWarps > 2147483647LL)
-    return -2;
+  if (nb <= 0 || n < 1 || n > kMaxN) return -2;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? launch<double>(a, out, nb, n, s)
-                   : launch<float>(a, out, nb, n, s);
+  return is_double ? launch_bucket<double>(a, out, nb, n, s)
+                   : launch_bucket<float>(a, out, nb, n, s);
 }

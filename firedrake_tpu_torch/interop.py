@@ -36,9 +36,10 @@ def load_reference_state(mapping, cell_node_maps=None):
         value = np.asarray(value)
         if isinstance(obj, Mesh):
             coords = obj.coordinates
-            if value.size != coords.dat.size:
+            size = int(np.prod(coords.dat.shape))
+            if value.size != size:
                 raise ValueError(f"coordinates of size {value.size} for a "
-                                 f"mesh with {coords.dat.size}")
+                                 f"mesh with {size}")
             coords.dat = value.astype(np.float64).reshape(-1)
         elif isinstance(obj, Function):
             if value.shape != (obj.function_space().dim,):

@@ -110,7 +110,7 @@ def interpolate_onto(expr, f: Function):
     if key not in _interp_cache:
         _interp_cache[key] = _build(expr, V)
     run, coeffs, consts = _interp_cache[key]
-    coords_dat = as_tensor(V.mesh_obj.coordinates.dat)
+    coords_dat = V.mesh_obj.device_coordinates()
     coeff_dats = {c.count: as_tensor(c.dat) for c in coeffs}
     const_vals = {c.count: as_tensor(c.values()) for c in consts}
     f.dat = run(coords_dat, coeff_dats, const_vals)

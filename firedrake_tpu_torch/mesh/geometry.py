@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 from functools import cached_property
 
+from ..device import as_tensor, get_device, to_numpy
 from .topology import MeshTopology, _IDX
 
 
@@ -105,17 +106,50 @@ class Mesh:
     #: downstream geometry quantity — J, detJ, normals, facet measures —
     #: is evaluated per quadrature point through this element)
     _coord_degree = 1
+    #: the coordinates Function after an assignment whose host mirror
+    #: (_vertex_coords, _cell_coords) is not rebuilt yet
+    _pending_coords = None
+    #: bumped by every assignment to ``coordinates.dat``; keys the
+    #: device copy of device_coordinates()
+    _coord_version = 0
+
+    # Host geometry.  After ``mesh.coordinates.dat = value`` both are
+    # rebuilt from the value on their first read, with one host copy.
+    @property
+    def _vertex_coords(self):
+        if self._pending_coords is not None:
+            self._pull_coords()
+        return self._vc
+
+    @_vertex_coords.setter
+    def _vertex_coords(self, value):
+        self._vc = value
+
+    @property
+    def _cell_coords(self):
+        """Per-cell vertex coordinates of DG-coordinate (periodic) meshes;
+        None on meshes with continuous coordinates."""
+        if self._pending_coords is not None:
+            self._pull_coords()
+        return self.__dict__.get("_cc")
+
+    @_cell_coords.setter
+    def _cell_coords(self, value):
+        self._cc = value
 
     @cached_property
     def coordinates(self):
         """Vector P1/Q1 (or DG1) Function holding coordinates.
 
         Assigning ``mesh.coordinates.dat = ...`` (mesh movement — the
-        reference's ``mesh.coordinates.assign`` idiom) writes the new
-        vertex positions back to the mesh's host-side geometry, so
-        supermeshing, point location, refinement, and cell volumes see
-        the moved mesh, not the construction-time one (round-5 fix:
-        distorted-supermesh conservation caught the staleness)."""
+        reference's ``mesh.coordinates.assign`` idiom) takes a numpy array
+        or a tensor on any device.  It marks the host geometry stale: the
+        vertex and cell coordinates and the cell volumes are rebuilt from
+        the new value on their first host read, so supermeshing, point
+        location, refinement and cell volumes see the moved mesh.  The
+        assemblers read ``device_coordinates()``, copied to the device
+        once per assignment.  Changes made in place to the dat, without an
+        assignment, are seen by neither."""
         from ..functionspace import VectorFunctionSpace
         from ..function import Function
 
@@ -130,7 +164,7 @@ class Mesh:
             def dat(self, value):
                 self._dat = value
                 if getattr(self, "_sync_mesh", None) is not None:
-                    mesh._sync_coords(self)
+                    mesh._coords_assigned(self)
 
         V = VectorFunctionSpace(self, self._coord_family,
                                 self._coord_degree,
@@ -151,10 +185,27 @@ class Mesh:
         f._sync_mesh = True
         return f
 
-    def _sync_coords(self, f):
-        """Mirror a coordinates-Function update into the host geometry
-        and drop coordinate-derived caches."""
-        dat = np.asarray(f.dat, dtype=np.float64)
+    def _coords_assigned(self, f):
+        """Mark the host geometry and the device copy stale after an
+        assignment to the coordinates Function ``f``."""
+        self._pending_coords = f
+        self._coord_version += 1
+        self.__dict__.pop("cell_volumes", None)
+
+    def device_coordinates(self):
+        """The coordinates Function's dat as a tensor on the set device,
+        copied there once per assignment (and per device)."""
+        key = (self._coord_version, get_device())
+        hit = self.__dict__.get("_dev_coords")
+        if hit is None or hit[0] != key:
+            hit = (key, as_tensor(self.coordinates.dat))
+            self._dev_coords = hit
+        return hit[1]
+
+    def _pull_coords(self):
+        """Rebuild the host geometry from the assigned coordinates."""
+        f, self._pending_coords = self._pending_coords, None
+        dat = np.asarray(to_numpy(f.dat), dtype=np.float64)
         g = self.geometric_dimension
         if self._coord_family == "Lagrange":
             self._vertex_coords = dat.reshape(-1, g).copy()
@@ -325,7 +376,7 @@ def make_mesh_from_coordinates(coord_fn, name=None):
     fam = elem.sub.family
     fam = "DG" if "Discontinuous" in fam else "Lagrange"
     degree = elem.sub.degree
-    nodes = np.array(np.asarray(coord_fn.dat),
+    nodes = np.array(to_numpy(coord_fn.dat),
                      dtype=np.float64).reshape(-1, gdim)
     m = Mesh(old.topology, np.asarray(old._vertex_coords),
              np.asarray(old.facet_markers),

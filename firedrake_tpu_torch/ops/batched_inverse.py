@@ -11,8 +11,10 @@ Role: the dense local inverses behind the patch smoothers
 * CPU tensors: ``batched_inv_plain``, the TPU kernel's Gauss-Jordan without
   pivoting, transcribed to torch in the same order of operations;
 * CUDA tensors with 4 <= n <= 32: the hand-written kernel
-  (``csrc/batched_inv.cu``, one warp per matrix), counted in
-  ``kernel_launches``; larger n raises.
+  (``csrc/batched_inv.cu``: in-place elimination, one row per lane,
+  floor(32 / n) matrices per warp), counted in ``kernel_launches``; it
+  rounds as ``batched_inv_plain`` does, so the two agree bit for bit up
+  to signed zeros; larger n raises.
 
 Unlike the JAX package there is no ``force_pallas``/``interpret`` switch and
 no padding of the batch to a multiple of 256: the kernel takes any batch.
@@ -30,7 +32,7 @@ __all__ = ["batched_inv", "batched_solve", "batched_inv_plain"]
 
 #: launches of the CUDA kernel (counted where it launches, nowhere else)
 kernel_launches = 0
-#: largest n the kernel takes (one warp owns the 2n columns of [A | I])
+#: largest n the kernel takes (a lane holds a row, a warp has 32 lanes)
 MAX_N = 32
 
 _SRC = nvcc.source("batched_inv.cu")
@@ -89,10 +91,10 @@ def _launch(A):
         return out.reshape(A.shape)
     build()
     with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
         rc = _lib.fdt_batched_inv(int(A.dtype == torch.float64),
                                   A2.data_ptr(), out.data_ptr(),
-                                  A2.shape[0], n, stream)
+                                  A2.shape[0], n,
+                                  nvcc.current_stream(A.device))
     if rc != 0:
         raise RuntimeError(f"batched_inv kernel launch failed: code {rc}")
     kernel_launches += 1

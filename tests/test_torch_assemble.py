@@ -131,3 +131,49 @@ def test_function_assign_and_bc_zero_match_jax():
     _close(bct.apply(ht.dat), bcj.apply(hj.dat), 0)
     z = ht.copy().zero()
     assert not z.dat.any() and ht.dat.any()
+
+
+def test_moved_mesh_matches_jax():
+    """mesh.coordinates.dat = moved vertices, in both packages: the
+    assembled operator and load before and after the move, and the host
+    cell volumes after it (rtol 1e-12).  The port copies the coordinates
+    to the device once per assignment and reuses that copy."""
+    disp = 0.03 * np.random.default_rng(3).standard_normal((81, 2))
+    out = {}
+    for fd in (J, T):
+        mesh = fd.UnitSquareMesh(8, 8)
+        V = fd.FunctionSpace(mesh, "CG", 1)
+        u, v = fd.TrialFunction(V), fd.TestFunction(V)
+        x, y = fd.SpatialCoordinate(mesh)
+        f = fd.Function(V).interpolate(fd.cos(2 * fd.pi * x) * y)
+        a = (fd.inner(fd.grad(u), fd.grad(v)) + fd.inner(u, v)) * fd.dx
+        L = fd.inner(f, v) * fd.dx
+        before = (fd.assemble(a).channels, fd.assemble(L).dat)
+        X = np.asarray(mesh.coordinates.dat).reshape(-1, 2)
+        mesh.coordinates.dat = (X + disp * X * (1 - X)).reshape(-1)
+        if fd is T:
+            c1 = mesh.device_coordinates()
+            assert mesh.device_coordinates() is c1      # reused
+        after = (fd.assemble(a).channels, fd.assemble(L).dat)
+        if fd is T:
+            assert mesh.device_coordinates() is c1      # not copied again
+        out[fd] = before + after + (mesh.cell_volumes,)
+    for ours, ref in zip(out[T], out[J]):
+        _close(ours, ref, 1e-12)
+    assert not np.allclose(_np(out[T][0]), _np(out[T][2]))   # it moved
+
+
+def test_coordinates_take_a_tensor():
+    """A tensor assigned to mesh.coordinates.dat reaches the host geometry
+    on its first read, and the assembly on the device."""
+    m1, m2 = T.UnitSquareMesh(4, 4), T.UnitSquareMesh(4, 4)
+    X = np.asarray(m1.coordinates.dat) * 1.5
+    m1.coordinates.dat = X
+    m2.coordinates.dat = torch.as_tensor(X)
+    assert m2._pending_coords is not None               # lazy until read
+    assert np.array_equal(m2.cell_volumes, m1.cell_volumes)
+    assert m2._pending_coords is None
+    assert np.array_equal(m2._vertex_coords, m1._vertex_coords)
+    forms = [T.inner(T.TestFunction(T.FunctionSpace(m, "CG", 1)),
+                     T.Constant(1.0)) * T.dx for m in (m1, m2)]
+    _close(T.assemble(forms[1]).dat, T.assemble(forms[0]).dat, 0)

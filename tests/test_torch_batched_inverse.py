@@ -72,3 +72,36 @@ def test_kernel_limits_raise():
     with pytest.raises(ValueError, match="square"):
         BI.batched_inv(torch.zeros(2, 4, 5))
     assert BI.kernel_launches == n0
+
+
+def _in_place_gj(A):
+    """The CUDA kernel's arithmetic, step by step, in torch: in-place
+    Gauss-Jordan on n x n.  At step k the pivot row is set to 1 at k and
+    scaled by the correctly rounded 1 / pivot; every other row i takes
+    c = S[i, k], sets S[i, k] = 0 and subtracts c times the pivot row,
+    each product and difference rounded on its own (no FMA)."""
+    S = A.clone()
+    n = S.shape[-1]
+    for k in range(n):
+        inv = 1.0 / S[:, k, k]
+        piv = S[:, k, :].clone()
+        piv[:, k] = 1.0
+        piv = piv * inv[:, None]
+        c = S[:, :, k].clone()
+        S[:, :, k] = 0.0
+        S = S - c[:, :, None] * piv[:, None, :]
+        S[:, k, :] = piv
+    return S
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_in_place_order_equals_plain_bit_for_bit(dt):
+    """The kernel's in-place elimination skips only exact operations of
+    the plain [A | I] version (x * 0, 0 - p, 1 * r), so for every n the
+    kernel takes the two give the same rounded numbers, signed zeros
+    aside (cleared by adding 0.0)."""
+    for n in range(4, 33):
+        A = torch.as_tensor(_spd((24,), n, seed=100 + n), dtype=dt)
+        ours = _in_place_gj(A) + 0.0
+        ref = BI.batched_inv_plain(A) + 0.0
+        assert torch.equal(ours, ref), n

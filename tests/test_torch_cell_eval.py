@@ -219,3 +219,116 @@ def test_chunked_lowerer_equals_unchunked():
     # per-cell arithmetic is the same; einsum may block a shorter cell
     # axis differently, so the sums agree to roundoff
     torch.testing.assert_close(chunked, full, rtol=1e-14, atol=0)
+
+
+def _emulate_kernel(spec, ce, ws, consts):
+    """csrc/cell_eval.cu's arithmetic in numpy, reading only what the
+    kernel reads: the int32 spec, the float64 values (literals, reference
+    gradients, reference tensors) and the QUAD table by its offsets."""
+    ints, dbl = spec.kernel_ints, spec.kernel_doubles
+    d, ni, nj = spec.tdim, spec.ni, spec.nj
+    ce, ws = ce.numpy(), [w.numpy() for w in ws]
+    consts = [float(c) for c in consts]
+    cgrad = dbl[4:4 + (d + 1) * d].reshape(d + 1, d)
+    Jc = np.einsum("kgc,kt->cgt", ce, cgrad)
+    Ji = np.linalg.inv(Jc)                                  # (c, t, g)
+    adet = np.abs(np.linalg.det(Jc))
+    Kf = np.einsum("ctg,csg->cts", Ji, Ji)
+    terms = []
+    for t in range(ints[2]):
+        kind, nk, k0, k1, nw, w0, w1 = ints[7 + 7 * t:14 + 7 * t]
+        s = dbl[t] * np.prod([consts[k] for k in (k0, k1)[:nk]])
+        terms.append((kind, s, (w0, w1)[:nw]))
+    out = np.zeros((ni, nj, ce.shape[-1]))
+    if ints[0] == K.REF:
+        ref = dbl[16:].reshape(ni if nj == 1 else ni * (ni + 1) // 2, -1)
+        cm = sum(s for kind, s, _ in terms if kind != K.GRADGRAD)
+        cg = sum(s for kind, s, _ in terms if kind == K.GRADGRAD)
+        ks = [Kf[:, t, s] for t in range(d) for s in range(t, d)]
+        pairs = ([(i, 0) for i in range(ni)] if nj == 1 else
+                 [(i, j) for i in range(ni) for j in range(i, nj)])
+        for p, (i, j) in enumerate(pairs):
+            col, a = 0, 0.0
+            if ints[1] & 1:
+                a, col = cm * adet * ref[p, 0], 1
+            if ints[1] & 2:
+                a = a + cg * adet * sum(r * k for r, k in
+                                        zip(ref[p, col:], ks))
+            out[i, j] = a
+            if nj > 1:
+                out[j, i] = a
+        return out
+    tab = spec.quad_tables(torch.float64, "cpu").numpy()
+    o_wq, o_bt, o_bs, o_dt, o_ds, o_w0, o_w1 = ints[35:42]
+    nq, wdof = ints[3], ints[5:7]
+    wq = tab[o_wq:o_wq + nq]
+    bt = tab[o_bt:o_bt + nq * ni].reshape(nq, ni)
+    wv = [np.einsum("qj,jc->qc", tab[o:o + nq * wdof[k]].reshape(nq, -1),
+                    ws[k]) for k, o in enumerate((o_w0, o_w1)[:ints[4]])]
+    fm, fg = np.zeros((nq, ce.shape[-1])), np.zeros((nq, ce.shape[-1]))
+    for kind, s, widx in terms:
+        f = s * np.prod([wv[k] for k in widx], axis=0) if widx else s
+        if kind == K.GRADGRAD:
+            fg = fg + f
+        else:
+            fm = fm + f
+    fm, fg = fm * wq[:, None] * adet, fg * wq[:, None] * adet
+    if nj == 1:
+        return np.einsum("qc,qi->ic", fm, bt)[:, None]
+    bs = tab[o_bs:o_bs + nq * nj].reshape(nq, nj)
+    dt = tab[o_dt:o_dt + nq * ni * d].reshape(nq, ni, d)
+    ds = tab[o_ds:o_ds + nq * nj * d].reshape(nq, nj, d)
+    return (np.einsum("qc,qi,qj->ijc", fm, bt, bs)
+            + np.einsum("qc,qit,cts,qjs->ijc", fg, dt, Kf, ds))
+
+
+KERNEL_FORMS = [f"{c}_p{d}_{k}" for c in ("tri", "tet") for d in (1, 2)
+                for k in ("gradgrad_mass", "consts", "two_coeffs",
+                          "load_two_coeffs", "load_const")]
+
+
+def _kernel_forms():
+    out = {}
+    for cube, deg in ((False, 1), (False, 2), (True, 1), (True, 2)):
+        mesh = (T.UnitCubeMesh(2, 2, 2) if cube else T.UnitSquareMesh(3, 4))
+        V = T.FunctionSpace(mesh, "CG", deg)
+        W = T.FunctionSpace(mesh, "CG", 3 - deg)
+        u, v = T.TrialFunction(V), T.TestFunction(V)
+        f, g = T.Function(V), T.Function(W)
+        rng = np.random.default_rng(deg + 2 * cube)
+        f.dat = rng.uniform(0.5, 1.5, V.dim)
+        g.dat = rng.uniform(0.5, 1.5, W.dim)
+        k1, k2 = T.Constant(1.5), T.Constant(-0.25)
+        tag = f"{'tet' if cube else 'tri'}_p{deg}"
+        out[f"{tag}_gradgrad_mass"] = (
+            (T.inner(T.grad(u), T.grad(v)) + T.inner(u, v)) * T.dx, K.REF)
+        out[f"{tag}_consts"] = (
+            (k1 * k2 * T.inner(T.grad(u), T.grad(v)) - 2.0 * k1 * u * v)
+            * T.dx, K.REF)
+        out[f"{tag}_two_coeffs"] = (
+            (k1 * f * g * T.inner(T.grad(u), T.grad(v)) + k2 * g * u * v)
+            * T.dx, K.QUAD)
+        out[f"{tag}_load_two_coeffs"] = (
+            (k1 * k2 * f * g * v + 3.0 * f * v) * T.dx, K.QUAD)
+        out[f"{tag}_load_const"] = (k2 * v * T.dx, K.REF)
+    return out
+
+
+@pytest.mark.parametrize("name", KERNEL_FORMS)
+def test_kernel_arithmetic_matches_plain(name):
+    """The kernel's two variants, emulated from the arrays it is handed,
+    equal the plain version within 1e-12 max|ref| (float64): this checks
+    the reference tensors, the spec layout and the table offsets on the
+    CPU, for P1/P2 on triangles and tets, two Constants and two
+    coefficients."""
+    form, mode = _kernel_forms()[name]
+    asm = TFA(form)
+    coords, coeffs, consts = asm._inputs()
+    for ci in asm._compiled:
+        spec = K.family_spec(ci)
+        assert spec is not None and spec.mode == mode, name
+        cv = tuple(consts[c.count] for c in ci.constants)
+        ce, ws = asm._stencil.gather_cell_inputs(0, coords, coeffs, ci)
+        ref = K.cell_eval_plain(spec, ce, ws, cv).numpy()
+        ours = _emulate_kernel(spec, ce, ws, cv)
+        assert np.abs(ours - ref).max() <= 1e-12 * np.abs(ref).max()

@@ -32,15 +32,28 @@ def on_cuda():
 
 
 def _forms():
+    """Forms of K1's two variants; the meshes of 37^2 and 5 x 7 x 3 cells
+    per type are not multiples of the kernel's cells per block."""
     out = []
-    for deg, n in ((1, 64), (2, 32)):
-        V = T.FunctionSpace(T.UnitSquareMesh(n, n), "CG", deg)
+    for deg, mesh in ((1, T.UnitSquareMesh(64, 64)),
+                      (2, T.UnitSquareMesh(32, 32)),
+                      (1, T.UnitSquareMesh(37, 37)),
+                      (2, T.UnitCubeMesh(5, 7, 3))):
+        V = T.FunctionSpace(mesh, "CG", deg)
         u, v = T.TrialFunction(V), T.TestFunction(V)
         w = T.Function(V, val=torch.linspace(0.5, 1.5, V.dim,
                                                 dtype=torch.float64))
+        g = T.Function(V, val=torch.linspace(2.0, 1.0, V.dim,
+                                                dtype=torch.float64))
+        k1, k2 = T.Constant(1.5), T.Constant(-0.25)
         out += [(T.inner(T.grad(u), T.grad(v)) + u * v) * T.dx,
                 T.Constant(3.0) * w * T.inner(T.grad(u), T.grad(v)) * T.dx,
-                w * v * T.dx]
+                w * v * T.dx,
+                (k1 * k2 * T.inner(T.grad(u), T.grad(v)) - k1 * u * v)
+                * T.dx,
+                (k1 * w * g * T.inner(T.grad(u), T.grad(v))
+                 + k2 * g * u * v) * T.dx,
+                (k1 * k2 * w * g * v + 3.0 * w * v) * T.dx]
     return out
 
 
@@ -77,3 +90,35 @@ def test_batched_inv_matches_plain_on_card(on_cuda, dtype, rtol, atol):
         ref = BI.batched_inv_plain(A)
         err = float((out - ref).abs().max())
         assert err <= rtol * float(ref.abs().max()) + atol, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_inv_every_n_and_ragged_batches_on_card(on_cuda, dtype):
+    """Every n the kernel takes, at batch sizes that fill no warp, chunk
+    or block: the kernel rounds as the plain version does, so the two are
+    equal (signed zeros cleared by adding 0.0)."""
+    for n in range(4, 33):
+        for nb in (1, 3, 4097):
+            B = np.random.default_rng(n * nb).standard_normal((nb, n, n))
+            A = torch.as_tensor(B @ B.transpose(0, 2, 1) + n * np.eye(n),
+                                dtype=dtype, device="cuda")
+            out = BI.batched_inv(A) + 0.0
+            ref = BI.batched_inv_plain(A) + 0.0
+            assert torch.equal(out, ref), (n, nb)
+
+
+def test_moving_the_mesh_with_a_cuda_tensor(on_cuda):
+    """mesh.coordinates.dat = a CUDA tensor, then assembly, equals the
+    same move made with a CPU tensor."""
+    out = []
+    for dev in ("cpu", "cuda"):
+        mesh = T.UnitSquareMesh(16, 16)
+        V = T.FunctionSpace(mesh, "CG", 1)
+        u, v = T.TrialFunction(V), T.TestFunction(V)
+        X = torch.as_tensor(np.asarray(T.UnitSquareMesh(16, 16)
+                                       ._vertex_coords)).reshape(-1)
+        mesh.coordinates.dat = (X * 1.25 + 0.5).to(dev)
+        A = T.assemble((T.inner(T.grad(u), T.grad(v)) + u * v) * T.dx)
+        out.append((A.channels.cpu(), mesh.cell_volumes))
+    assert torch.allclose(out[0][0], out[1][0], rtol=1e-12, atol=0)
+    assert np.array_equal(out[0][1], out[1][1])
