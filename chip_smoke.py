@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # the card run (needs CUDA)
-    python3 chip_smoke.py --cpu-rehearsal # the GMG solves on the CPU only
+    python3 chip_smoke.py --cpu-rehearsal [label ...]
+                                          # the GMG solves on the CPU only
 
 Phases of the card run (each prints its own lines and its seconds; any
 failure raises and the exit code is non-zero):
@@ -36,6 +37,20 @@ failure raises and the exit code is non-zero):
              Chebyshev(2) + vertex-star patch, whose patch solves are K2).
              Each checks convergence, the relative residual, the nodal
              error, that the solution is on the card, and the launches.
+5. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
+             -lap u = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on the
+             boundary, P2 on MeshHierarchy(UnitCubeMesh(8), 4) (12,582,912
+             tets, 16,974,593 dofs), CG + GMG (Chebyshev(2) + Jacobi) with
+             mat_type matfree and mg_matfree_threshold 2e4: levels 1-4 are
+             matrix-free (K1's action variant), level 0 (4,913 dofs) an
+             assembled operator with a dense coarse inverse.  Prints the
+             stage times, the fine-level matvec time, the peak device
+             memory, the relative residual (matrix-free operator) and the
+             nodal error, and fails on a residual above 1e-10, a nodal
+             error at or above 1e-7, the lowerer used in the solve, or an
+             iteration count more than one from the CPU rehearsal.  Then
+             K1's action variant at one fine-level cell type (C =
+             2,097,152) against its plain version, timed as in phase 3.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -67,11 +82,20 @@ GMG = {
                                    "pc_type": "mg",
                                    "mg_levels_ksp_type": "chebyshev",
                                    "mg_levels_pc_type": "patch"}),
+    # the nodal error of P2 here falls as h^4 (7.5e-4, 5.0e-5, 3.2e-6 at
+    # 8^3, 16^3, 32^3 cubes on the CPU), ~1e-8 expected at 128^3
+    "gmg_p2_tet_16m": dict(n0=8, levels=4, degree=2, dim=3, err=1e-7,
+                           params={"ksp_type": "cg", "ksp_rtol": 1e-10,
+                                   "pc_type": "mg", "mat_type": "matfree",
+                                   "mg_matfree_threshold": 2e4}),
 }
+# the main phase's GMG solves; the last one has a phase of its own
+MAIN_GMG = ("gmg_p1_1m", "gmg_star_p2_1m")
 # Iterations of the same solves on the CPU (python3 chip_smoke.py
 # --cpu-rehearsal, run on the 8-core host of an H100 machine); the card
 # must agree within one.
-CPU_REHEARSAL_ITS = {"gmg_p1_1m": 10, "gmg_star_p2_1m": 6}
+CPU_REHEARSAL_ITS = {"gmg_p1_1m": 10, "gmg_star_p2_1m": 6,
+                     "gmg_p2_tet_16m": 11}
 
 
 def phase(name):
@@ -218,6 +242,12 @@ def _cases(fd, sp):
     u, v = fd.TrialFunction(V3), fd.TestFunction(V3)
     out.append(("tet P1 grad.grad", fd.inner(fd.grad(u), fd.grad(v))
                 * fd.dx, False))
+    # K1's action variant (matrix-free matvecs): action(a, z)
+    for lab, V in (("P1", V1), ("P2", V2), ("tet P1", V3)):
+        u, v = fd.TrialFunction(V), fd.TestFunction(V)
+        z = fd.Function(V, val=rng.standard_normal(V.dim))
+        out.append((f"{lab} action grad.grad+mass", fd.action(
+            (fd.inner(fd.grad(u), fd.grad(v)) + u * v) * fd.dx, z), False))
     # two Constants and two coefficients (the kernel's quadrature variant)
     u, v = fd.TrialFunction(V1), fd.TestFunction(V1)
     f = fd.Function(V1, val=rng.uniform(0.5, 1.5, V1.dim))
@@ -231,14 +261,84 @@ def _cases(fd, sp):
     u, v = fd.TrialFunction(V4), fd.TestFunction(V4)
     out.append(("tet P2 grad.grad+mass", (fd.inner(fd.grad(u), fd.grad(v))
                                           + fd.inner(u, v)) * fd.dx, True))
+    z = fd.Function(V4, val=rng.standard_normal(V4.dim))
+    out.append(("tet P2 action grad.grad", fd.action(
+        fd.inner(fd.grad(u), fd.grad(v)) * fd.dx, z), False))
     return out
+
+
+def _k1_flops(K, spec, C):
+    """Floating-point operations of one K1 launch over C cells, counted
+    from the kernel's loops: one multiply-add per reference-tensor value
+    (REF; ACT adds the two updates of y per pair), or per point the
+    coefficients' values and the element entries (QUAD)."""
+    nref = len(spec.kernel_doubles) - K._HEAD
+    if spec.mode == K.REF:
+        return 2 * nref * C
+    pairs = spec.ni * (spec.ni + 1) // 2
+    if spec.mode == K.ACT:
+        return 2 * (nref + 2 * pairs) * C
+    d = spec.tdim
+    per_q = 2 * sum(spec.wdof) + 2 * spec.ni * spec.nj * (1 + d * (d + 1))
+    return per_q * spec.nq * C
+
+
+def _k1_compare(K, label, t, spec, ci, ce, ws, cv, timed):
+    """K1 against its plain version and the BatchedLowerer on one cell
+    type, in float64 and float32; with `timed`, also its times beside the
+    bytes/operations bound.  Returns the timed rows."""
+    from firedrake_tpu_torch.compiler.precision import trace_ctx
+    rows = []
+    for dt in (torch.float64, torch.float32):
+        ce_, ws_ = ce.to(dt), tuple(w.to(dt) for w in ws)
+        cv_ = tuple(c.to(dt) for c in cv)
+        k1 = K.cell_eval(spec, ce_, ws_, cv_)
+        plain = K.cell_eval_plain(spec, ce_, ws_, cv_)
+        with trace_ctx(None if dt == torch.float64 else dt):
+            low = ci.cell_kernel_batched()(ce_, ws_, cv_)
+        torch.cuda.synchronize()
+        ref = float(plain.abs().max())
+        e_plain = float((k1 - plain).abs().max())
+        e_low = float((k1 - low).abs().max())
+        del low
+        tol = (F64_TOL * ref if dt == torch.float64
+               else F32_RTOL * ref + F32_ATOL)
+        ok = e_plain <= tol and e_low <= tol
+        print(f"{label:22s} type {t} {str(dt)[6:]:8s} "
+              f"C={ce.shape[-1]:8d} err_vs_plain {e_plain:.3e} "
+              f"err_vs_lowerer {e_low:.3e} max|ref| {ref:.3e} "
+              f"tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: K1 disagrees")
+        if not timed:
+            continue
+        tm = _pair_ms(lambda: K.cell_eval(spec, ce_, ws_, cv_),
+                      lambda: K.cell_eval_plain(spec, ce_, ws_, cv_),
+                      plain_reps=5)
+        runs = tm.pop("runs")
+        nbytes = (ce_.numel() + sum(w.numel() for w in ws_)
+                  + k1.numel()) * k1.element_size()
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * _k1_flops(K, spec, ce.shape[-1]) / PEAK_FLOPS
+        row = dict(form=label, dtype=str(dt)[6:], C=ce.shape[-1],
+                   mode=spec.mode, **tm, max_abs_err=e_plain,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        rows.append(row)
+        print(f"  time K1 device {tm['ms']:.4f} ms  call "
+              f"{tm['call_ms']:.4f} ms  plain {tm['plain_ms']:.4f} ms  "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
+              f"{bytes_ms:.4f} operations {ops_ms:.4f})  share "
+              f"{row['bound_ms'] / tm['ms']:.3f} (runs "
+              "device/device/call/call/plain/plain "
+              + "/".join(f"{x:.4f}" for x in runs) + ")")
+    return rows
 
 
 def k1_checks(fd, sp):
     from firedrake_tpu_torch.assemble import FormAssembler
     from firedrake_tpu_torch.compiler import cell_eval as K
-    from firedrake_tpu_torch.compiler.precision import trace_ctx
-    rows, main = [], None
+    rows = []
     for label, form, timed in _cases(fd, sp):
         asm = FormAssembler(form)
         coords, coeffs, consts = asm._inputs()
@@ -250,52 +350,12 @@ def k1_checks(fd, sp):
             for t in range(asm._stencil.ntypes):
                 ce, ws = asm._stencil.gather_cell_inputs(t, coords, coeffs,
                                                          ci)
-                for dt in (torch.float64, torch.float32):
-                    ce_, ws_ = ce.to(dt), tuple(w.to(dt) for w in ws)
-                    cv_ = tuple(c.to(dt) for c in cv)
-                    k1 = K.cell_eval(spec, ce_, ws_, cv_)
-                    plain = K.cell_eval_plain(spec, ce_, ws_, cv_)
-                    with trace_ctx(None if dt == torch.float64 else dt):
-                        low = ci.cell_kernel_batched()(ce_, ws_, cv_)
-                    torch.cuda.synchronize()
-                    ref = float(plain.abs().max())
-                    e_plain = float((k1 - plain).abs().max())
-                    e_low = float((k1 - low).abs().max())
-                    tol = (F64_TOL * ref if dt == torch.float64
-                           else F32_RTOL * ref + F32_ATOL)
-                    ok = e_plain <= tol and e_low <= tol
-                    print(f"{label:22s} type {t} {str(dt)[6:]:8s} "
-                          f"C={ce.shape[-1]:8d} err_vs_plain {e_plain:.3e} "
-                          f"err_vs_lowerer {e_low:.3e} max|ref| {ref:.3e} "
-                          f"tol {tol:.3e} {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise AssertionError(f"{label}: K1 disagrees")
-                    if timed and t == 0:
-                        tm = _pair_ms(
-                            lambda: K.cell_eval(spec, ce_, ws_, cv_),
-                            lambda: K.cell_eval_plain(spec, ce_, ws_, cv_),
-                            plain_reps=5)
-                        runs = tm.pop("runs")
-                        nbytes = (ce_.numel() + sum(w.numel() for w in ws_)
-                                  + k1.numel()) * k1.element_size()
-                        row = dict(form=label, dtype=str(dt)[6:],
-                                   C=ce.shape[-1], mode=spec.mode, **tm,
-                                   max_abs_err=e_plain,
-                                   bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
-                        rows.append(row)
-                        print(f"  time K1 device {tm['ms']:.4f} ms  call "
-                              f"{tm['call_ms']:.4f} ms  plain "
-                              f"{tm['plain_ms']:.4f} ms  bound "
-                              f"{row['bound_ms']:.4f} ms  share "
-                              f"{row['bound_ms'] / tm['ms']:.3f} (runs "
-                              "device/device/call/call/plain/plain "
-                              + "/".join(f"{x:.4f}" for x in runs) + ")")
-                        if main is None:
-                            main = row
+                rows += _k1_compare(K, label, t, spec, ci, ce, ws, cv,
+                                    timed and t == 0)
         del asm
     torch.cuda.synchronize()
     print("k1_timings " + json.dumps(rows))
-    return main
+    return rows[0]
 
 
 def _spd(nb, n, seed, dtype):
@@ -441,6 +501,8 @@ class _StageTimes:
                "GMGPreconditioner"),
               ("level_assembly", "firedrake_tpu_torch.assemble",
                "assemble"),
+              ("level_diagonal", "firedrake_tpu_torch.assemble",
+               "FormAssembler.assemble_diagonal"),
               ("patch_setup", "firedrake_tpu_torch.solvers.preconditioners",
                "make_star_patch"),
               ("k2", "firedrake_tpu_torch.ops.batched_inverse",
@@ -451,11 +513,14 @@ class _StageTimes:
         import importlib
         self.secs = {name: 0.0 for name, _, _ in self.STAGES}
         self.saved = []
-        for name, mod, attr in self.STAGES:
-            m = importlib.import_module(mod)
-            fn = getattr(m, attr)
-            self.saved.append((m, attr, fn))
-            setattr(m, attr, self._timed(name, fn))
+        for name, mod, path in self.STAGES:
+            owner = importlib.import_module(mod)
+            *outer, attr = path.split(".")
+            for o in outer:
+                owner = getattr(owner, o)
+            fn = getattr(owner, attr)
+            self.saved.append((owner, attr, fn))
+            setattr(owner, attr, self._timed(name, fn))
         return self
 
     def _timed(self, name, fn):
@@ -470,16 +535,29 @@ class _StageTimes:
             setattr(m, attr, fn)
 
 
-def _gmg_problem(fd, n0, levels, degree, params, **_):
+def _max_rss_gib():
+    """Peak resident memory of this process so far (Linux: ru_maxrss in
+    KiB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def _gmg_problem(fd, n0, levels, degree, params, dim=2, **_):
+    """-lap u = dim pi^2 prod sin(pi x_k), u = 0 on the boundary of the
+    unit square or cube, with f interpolated into V (K1's load form)."""
     t0 = time.perf_counter()
-    hier = fd.MeshHierarchy(fd.UnitSquareMesh(n0, n0), levels)
+    base = (fd.UnitCubeMesh(n0, n0, n0) if dim == 3
+            else fd.UnitSquareMesh(n0, n0))
+    hier = fd.MeshHierarchy(base, levels)
     hier_s = time.perf_counter() - t0
     mesh = hier.meshes[-1]
     V = fd.FunctionSpace(mesh, "CG", degree)
     u, v = fd.TrialFunction(V), fd.TestFunction(V)
-    x, y = fd.SpatialCoordinate(mesh)
-    f = fd.Function(V).interpolate(2 * fd.pi ** 2 * fd.sin(fd.pi * x)
-                                   * fd.sin(fd.pi * y))
+    X = fd.SpatialCoordinate(mesh)
+    s = fd.sin(fd.pi * X[0])
+    for k in range(1, dim):
+        s = s * fd.sin(fd.pi * X[k])
+    f = fd.Function(V).interpolate(dim * fd.pi ** 2 * s)
     a = fd.inner(fd.grad(u), fd.grad(v)) * fd.dx
     L = fd.inner(f, v) * fd.dx
     bc = fd.DirichletBC(V, 0, "on_boundary")
@@ -487,13 +565,19 @@ def _gmg_problem(fd, n0, levels, degree, params, **_):
     solver = fd.LinearVariationalSolver(
         fd.LinearVariationalProblem(a, L, uh, bcs=bc),
         solver_parameters=params)
-    exact = fd.Function(V).interpolate(fd.sin(fd.pi * x)
-                                       * fd.sin(fd.pi * y))
+    exact = fd.Function(V).interpolate(s)
     return hier_s, hier, a, L, bc, uh, solver, exact
 
 
-def _rel_residual(fd, a, L, bc, uh):
-    A = fd.assemble(a, bcs=bc)
+def _rel_residual(fd, a, L, bc, uh, matfree=False):
+    """||b - A u|| / ||b||, A with the Dirichlet rows as identity: the
+    assembled operator, or the matrix-free one (at 17M dofs the assembled
+    P2-tet operator would hold ~65 channel planes)."""
+    if matfree:
+        from firedrake_tpu_torch.assembly.matfree import MatrixFreeOperator
+        A = MatrixFreeOperator(a).with_dirichlet(bc.dof_indices)
+    else:
+        A = fd.assemble(a, bcs=bc)
     b = fd.assemble(L, bcs=bc).dat
     return float(torch.linalg.vector_norm(b - A.matvec(uh.dat))
                  / torch.linalg.vector_norm(b))
@@ -501,15 +585,20 @@ def _rel_residual(fd, a, L, bc, uh):
 
 def gmg_run(fd, label):
     cfg = GMG[label]
+    matfree = cfg["params"].get("mat_type") == "matfree"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     hier_s, hier, a, L, bc, uh, solver, exact = _gmg_problem(fd, **cfg)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     nsmoothed = len(hier) - 1
     with _Counts() as counts, _StageTimes() as st:
         _, first_s = _sync_time(solver.solve)
     its = solver.ksp_iterations
-    rel = _rel_residual(fd, a, L, bc, uh)
+    peak = torch.cuda.max_memory_allocated()
+    rel = _rel_residual(fd, a, L, bc, uh, matfree)
     _check(label, uh, solver, exact, cfg["err"], counts,
            k2=nsmoothed if "patch" in cfg["params"].values() else 0)
     sec = st.secs
@@ -517,22 +606,34 @@ def gmg_run(fd, label):
           f"problem_setup_s {setup_s:.3f} (hierarchy included) "
           f"first_solve_s {first_s:.3f} "
           f"pc_setup_s {sec['pc_setup']:.3f} level_assembly_s "
-          f"{sec['level_assembly']:.3f} patch_setup_s "
+          f"{sec['level_assembly']:.3f} level_diagonal_s "
+          f"{sec['level_diagonal']:.3f} patch_setup_s "
           f"{sec['patch_setup']:.3f} k2_s {sec['k2']:.4f} solve_s "
-          f"{sec['solve']:.4f} ms_per_iteration "
-          f"{1e3 * sec['solve'] / max(its, 1):.4f} rel_residual {rel:.3e}")
+          f"{sec['solve']:.4f} iterations {its} ms_per_iteration "
+          f"{1e3 * sec['solve'] / max(its, 1):.4f} rel_residual {rel:.3e} "
+          f"max_memory_allocated setup {setup_peak} "
+          f"({setup_peak / 2 ** 30:.3f} GiB) solve {peak} "
+          f"({peak / 2 ** 30:.3f} GiB, PC set-up included) "
+          f"host_max_rss_gib {_max_rss_gib():.2f}")
     if not rel <= 1e-10:
         raise AssertionError(f"{label}: relative residual {rel}")
     want = CPU_REHEARSAL_ITS[label]
     if abs(its - want) > 1:
         raise AssertionError(f"{label}: {its} iterations, the CPU "
                              f"rehearsal took {want}")
+    if matfree:
+        # the fine level's operator, as the V-cycle applies it
+        A = solver._gmg.levels[-1]["A"]
+        x = uh.dat.clone()
+        mv = _cuda_ms(lambda: A.matvec(x), reps=10, warm=2)
+        print(f"{label}: fine_matvec_ms {mv:.4f} ({A!r}, call time of 10 "
+              "back-to-back matvecs)")
     # a second solve from zero reuses the solver's multigrid hierarchy
     uh.dat = torch.zeros_like(uh.dat)
     _, again_s = _sync_time(solver.solve)
     print(f"{label}: second_solve_s {again_s:.4f} iterations "
           f"{solver.ksp_iterations}")
-    return counts
+    return counts, solver
 
 
 def main_phase():
@@ -606,28 +707,63 @@ def main_phase():
         torch.cuda.empty_cache()
 
         # --- geometric multigrid at 1,050,625 dofs
-        for label in GMG:
-            used[label] = gmg_run(fd, label)
+        for label in MAIN_GMG:
+            used[label], _ = gmg_run(fd, label)
             torch.cuda.empty_cache()
     phase_done("main", t0)
     return used
 
 
-def cpu_rehearsal():
-    """The GMG solves of the main phase on the CPU (plain kernel
-    versions); prints each iteration count."""
+def north_star_phase():
+    """The 16M-dof matrix-free solve, then K1's action variant timed on
+    the fine level's own inputs (one cell type, C = 2,097,152)."""
+    label = "gmg_p2_tet_16m"
+    t0 = phase(label)
+    import firedrake_tpu_torch as fd
+    from firedrake_tpu_torch.compiler import cell_eval as K
+    fd.set_device(torch.device("cuda"))
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", "linear solve did not converge")
+        counts, solver = gmg_run(fd, label)
+    mf = solver._gmg.levels[-1]["A"].base
+    asm = mf._asm1
+    (ci,) = asm._compiled
+    spec = K.family_spec(ci)
+    cd = dict(mf._coeff_dats)
+    cd[mf._w.count] = torch.as_tensor(
+        np.random.default_rng(0).standard_normal(mf.shape[0]),
+        device="cuda")
+    ce, ws = asm._stencil.gather_cell_inputs(0, mf._mesh.device_coordinates(),
+                                             cd, ci)
+    del solver, mf, cd
+    torch.cuda.empty_cache()
+    rows = _k1_compare(K, "tet P2 action (fine)", 0, spec, ci, ce, ws, (),
+                       True)
+    print("k1_action_timings " + json.dumps(rows))
+    del ce, ws
+    torch.cuda.empty_cache()
+    phase_done(label, t0)
+    return counts, rows[0]
+
+
+def cpu_rehearsal(labels):
+    """The GMG solves (all, or those named) on the CPU with the plain
+    kernel versions; prints each iteration count."""
     import firedrake_tpu_torch as fd
     fd.set_device("cpu")
-    for label, cfg in GMG.items():
+    for label in labels or GMG:
+        cfg = GMG[label]
         t0 = time.perf_counter()
         _, _, a, L, bc, uh, solver, exact = _gmg_problem(fd, **cfg)
         solver.solve()
         err = float((uh.dat - exact.dat).abs().max())
+        rel = _rel_residual(fd, a, L, bc, uh,
+                            cfg["params"].get("mat_type") == "matfree")
         print(f"cpu_rehearsal {label}: dofs {uh.function_space().dim} "
               f"iterations {solver.ksp_iterations} converged "
               f"{solver.converged} max_nodal_err {err:.3e} rel_residual "
-              f"{_rel_residual(fd, a, L, bc, uh):.3e} seconds "
-              f"{time.perf_counter() - t0:.1f}", flush=True)
+              f"{rel:.3e} seconds {time.perf_counter() - t0:.1f} "
+              f"host_max_rss_gib {_max_rss_gib():.2f}", flush=True)
 
 
 def main():
@@ -636,6 +772,7 @@ def main():
     build_phase()
     k1, k2 = kernels_phase()
     used = main_phase()
+    used["gmg_p2_tet_16m"], k1_action = north_star_phase()
     for label, c in used.items():
         print(f"launches {label}: k1 {c.k1} k2 {c.k2}")
     main_path = used["gmg_star_p2_1m"]
@@ -654,7 +791,10 @@ def main():
          "bound_ms": k1["bound_ms"],
          "bound_by": "bytes",
          "library_ms": None,
-         "torch_ms": None},
+         "torch_ms": None,
+         # the action variant (matrix-free matvecs), timed on the 16M
+         # solve's fine level
+         "action": k1_action},
         {"name": "batched_inv",
          "route": "cuda",
          "source": "firedrake_tpu_torch/csrc/batched_inv.cu",
@@ -675,7 +815,7 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--cpu-rehearsal"]:
-        cpu_rehearsal()
+    if sys.argv[1:2] == ["--cpu-rehearsal"]:
+        cpu_rehearsal(sys.argv[2:])
     else:
         main()

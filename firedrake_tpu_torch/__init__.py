@@ -10,8 +10,8 @@ Lagrange spaces, stencil assembly with the hand-written cell kernel
 (compiler/cell_eval.py), Dirichlet conditions and CG with Jacobi — and
 geometric multigrid on structured hierarchies (mg/), with Chebyshev or
 Richardson smoothing, Jacobi or vertex-star patch smoothers (patch solves
-through the batched-inverse kernel, ops/batched_inverse.py) and an LU
-coarse solve.
+through the batched-inverse kernel, ops/batched_inverse.py), an LU
+coarse solve and matrix-free levels (assembly/matfree.py).
 """
 from .language import *            # noqa: F401,F403  (UFL surface)
 from .mesh.utility import *        # noqa: F401,F403

@@ -111,23 +111,26 @@ class FormAssembler:
             coords_dat = castf(coords_dat, prec)
             coeff_dats = castf_map(coeff_dats, prec)
             const_vals = castf_map(const_vals, prec)
-        locs = [None] * plan.ntypes
-        for ci in self._compiled:
-            consts = tuple(const_vals[c.count] for c in ci.constants)
-            for t in range(plan.ntypes):
+        acc = (plan.accumulate_diag if diag_only else
+               plan.accumulate_rank2 if self.rank == 2 else
+               plan.accumulate_rank1)
+        out = None
+        # one cell type at a time: a P2-tet operator at 12.6M cells would
+        # otherwise hold ~10 GB (float64) of element tensors
+        for t in range(plan.ntypes):
+            loc = None
+            for ci in self._compiled:
+                consts = tuple(const_vals[c.count] for c in ci.constants)
                 ce, ws = plan.gather_cell_inputs(t, coords_dat, coeff_dats,
                                                  ci)
                 with trace_ctx(prec):
-                    loc = run_cell_kernel(ci, ce, ws, consts,
-                                          chunk=_kernel_chunk(ci, ce))
-                locs[t] = loc if locs[t] is None else locs[t] + loc
-        if prec is not None:
-            locs = [widen(l) for l in locs]   # f64 accumulation
-        if diag_only:
-            return plan.accumulate_diag(locs)
-        if self.rank == 2:
-            return plan.accumulate_rank2(locs)
-        return plan.accumulate_rank1(locs)
+                    lt = run_cell_kernel(ci, ce, ws, consts,
+                                         chunk=_kernel_chunk(ci, ce))
+                loc = lt if loc is None else loc + lt
+            if prec is not None:
+                loc = widen(loc)              # f64 accumulation
+            out = acc(out, t, loc)
+        return out
 
     def assemble_diagonal(self):
         """diag(A) of a rank-2 form without materializing the operator:

@@ -316,38 +316,45 @@ class StencilPlan:
     def _cell_plane_shape(self):
         return tuple(reversed(self.dims))
 
-    def _add_planes(self, out, contribs, locs, sg):
-        """out += each (t, i, j, oR) contribution, slice-added in order."""
+    def _add_planes(self, out, contribs, t, loc, sg):
+        """out += each contribution of cell type t, slice-added in order."""
         cshape = self._cell_plane_shape()
-        for (t, i, j, oR) in contribs:
-            out[self._grid_slices(oR, sg.k)] += locs[t][i, j].reshape(cshape)
+        for (tt, i, j, oR) in contribs:
+            if tt == t:
+                out[self._grid_slices(oR, sg.k)] += loc[i, j].reshape(cshape)
         return out
 
-    def accumulate_rank2(self, locs):
-        """locs[t]: (ni, nj, C) local tensors -> (nch, *plane_shape)."""
+    # One cell type at a time: `out` is None for type 0, then the running
+    # sum.  Every output entry receives its contributions in the order of
+    # the whole-form loop (types ascending, then local dofs), so the sum
+    # is bit-equal, and only one type's element tensors are alive.
+    def accumulate_rank2(self, out, t, loc):
+        """loc: (ni, nj, C) local tensors of type t -> (nch, *plane)."""
         sg = self.test_g
-        out = torch.zeros((len(self.channels),) + sg.plane_shape,
-                          dtype=locs[0].dtype, device=locs[0].device)
+        if out is None:
+            out = loc.new_zeros((len(self.channels),) + sg.plane_shape)
         for ch, contribs in enumerate(self.contribs):
-            self._add_planes(out[ch], contribs, locs, sg)
+            self._add_planes(out[ch], contribs, t, loc, sg)
         return out
 
-    def accumulate_rank1(self, locs):
+    def accumulate_rank1(self, out, t, loc):
+        """loc: (ni, 1, C) -> the flat dof vector."""
         sg = self.test_g
-        contribs = [(t, i, 0, sg.offs[t][i]) for t in range(self.ntypes)
-                    for i in range(locs[t].shape[0])]
-        out = torch.zeros(sg.plane_shape, dtype=locs[0].dtype,
-                          device=locs[0].device)
-        return self._add_planes(out, contribs, locs, sg).reshape(-1)
+        if out is None:
+            out = loc.new_zeros(sg.plane_shape)
+        contribs = [(t, i, 0, sg.offs[t][i]) for i in range(loc.shape[0])]
+        return self._add_planes(out.reshape(sg.plane_shape), contribs, t,
+                                loc, sg).reshape(-1)
 
-    def accumulate_diag(self, locs):
+    def accumulate_diag(self, out, t, loc):
         """Only the (0,...,0) channel — the operator diagonal as a flat
         dof vector, without materializing the other channels."""
         sg = self.test_g
-        out = torch.zeros(sg.plane_shape, dtype=locs[0].dtype,
-                          device=locs[0].device)
-        return self._add_planes(out, self.contribs[self.diag_channel],
-                                locs, sg).reshape(-1)
+        if out is None:
+            out = loc.new_zeros(sg.plane_shape)
+        return self._add_planes(out.reshape(sg.plane_shape),
+                                self.contribs[self.diag_channel], t, loc,
+                                sg).reshape(-1)
 
 
 def build_stencil_plan(asm):

@@ -6,20 +6,27 @@ traced cell-last kernel inside one ``pallas_call``; on Hopper the work
 per cell is small dense algebra of odd sizes (3, 6, 4 or 10 dofs), which
 a thread per cell with unrolled loops fits, so the kernel here
 (``csrc/cell_eval.cu``, CUDA C++) computes a fixed form family instead
-of replaying a trace, in one of two variants (``FamilySpec.mode``):
+of replaying a trace, in one of three variants (``FamilySpec.mode``):
 forms without coefficients contract reference tensors precomputed here
-with each cell's geometry, forms with coefficients sum over quadrature
-points.  The family:
+with each cell's geometry (REF), actions whose only coefficient is the
+operand z contract the same tensors with the cell's z values (ACT), and
+other forms with coefficients sum over quadrature points (QUAD).  The
+family:
 
 * affine simplices (triangles, tetrahedra) with P1 coordinates;
 * scalar Lagrange P1/P2 test and trial spaces;
 * integrands that are sums of ``c * prod(w) * inner(grad u, grad v)``,
-  ``c * prod(w) * u * v`` (rank 2) or ``c * prod(w) * v`` (rank 1), where
-  ``c`` is a product of literals and at most two scalar Constants (four
-  in the integral) and ``prod(w)`` a product of at most two scalar
-  Lagrange Functions on the same mesh.
+  ``c * prod(w) * u * v`` (rank 2), ``c * prod(w) * v`` or the action
+  term ``c * prod(w) * inner(grad z, grad v)`` (rank 1), where ``c`` is a
+  product of literals and at most two scalar Constants (four in the
+  integral), ``prod(w)`` a product of scalar Lagrange Functions on the
+  same mesh (at most two in the integral, z included) and ``z`` a
+  Function on the test space's element.
 
-This covers the README's Helmholtz problem and Dirichlet Poisson.
+This covers the README's Helmholtz problem, Dirichlet Poisson and the
+matrix-free operators' actions (assembly/matfree.py): ``action(a, z)``
+of ``inner(grad u, grad v) + u * v`` is the action term plus the load
+term ``z * v``.
 ``family_spec`` recognises the family from a ``CompiledIntegral``;
 forms outside it go through the torch ``BatchedLowerer`` (counted in
 ``lowerer_evals``), which exists by form, not as a fallback on failure.
@@ -50,17 +57,17 @@ kernel_launches = 0
 #: forms outside the family evaluated through the torch BatchedLowerer
 lowerer_evals = 0
 
-MASS, GRADGRAD, LOAD = 0, 1, 2
+MASS, GRADGRAD, LOAD, ACTION = 0, 1, 2, 3
 MAX_TERMS = 4
 MAX_COEFFS = 2
 MAX_CONSTS = 4
 #: Constants in one term
 PER_TERM = 2
-# the kernel's two variants and ref_kernel's term-kind bits
-# (csrc/cell_eval.cu)
-REF, QUAD = 0, 1
+# the kernel's three variants and the term-kind bits of ref_kernel and
+# act_kernel (csrc/cell_eval.cu)
+REF, QUAD, ACT = 0, 1, 2
 _REF_MASS, _REF_GRAD = 1, 2
-_SPEC_INTS = 46
+_SPEC_INTS = 47
 _HEAD = MAX_TERMS + 12
 
 _SRC = nvcc.source("cell_eval.cu")
@@ -71,16 +78,20 @@ class FamilySpec:
     """One cell integral of the family: its terms and host tables.
 
     terms: tuple of (kind, literal, const_idx, coeff_idx) where the
-    indices point into ci.constants / ci.coefficients.
+    indices point into ci.constants / ci.coefficients; zidx: the index of
+    the action terms' operand z (None without action terms), which an
+    ACTION term's coeff_idx leaves out.
 
     mode: REF for forms without coefficients (and equal test and trial
     spaces): the kernel contracts precomputed reference tensors with the
-    cell's geometry; QUAD otherwise: the kernel sums over quadrature
-    points."""
+    cell's geometry; ACT for actions whose terms are c * inner(grad z,
+    grad v) and c * z * v: the same contraction, applied to the cell's z
+    values; QUAD otherwise: the kernel sums over quadrature points."""
 
-    def __init__(self, ci, tdim, terms):
+    def __init__(self, ci, tdim, terms, zidx=None):
         self.tdim = tdim
         self.terms = tuple(terms)
+        self.zidx = zidx
         self.ni, self.nj = ci.local_shape()
         if ci.qrule is not None:
             pts = np.asarray(ci.qrule.points, dtype=float)
@@ -102,8 +113,13 @@ class FamilySpec:
             tabs[f"w{k}"] = _tables_at(c.space.element, pts, 0)[0]
             self.wdof.append(c.space.element.ndof)
         self.host_tables = tabs
-        self.mode = REF if (not any(cidx for *_, cidx in self.terms)
-                            and self.nj in (1, self.ni)) else QUAD
+        if zidx is not None:
+            self.mode = ACT if all(
+                cidx == ((zidx,) if kind == LOAD else ())
+                for kind, _, _, cidx in self.terms) else QUAD
+        else:
+            self.mode = REF if (not any(cidx for *_, cidx in self.terms)
+                                and self.nj in (1, self.ni)) else QUAD
         self.kernel_ints, self.kernel_doubles = self._kernel_spec()
         self._dev_tables = {}
         self._dev_quad = {}
@@ -132,25 +148,31 @@ class FamilySpec:
         return self._dev_quad[key]
 
     def reference_tensors(self):
-        """(kinds, values) of the REF variant: for each entry (i, j) of
-        the upper triangle (rank 2) or each i (rank 1), the reference mass
+        """(kinds, values) of the REF and ACT variants: for each entry
+        (i, j) of the upper triangle (rank 2 and ACT, whose A_e is the
+        test element's on both sides) or each i (rank 1), the reference mass
         value sum_q w_q phi_i phi_j if the form has mass terms, then the
         stiffness values sum_q w_q (dphi_i/dX_t dphi_j/dX_s + [t != s]
         dphi_i/dX_s dphi_j/dX_t) for t <= s if it has grad.grad terms."""
         tb = self.host_tables
         w = np.asarray(tb["wq"])
-        if self.nj == 1:
+        if self.mode == REF and self.nj == 1:
             return _REF_MASS, np.einsum("q,qi->i", w, tb["bt"])[:, None]
         kinds = 0
         for kind, *_ in self.terms:
-            kinds |= _REF_GRAD if kind == GRADGRAD else _REF_MASS
+            kinds |= (_REF_GRAD if kind in (GRADGRAD, ACTION)
+                      else _REF_MASS)
+        # an action's operand lies on the test element: both tables are
+        # the test space's
+        bs, ds = (tb["bt"], tb["dt"]) if self.mode == ACT else (tb["bs"],
+                                                                tb["ds"])
         iu, ju = np.triu_indices(self.ni)
         cols = []
         if kinds & _REF_MASS:
-            M = np.einsum("q,qi,qj->ij", w, tb["bt"], tb["bs"])
+            M = np.einsum("q,qi,qj->ij", w, tb["bt"], bs)
             cols.append(M[iu, ju][:, None])
         if kinds & _REF_GRAD:
-            D = np.einsum("q,qit,qjs->ijts", w, tb["dt"], tb["ds"])
+            D = np.einsum("q,qit,qjs->ijts", w, tb["dt"], ds)
             for t in range(self.tdim):
                 for s in range(t, self.tdim):
                     R = D[:, :, t, s] + (D[:, :, s, t] if s != t else 0.0)
@@ -175,10 +197,11 @@ class FamilySpec:
             ints[35 + k] = n
             n += np.size(self.host_tables.get(name, ()))
         ref = np.zeros(0)
-        if self.mode == REF:
+        if self.mode in (REF, ACT):
             ints[1], ref = self.reference_tensors()
         ints[42] = ref.size
         ints[43:46] = self.tdim, self.ni, self.nj
+        ints[46] = -1 if self.zidx is None else self.zidx
         cgrad = np.zeros(12)
         cgrad[:np.size(self.host_tables["cgrad"])] = np.ravel(
             self.host_tables["cgrad"])
@@ -237,16 +260,24 @@ def _factors(e):
     return [e]
 
 
-def _grad_arg(e):
-    """Argument number if e is grad(argument) (one derivative), else None."""
-    if type(e) is Grad and isinstance(e.operands[0], Argument):
-        return e.operands[0].number
+def _grad_of(e):
+    """("arg", number) if e is grad(argument), ("coeff", count) if e is
+    grad of a scalar coefficient (one derivative), else None."""
+    if type(e) is not Grad:
+        return None
+    o = e.operands[0]
+    if isinstance(o, Argument):
+        return "arg", o.number
+    if isinstance(o, Coefficient) and o.shape == ():
+        return "coeff", o.count
     return None
 
 
 def _match_term(term, ci, rank):
+    """(kind, literal, const_idx, coeff_idx, z) of one summand, or None;
+    z is the coefficient index of an action term's grad z."""
     lit = 1.0
-    kidx, cidx, args, grads = [], [], [], 0
+    kidx, cidx, args, grads, z = [], [], [], 0, None
     consts = {c.count: i for i, c in enumerate(ci.constants)}
     coeffs = {c.count: i for i, c in enumerate(ci.coefficients)}
     for f in _factors(term):
@@ -258,23 +289,32 @@ def _match_term(term, ci, rank):
             cidx.append(coeffs[f.count])
         elif isinstance(f, Argument) and f.shape == ():
             args.append(f.number)
-        elif type(f) in (Inner, Dot) and \
-                sorted(_grad_arg(o) for o in f.operands
-                       if _grad_arg(o) is not None) == [0, 1]:
-            grads += 1
+        elif type(f) in (Inner, Dot):
+            g = [_grad_of(o) for o in f.operands]
+            if None in g:
+                return None
+            g.sort()                      # ("arg", n) before ("coeff", k)
+            if g == [("arg", 0), ("arg", 1)]:
+                grads += 1
+            elif g[0] == ("arg", 0) and g[1][0] == "coeff" and z is None:
+                z = coeffs[g[1][1]]
+            else:
+                return None
         else:
             return None
     if len(cidx) > MAX_COEFFS or len(kidx) > PER_TERM:
         return None
-    if rank == 2 and grads == 1 and not args:
+    if rank == 2 and grads == 1 and z is None and not args:
         kind = GRADGRAD
-    elif rank == 2 and grads == 0 and sorted(args) == [0, 1]:
+    elif rank == 2 and grads == 0 and z is None and sorted(args) == [0, 1]:
         kind = MASS
-    elif rank == 1 and grads == 0 and args == [0]:
+    elif rank == 1 and grads == 0 and z is None and args == [0]:
         kind = LOAD
+    elif rank == 1 and grads == 0 and z is not None and not args:
+        kind = ACTION
     else:
         return None
-    return kind, lit, tuple(kidx), tuple(cidx)
+    return kind, lit, tuple(kidx), tuple(cidx), z
 
 
 def family_spec(ci):
@@ -306,15 +346,23 @@ def _build_spec(ci):
                                              for c in ci.constants):
         return None
     rank = 1 if ci.trial is None else 2
-    terms = []
+    terms, zs = [], set()
     for s in _summands(ci.integrand):
         t = _match_term(s, ci, rank)
         if t is None:
             return None
-        terms.append(t)
-    if len(terms) > MAX_TERMS:
+        terms.append(t[:4])
+        if t[4] is not None:
+            zs.add(t[4])
+    if len(terms) > MAX_TERMS or len(zs) > 1:
         return None
-    return FamilySpec(ci, tdim, terms)
+    zidx = zs.pop() if zs else None
+    # the action's operand lies on the test element (the kernel reads its
+    # gradient from the test tables)
+    if zidx is not None and ci.coefficients[zidx].space.element.degree \
+            != ci.test.space.element.degree:
+        return None
+    return FamilySpec(ci, tdim, terms, zidx)
 
 
 # ------------------------------------------------------ the plain version
@@ -341,19 +389,27 @@ def cell_eval_plain(spec, ce, ws, consts):
     cterm = spec.term_scales(consts, dt, dev)
     out = torch.zeros((spec.ni, spec.nj, ce.shape[-1]), dtype=dt,
                       device=dev)
-    G = None
+    Jinv = None
     for t, (kind, _, _, cidx) in enumerate(spec.terms):
         f = cterm[t] * scale
         for k in cidx:
             f = f * wv[k]
+        if kind in (GRADGRAD, ACTION) and Jinv is None:
+            Jinv = _invC(J, 0, 1)                           # (t, g, C)
         if kind == MASS:
             out += einsum("qc,qi,qj->ijc", f, tb["bt"], tb["bs"])
         elif kind == GRADGRAD:
-            if G is None:
-                Jinv = _invC(J, 0, 1)                       # (t, g, C)
-                G = (einsum("qit,tgc->qigc", tb["dt"], Jinv),
-                     einsum("qjt,tgc->qjgc", tb["ds"], Jinv))
-            out += einsum("qc,qigc,qjgc->ijc", f, G[0], G[1])
+            gv = einsum("qit,tgc->qigc", tb["dt"], Jinv)
+            gu = einsum("qjt,tgc->qjgc", tb["ds"], Jinv)
+            out += einsum("qc,qigc,qjgc->ijc", f, gv, gu)
+        elif kind == ACTION:
+            # K = J^-1 J^-T applied to the reference gradient of z (the
+            # test element's tables on the cell's z values), contracted
+            # with the test gradients: no (q, i, g, C) intermediate
+            z = ws[spec.zidx].to(dt)
+            Kz = einsum("tgc,sgc,qsc->qtc", Jinv, Jinv,
+                        einsum("qjs,jc->qsc", tb["dt"], z))
+            out += einsum("qit,qtc->ic", tb["dt"], f[:, None] * Kz)[:, None]
         else:
             out += einsum("qc,qi->ic", f, tb["bt"])[:, None]
     return out

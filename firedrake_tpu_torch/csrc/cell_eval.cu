@@ -6,15 +6,16 @@
 // for the family that compiler/cell_eval.py recognises: affine simplices
 // (triangles, tets), scalar Lagrange P1/P2 arguments, and integrands that
 // are sums of  c * prod(w) * {grad u . grad v | u v}  (rank 2) or
-// c * prod(w) * v  (rank 1), with c a literal times at most two scalar
-// Constants and prod(w) a product of at most two scalar Lagrange
-// coefficients.
+// c * prod(w) * {v | grad z . grad v}  (rank 1; the second is the action
+// of a stiffness form on the coefficient z), with c a literal times at
+// most two scalar Constants and prod(w) a product of scalar Lagrange
+// coefficients (at most two in the integral, z included).
 //
 // What bounds it: bytes.  P1 in f64 reads 48 B of coordinates and writes
 // 72 B of element matrix per cell (126 MB for 1M cells, 0.038 ms at
 // 3.35 TB/s).  The per-cell algebra is a few hundred flops on odd sizes
 // (3, 6, 4 or 10 dofs), far from the tensor cores' shapes, so they do not
-// apply.  Two variants, chosen per form by compiler/cell_eval.py:
+// apply.  Three variants, chosen per form by compiler/cell_eval.py:
 //
 // * ref_kernel, forms without coefficients (the bilinear forms of the
 //   main path).  On an affine cell the element matrix is
@@ -31,6 +32,13 @@
 //   cells' coordinate loads before either cell's arithmetic.  Template
 //   parameters fix the sizes and which term kinds (mass, grad.grad) the
 //   form holds, so the loops unroll and unused terms vanish.
+// * act_kernel, the actions y = A_e z_e of forms without coefficients
+//   (the matrix-free operators' matvec: action(a, z) is the action term
+//   c * grad z . grad v, plus c * z * v for a mass part).  The same
+//   reference tensors and K as ref_kernel give each A_ij of the upper
+//   triangle, which is applied at once to the cell's z values
+//   (y_i += A_ij z_j, y_j += A_ij z_i) and never stored: the kernel reads
+//   coordinates and z and writes y, 256 B per P2 tet in float64.
 // * quad_kernel, forms with coefficients (the load forms f * v of the main
 //   path, and bilinear forms such as k * w * grad.grad).  The integrand
 //   varies over the cell, so it is summed over quadrature points per
@@ -55,16 +63,17 @@ constexpr int kMaxTerms = 4;
 constexpr int kMaxConsts = 4;
 constexpr int kMaxCoeffs = 2;
 constexpr int kPerTerm = 2;  // Constants, and coefficients, per term
-constexpr int kGradGrad = 1;  // term kinds: 0 mass, 1 grad.grad, 2 load
-constexpr int kRef = 0, kQuad = 1;
+// term kinds: 0 mass, 1 grad.grad, 2 load, 3 action grad z . grad v
+constexpr int kGradGrad = 1, kAction = 3;
+constexpr int kRef = 0, kQuad = 1, kAct = 2;
 constexpr int kRefMass = 1, kRefGrad = 2;
-constexpr int kSpecInts = 46;
+constexpr int kSpecInts = 47;
 constexpr int kHead = kMaxTerms + 12;  // literals, then cgrad (NV x TDIM)
 constexpr int kThreads = 128;
 constexpr int kCellsPerThread = 2;
 
 // Everything a launch needs; ref holds the reference tensors of
-// ref_kernel (capacity 1 for quad_kernel).
+// ref_kernel and act_kernel (capacity 1 for quad_kernel).
 template <typename T, int CAP>
 struct Params {
   const T* ce;
@@ -74,6 +83,7 @@ struct Params {
   const T* konst[kMaxConsts];
   const T* tab;  // quad_kernel's tables in device memory
   int nterms, nq, ncoef, ni, nj;
+  int zidx;  // the action operand's coefficient slot, -1 without one
   int wdof[kMaxCoeffs];
   int kind[kMaxTerms], nk[kMaxTerms], kidx[kMaxTerms][kPerTerm];
   int nw[kMaxTerms], widx[kMaxTerms][kPerTerm];
@@ -84,12 +94,13 @@ struct Params {
 };
 
 // Layout of the int32 spec array built by compiler/cell_eval.py:
-//  0 mode (kRef, kQuad), 1 term kinds of ref_kernel (kRefMass | kRefGrad),
+//  0 mode (kRef, kQuad, kAct), 1 term kinds of ref_kernel and act_kernel
+//  (kRefMass | kRefGrad),
 //  2 nterms, 3 nq, 4 ncoef, 5-6 dofs of each coefficient,
 //  7-34 four terms of (kind, nk, k0, k1, nw, w0, w1),
 //  35-41 table offsets of quad_kernel (wq, bt, bs, dt, ds, w0, w1),
-//  42 number of reference-tensor values of ref_kernel,
-//  43-45 tdim, ni, nj.
+//  42 number of reference-tensor values of ref_kernel and act_kernel,
+//  43-45 tdim, ni, nj, 46 the action operand's coefficient slot (-1: none).
 // The float64 host array holds the term literals (4), the coordinate
 // element's reference gradients (NV x TDIM, padded to 12), then the
 // reference tensors.
@@ -122,6 +133,9 @@ int fill(Params<T, CAP>& p, const Args& a) {
   p.ni = a.ni;
   p.nj = a.nj;
   for (int k = 0; k < kMaxCoeffs; ++k) p.wdof[k] = v[5 + k];
+  p.zidx = v[46];
+  if (p.zidx >= p.ncoef || (p.zidx >= 0 && p.wdof[p.zidx] != a.ni))
+    return -2;
   for (int t = 0; t < kMaxTerms; ++t) {
     const int* u = v + 7 + 7 * t;
     p.kind[t] = u[0];
@@ -147,7 +161,7 @@ int fill(Params<T, CAP>& p, const Args& a) {
   p.off_w[0] = v[40];
   p.off_w[1] = v[41];
   const int nref = v[42];
-  if (a.ndbl != kHead + nref || (v[0] == kRef && nref != CAP)) return -3;
+  if (a.ndbl != kHead + nref || (v[0] != kQuad && nref != CAP)) return -3;
   for (int t = 0; t < kMaxTerms; ++t) p.lit[t] = (T)a.dbl[t];
   for (int k = 0; k < 12; ++k) p.cgrad[k] = (T)a.dbl[kMaxTerms + k];
   for (int r = 0; r < nref; ++r) p.ref[r] = (T)a.dbl[kHead + r];
@@ -299,6 +313,83 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// y = A_e z_e, A_e as in ref_kernel with the test element on both sides,
+// z the one coefficient (the action's operand).  Each A_ij of the upper
+// triangle is applied at once: only y stays in registers.
+template <typename T, int TDIM, int NI, int KINDS>
+__global__ void __launch_bounds__(kThreads)
+    act_kernel(const __grid_constant__
+               Params<T, ref_cap<TDIM, NI, NI, KINDS>()> p) {
+  constexpr int NTS = TDIM * (TDIM + 1) / 2;
+  constexpr bool MASS = KINDS & kRefMass, GRAD = KINDS & kRefGrad;
+  constexpr int STRIDE = (MASS ? 1 : 0) + (GRAD ? NTS : 0);
+  T cm = T(0), cg = T(0);
+#pragma unroll
+  for (int t = 0; t < kMaxTerms; ++t)
+    if (t < p.nterms) {
+      const T s = term_scale<T>(p, t);
+      if (p.kind[t] == kAction)
+        cg += s;
+      else
+        cm += s;
+    }
+  const long long C = p.C;
+  const long long c0 =
+      (long long)blockIdx.x * (kThreads * kCellsPerThread) + threadIdx.x;
+  const T* __restrict__ zp = p.w[p.zidx];
+  T x[kCellsPerThread][TDIM + 1][TDIM];
+  T z[kCellsPerThread][NI];
+#pragma unroll
+  for (int u = 0; u < kCellsPerThread; ++u) {
+    const long long c = c0 + u * kThreads;
+    load_coords<T, TDIM>(p.ce, C, c, x[u]);
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+      z[u][j] = c < C ? __ldcs(zp + (long long)j * C + c) : T(0);
+  }
+#pragma unroll
+  for (int u = 0; u < kCellsPerThread; ++u) {
+    const long long c = c0 + u * kThreads;
+    if (c >= C) break;
+    T Ji[TDIM][TDIM], adet;
+    geometry<T, TDIM>(p, x[u], Ji, adet);
+    const T m = cm * adet, gs = cg * adet;
+    T K[NTS];
+    if constexpr (GRAD) {
+      int ts = 0;
+#pragma unroll
+      for (int t = 0; t < TDIM; ++t)
+#pragma unroll
+        for (int s = t; s < TDIM; ++s) {
+          T acc = T(0);
+#pragma unroll
+          for (int g = 0; g < TDIM; ++g) acc += Ji[t][g] * Ji[s][g];
+          K[ts++] = gs * acc;
+        }
+    }
+    T y[NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) y[i] = T(0);
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int j = i; j < NI; ++j) {
+        const int pair = i * NI - i * (i - 1) / 2 + (j - i);
+        const T* r = p.ref + pair * STRIDE;
+        T a = T(0);
+        if constexpr (MASS) a = m * r[0];
+        if constexpr (GRAD) {
+#pragma unroll
+          for (int ts = 0; ts < NTS; ++ts) a += r[(MASS ? 1 : 0) + ts] * K[ts];
+        }
+        y[i] += a * z[u][j];
+        if (j != i) y[j] += a * z[u][i];
+      }
+#pragma unroll
+    for (int i = 0; i < NI; ++i) __stcs(p.out + (long long)i * C + c, y[i]);
+  }
+}
+
 // Values of the coefficients at quadrature point q.
 template <typename T, int KW, class P>
 __device__ __forceinline__ void coeffs_at(const P& p,
@@ -335,7 +426,7 @@ __device__ __forceinline__ void factors_at(const P& p,
 #pragma unroll
       for (int u = 0; u < kPerTerm; ++u)
         if (u < p.nw[t]) f *= p.widx[t][u] == 0 ? wv[0] : wv[1];
-      if (p.kind[t] == kGradGrad)
+      if (p.kind[t] == kGradGrad || p.kind[t] == kAction)
         fg += f;
       else
         fm += f;
@@ -346,7 +437,9 @@ __device__ __forceinline__ void factors_at(const P& p,
 }
 
 // NI > 0: rank 1 with NI test dofs; NI == 0: rank 2, sizes p.ni, p.nj.
-template <typename T, int TDIM, int NI>
+// ACT: rank 1 with action terms, whose grad z is summed at each point
+// from the test tables and the operand's slot p.zidx.
+template <typename T, int TDIM, int NI, bool ACT>
 __global__ void __launch_bounds__(kThreads)
     quad_kernel(const __grid_constant__ Params<T, 1> p) {
   constexpr int KW = (TDIM + 1) * (TDIM + 2) / 2;  // P2 dofs
@@ -369,6 +462,16 @@ __global__ void __launch_bounds__(kThreads)
   T Ji[TDIM][TDIM], adet;
   geometry<T, TDIM>(p, x, Ji, adet);
   const T* tb = p.tab;
+  T Kf[TDIM][TDIM];  // J^-1 J^-T
+#pragma unroll
+  for (int t = 0; t < TDIM; ++t)
+#pragma unroll
+    for (int s = 0; s < TDIM; ++s) {
+      T acc = T(0);
+#pragma unroll
+      for (int g = 0; g < TDIM; ++g) acc += Ji[t][g] * Ji[s][g];
+      Kf[t][s] = acc;
+    }
   if constexpr (NI > 0) {
     T A[NI];
 #pragma unroll
@@ -379,20 +482,36 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < NI; ++i)
         A[i] += fm * __ldg(tb + p.off_bt + q * NI + i);
+      if constexpr (ACT) {
+        // reference gradient of z at q, then K applied to it
+        const T* d = tb + p.off_dt + q * NI * TDIM;
+        T gz[TDIM], kg[TDIM];
+#pragma unroll
+        for (int t = 0; t < TDIM; ++t) gz[t] = T(0);
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const T zj = p.zidx == 0 ? W[0][j] : W[1][j];
+#pragma unroll
+          for (int t = 0; t < TDIM; ++t) gz[t] += __ldg(d + j * TDIM + t) * zj;
+        }
+#pragma unroll
+        for (int t = 0; t < TDIM; ++t) {
+          kg[t] = T(0);
+#pragma unroll
+          for (int s = 0; s < TDIM; ++s) kg[t] += Kf[t][s] * gz[s];
+        }
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          T e = T(0);
+#pragma unroll
+          for (int t = 0; t < TDIM; ++t) e += __ldg(d + i * TDIM + t) * kg[t];
+          A[i] += fg * e;
+        }
+      }
     }
 #pragma unroll
     for (int i = 0; i < NI; ++i) __stcs(p.out + (long long)i * C + c, A[i]);
   } else {
-    T Kf[TDIM][TDIM];  // J^-1 J^-T
-#pragma unroll
-    for (int t = 0; t < TDIM; ++t)
-#pragma unroll
-      for (int s = 0; s < TDIM; ++s) {
-        T acc = T(0);
-#pragma unroll
-        for (int g = 0; g < TDIM; ++g) acc += Ji[t][g] * Ji[s][g];
-        Kf[t][s] = acc;
-      }
     const int ni = p.ni, nj = p.nj;
     const bool sym = ni == nj;  // one element: equal tables
     for (int i = 0; i < ni; ++i)
@@ -433,13 +552,28 @@ int launch_ref(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int TDIM, int NI>
+template <typename T, int TDIM, int NI, int KINDS>
+int launch_act(const Args& a) {
+  Params<T, ref_cap<TDIM, NI, NI, KINDS>()> p;
+  const int rc = fill(p, a);
+  if (rc) return rc;
+  if (p.zidx < 0 || p.ncoef != 1) return -2;
+  const long long per_block = kThreads * kCellsPerThread;
+  const long long blocks = (a.C + per_block - 1) / per_block;
+  act_kernel<T, TDIM, NI, KINDS>
+      <<<(unsigned)blocks, kThreads, 0, a.stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int TDIM, int NI, bool ACT>
 int launch_quad(const Args& a) {
   Params<T, 1> p;
   const int rc = fill(p, a);
   if (rc) return rc;
+  if (ACT != (p.zidx >= 0)) return -2;
   const long long blocks = (a.C + kThreads - 1) / kThreads;
-  quad_kernel<T, TDIM, NI><<<(unsigned)blocks, kThreads, 0, a.stream>>>(p);
+  quad_kernel<T, TDIM, NI, ACT>
+      <<<(unsigned)blocks, kThreads, 0, a.stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -456,6 +590,21 @@ int launch_kinds(int kinds, const Args& a) {
   }
 }
 
+// The action variant's term kinds: grad z . grad v, with or without z v.
+template <typename T, int TDIM, int NI>
+int launch_act_kinds(int kinds, const Args& a) {
+  if (kinds == kRefGrad) return launch_act<T, TDIM, NI, kRefGrad>(a);
+  if (kinds == (kRefMass | kRefGrad))
+    return launch_act<T, TDIM, NI, kRefMass | kRefGrad>(a);
+  return -1;
+}
+
+template <typename T, int TDIM, int NI>
+int launch_quad_rank1(const Args& a) {
+  return a.spec[46] >= 0 ? launch_quad<T, TDIM, NI, true>(a)
+                         : launch_quad<T, TDIM, NI, false>(a);
+}
+
 // Element sizes: P1 has TDIM+1 dofs, P2 (TDIM+1)(TDIM+2)/2; rank 1 has nj 1.
 template <typename T, int TDIM>
 int launch_tdim(const Args& a) {
@@ -463,9 +612,14 @@ int launch_tdim(const Args& a) {
   const int mode = a.spec[0], kinds = a.spec[1];
   if (a.ni != P1 && a.ni != P2) return -1;
   if (mode == kQuad) {
-    if (a.nj > 1) return launch_quad<T, TDIM, 0>(a);
-    return a.ni == P1 ? launch_quad<T, TDIM, P1>(a)
-                      : launch_quad<T, TDIM, P2>(a);
+    if (a.nj > 1) return launch_quad<T, TDIM, 0, false>(a);
+    return a.ni == P1 ? launch_quad_rank1<T, TDIM, P1>(a)
+                      : launch_quad_rank1<T, TDIM, P2>(a);
+  }
+  if (mode == kAct) {
+    if (a.nj != 1) return -1;
+    return a.ni == P1 ? launch_act_kinds<T, TDIM, P1>(kinds, a)
+                      : launch_act_kinds<T, TDIM, P2>(kinds, a);
   }
   if (mode != kRef) return -1;
   if (a.nj == 1)
@@ -494,6 +648,7 @@ extern "C" int fdt_cell_eval(int is_double, const void* const* ptrs,
     if (spec[5 + k] < 1 || spec[5 + k] > (tdim + 1) * (tdim + 2) / 2)
       return -2;
   if (spec[0] == kQuad && !tab) return -2;
+  if (spec[46] >= 0 && spec[0] == kRef) return -2;
   const Args a{spec, dbl, ndbl, ptrs[0], ptrs[1], ptrs[2], tab,
                const_cast<void*>(ptrs[4]), C, konst, ni, nj,
                static_cast<cudaStream_t>(stream)};

@@ -19,6 +19,10 @@ from .device import as_tensor, get_device
 
 _interp_cache: dict = {}
 
+#: cells per vmap evaluation: the point-wise lowering keeps ~3.4 KB of
+#: intermediates per P2-tet cell, 42 GB at 12.6M cells if taken at once
+CELL_CHUNK = 1 << 18
+
 
 def _build(expr: Expr, V):
     """(run, coeffs, consts): run(coords, coeff_dats, const_vals) -> dat."""
@@ -71,11 +75,18 @@ def _build(expr: Expr, V):
 
     def run(coords_dat, coeff_dats, const_vals):
         st = statics()
-        ce = coords_dat[st["cmap3"]]                 # (ncell, nvert, gdim)
-        ws = tuple(coeff_dats[c.count][st["maps"][c.count]]
-                   for c in coeffs)
         cvs = tuple(const_vals[c.count] for c in consts)
-        vals = torch.func.vmap(lambda c, *w: kern(c, w, cvs))(ce, *ws)
+        kb = torch.func.vmap(lambda c, *w: kern(c, w, cvs))
+        vals = None
+        for c0 in range(0, mesh.num_cells, CELL_CHUNK):
+            cells = slice(c0, c0 + CELL_CHUNK)
+            ce = coords_dat[st["cmap3"][cells]]      # (chunk, nvert, gdim)
+            ws = tuple(coeff_dats[c.count][st["maps"][c.count][cells]]
+                       for c in coeffs)
+            v = kb(ce, *ws)
+            if vals is None:
+                vals = v.new_empty((mesh.num_cells,) + v.shape[1:])
+            vals[cells] = v
         # vals: (ncell, npts) + value_shape; flatten components node-major
         return vals.reshape(-1)[st["src"]]
 

@@ -5,10 +5,8 @@ Reference: PETSc PCMG composed through dmhooks + firedrake/mg/ufl_utils.py
 re-built symbolically on every hierarchy level and assembled through the
 stencil path; the V-cycle (smoothers from the options tree, structured
 transfers, coarse solve) is a callable on device tensors, usable as `pc`
-in any Krylov loop.
-
-Not ported yet: matrix-free levels (a level at or above
-``mg_matfree_threshold`` raises NotImplementedError).
+in any Krylov loop.  Levels at or above ``mg_matfree_threshold`` dofs
+(default 4e6) are matrix-free (assembly/matfree.py).
 """
 from __future__ import annotations
 
@@ -21,10 +19,6 @@ from ..language.calculus import map_expr
 from ..language.measure import Form
 from ..device import as_tensor
 from .transfer import get_transfer
-
-_MATFREE = ("matrix-free multigrid levels are not ported yet: ROADMAP.md "
-            "queue 1, item 2 (assembly/matfree.py); this level has {n} "
-            "dofs, at or above mg_matfree_threshold {t:g}")
 
 
 def coarsen_form(form: Form, fine_mesh, coarse_mesh, space_map,
@@ -70,6 +64,7 @@ class GMGPreconditioner:
     def __init__(self, a_fine: Form, bcs, fine_space: FunctionSpace,
                  smooth_its=2, params=None, prefix="", appctx=None):
         from ..assemble import assemble
+        from ..assembly.matfree import MatrixFreeOperator
         from ..bcs import DirichletBC
         from ..solvers.composition import OpCtx, build_ksp
         mesh = fine_space.mesh_obj
@@ -90,13 +85,12 @@ class GMGPreconditioner:
         params.setdefault(prefix + "mg_levels_pc_type", "jacobi")
         params.setdefault(prefix + "mg_coarse_ksp_type", "preonly")
         params.setdefault(prefix + "mg_coarse_pc_type", "lu")
+        # matrix-free levels: at or above this size a level operator is an
+        # action-assembly MatrixFreeOperator instead of channel planes (a
+        # 17M-dof P2-tet StencilMatrix would hold ~65 planes);
+        # `mg_fine_mat_type: matfree` forces it on the finest level
         threshold = float(params.get(prefix + "mg_matfree_threshold", 4e6))
-        for i, V in enumerate(spaces):
-            if V.dim >= threshold or (
-                    i == len(spaces) - 1 and
-                    params.get(prefix + "mg_fine_mat_type") == "matfree"):
-                raise NotImplementedError(_MATFREE.format(n=V.dim,
-                                                          t=threshold))
+        force_fine = params.get(prefix + "mg_fine_mat_type") == "matfree"
 
         forms = [a_fine]
         for i in range(len(meshes) - 2, -1, -1):
@@ -108,10 +102,16 @@ class GMGPreconditioner:
 
         self.levels = []
         for i, (V, f, lb) in enumerate(zip(spaces, forms, level_bcs)):
-            A = assemble(f, bcs=lb)
+            rows = (np.unique(np.concatenate([b.dof_indices for b in lb]))
+                    if lb else np.zeros(0, dtype=np.int64))
+            if V.dim >= threshold or (force_fine and i == len(spaces) - 1):
+                A = MatrixFreeOperator(f)
+                if lb:
+                    A = A.with_dirichlet(rows)
+            else:
+                A = assemble(f, bcs=lb)
             mask = np.ones(V.dim)
-            if lb:
-                mask[np.concatenate([b.dof_indices for b in lb])] = 0.0
+            mask[rows] = 0.0
             lv = dict(V=V, A=A, mask=as_tensor(mask))
             if i > 0:
                 ctx = OpCtx(mat=A, space=V, form=f, bcs=lb, appctx=appctx)

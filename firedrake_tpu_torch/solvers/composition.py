@@ -39,8 +39,9 @@ def _power_lmax(apply, n, iters):
 class OpCtx:
     """Everything a nested solver needs to build itself.
 
-    mat     assembled operator, BCs already applied; None for
-            matrix-free contexts.
+    mat     operator with BCs applied: assembled, or matrix-free
+            (assembly/matfree.py: its diagonal is assembled, its
+            action assembled per call); None when only matvec is given.
     matvec  y = A @ x (defaults to mat.matvec).
     space   FunctionSpace of the (sub)problem.
     form    the bilinear form, for re-discretization PCs (mg).
@@ -168,10 +169,12 @@ def _pc_jacobi(ctx, params, prefix):
 def _pc_lu(ctx, params, prefix):
     """Exact inverse: a dense inverse on the device up to
     pc_factor_dense_limit unknowns, a host sparse LU above it."""
+    from ..assembly.matfree import is_matfree
     n = ctx.dim
     limit = int(opt(params, prefix, "pc_factor_dense_limit", _DENSE_LIMIT))
-    if ctx.mat is None:
-        raise ValueError("pc_type 'lu' needs an assembled operator")
+    if ctx.mat is None or is_matfree(ctx.mat):
+        raise ValueError("pc_type 'lu' needs an assembled operator; got "
+                         "mat_type 'matfree'")
     if n <= limit:
         Ainv = as_tensor(np.linalg.inv(ctx.mat.to_dense()))
         return lambda r: Ainv @ r

@@ -4,12 +4,13 @@ Reference: firedrake/solving.py:34 (solve), firedrake/variational_solver.py
 (LinearVariationalSolver :293).  PETSc KSP is replaced by the Krylov
 loops of solvers/krylov.py; the `solver_parameters` dict API is kept.
 
-Ported so far: linear problems assembled as operators (mat_type aij)
-with Dirichlet conditions, solved by CG, Richardson or Chebyshev (or
-preonly) with the PCs of solvers/composition.py: none, jacobi, lu, ksp,
-mg (geometric multigrid) and patch; preonly + lu is a host sparse LU.
-Nonlinear problems, matrix-free operators, nullspaces, hybridization,
-SCPC, fieldsplit and distributed solves raise NotImplementedError.
+Ported so far: linear problems, assembled (mat_type aij) or matrix-free
+(mat_type matfree, assembly/matfree.py), with Dirichlet conditions,
+solved by CG, Richardson or Chebyshev (or preonly) with the PCs of
+solvers/composition.py: none, jacobi, lu, ksp, mg (geometric multigrid)
+and patch; preonly + lu is a host sparse LU.  Nonlinear problems (and
+their matrix-free Newton step), nullspaces, hybridization, SCPC,
+fieldsplit and distributed solves raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -119,12 +120,14 @@ class LinearVariationalSolver:
     def solve(self):
         p = self.problem
         params = self.params
+        mat_type = params.get("mat_type", "aij")
         if params.get("pc_type") in _UNPORTED or params.get("distributed") \
-                or params.get("mat_type", "aij") != "aij":
+                or mat_type not in ("aij", "matfree"):
             raise NotImplementedError(
                 f"pc_type {params.get('pc_type')!r} / distributed / "
-                "matrix-free solves are not ported yet; ported: mat_type "
-                "'aij' with pc_type none, jacobi, lu, ksp, mg or patch")
+                f"mat_type {mat_type!r} solves are not ported yet; ported: "
+                "mat_type 'aij' or 'matfree' with pc_type none, jacobi, "
+                "lu, ksp, mg or patch")
         if self.nullspace is not None:
             raise NotImplementedError("nullspaces are not ported yet")
         V = p.u.function_space()
@@ -134,8 +137,16 @@ class LinearVariationalSolver:
 
         b = (as_tensor(assemble(p.L).dat) if p.L is not None
              else torch.zeros_like(gj))
-        A0 = assemble(p.a) if (self._mat is None
-                               or not p.constant_jacobian) else self._mat
+        if self._mat is not None and p.constant_jacobian:
+            A0 = self._mat
+        elif mat_type == "matfree":
+            # action-assembly operator (reference: matrix_free/
+            # operators.py ImplicitMatrix), duck-typed like the assembled
+            # one, so jacobi, chebyshev and mg compose with it unchanged
+            from .assembly.matfree import MatrixFreeOperator
+            A0 = MatrixFreeOperator(p.a)
+        else:
+            A0 = assemble(p.a)
         if p.constant_jacobian:
             self._mat = A0
         if len(bc_idx):
@@ -147,6 +158,9 @@ class LinearVariationalSolver:
             bvec, A = b, A0
         if params.get("ksp_type") == "preonly" and \
                 params.get("pc_type") in ("lu", "cholesky"):
+            if mat_type == "matfree":
+                raise ValueError("pc_type 'lu' needs an assembled "
+                                 "operator; got mat_type 'matfree'")
             p.u.dat = direct_solve(A, bvec)
             self.ksp_iterations = 1
             self.converged = True

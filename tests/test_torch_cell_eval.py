@@ -240,13 +240,17 @@ def _emulate_kernel(spec, ce, ws, consts):
         s = dbl[t] * np.prod([consts[k] for k in (k0, k1)[:nk]])
         terms.append((kind, s, (w0, w1)[:nw]))
     out = np.zeros((ni, nj, ce.shape[-1]))
-    if ints[0] == K.REF:
-        ref = dbl[16:].reshape(ni if nj == 1 else ni * (ni + 1) // 2, -1)
-        cm = sum(s for kind, s, _ in terms if kind != K.GRADGRAD)
-        cg = sum(s for kind, s, _ in terms if kind == K.GRADGRAD)
+    grads = (K.GRADGRAD, K.ACTION)
+    act = ints[0] == K.ACT
+    if ints[0] in (K.REF, K.ACT):
+        rank1 = nj == 1 and not act
+        ref = dbl[16:].reshape(ni if rank1 else ni * (ni + 1) // 2, -1)
+        cm = sum(s for kind, s, _ in terms if kind not in grads)
+        cg = sum(s for kind, s, _ in terms if kind in grads)
         ks = [Kf[:, t, s] for t in range(d) for s in range(t, d)]
-        pairs = ([(i, 0) for i in range(ni)] if nj == 1 else
-                 [(i, j) for i in range(ni) for j in range(i, nj)])
+        pairs = ([(i, 0) for i in range(ni)] if rank1 else
+                 [(i, j) for i in range(ni) for j in range(i, ni)])
+        z = ws[ints[46]] if act else None
         for p, (i, j) in enumerate(pairs):
             col, a = 0, 0.0
             if ints[1] & 1:
@@ -254,6 +258,11 @@ def _emulate_kernel(spec, ce, ws, consts):
             if ints[1] & 2:
                 a = a + cg * adet * sum(r * k for r, k in
                                         zip(ref[p, col:], ks))
+            if act:                          # y = A_e z_e, A_e symmetric
+                out[i, 0] += a * z[j]
+                if j != i:
+                    out[j, 0] += a * z[i]
+                continue
             out[i, j] = a
             if nj > 1:
                 out[j, i] = a
@@ -268,15 +277,19 @@ def _emulate_kernel(spec, ce, ws, consts):
     fm, fg = np.zeros((nq, ce.shape[-1])), np.zeros((nq, ce.shape[-1]))
     for kind, s, widx in terms:
         f = s * np.prod([wv[k] for k in widx], axis=0) if widx else s
-        if kind == K.GRADGRAD:
+        if kind in grads:
             fg = fg + f
         else:
             fm = fm + f
     fm, fg = fm * wq[:, None] * adet, fg * wq[:, None] * adet
-    if nj == 1:
-        return np.einsum("qc,qi->ic", fm, bt)[:, None]
-    bs = tab[o_bs:o_bs + nq * nj].reshape(nq, nj)
     dt = tab[o_dt:o_dt + nq * ni * d].reshape(nq, ni, d)
+    if nj == 1:
+        out = np.einsum("qc,qi->ic", fm, bt)
+        if ints[46] >= 0:                    # action terms: grad z at q
+            kz = np.einsum("cts,qjs,jc->qtc", Kf, dt, ws[ints[46]])
+            out = out + np.einsum("qc,qit,qtc->ic", fg, dt, kz)
+        return out[:, None]
+    bs = tab[o_bs:o_bs + nq * nj].reshape(nq, nj)
     ds = tab[o_ds:o_ds + nq * nj * d].reshape(nq, nj, d)
     return (np.einsum("qc,qi,qj->ijc", fm, bt, bs)
             + np.einsum("qc,qit,cts,qjs->ijc", fg, dt, Kf, ds))
@@ -284,7 +297,8 @@ def _emulate_kernel(spec, ce, ws, consts):
 
 KERNEL_FORMS = [f"{c}_p{d}_{k}" for c in ("tri", "tet") for d in (1, 2)
                 for k in ("gradgrad_mass", "consts", "two_coeffs",
-                          "load_two_coeffs", "load_const")]
+                          "load_two_coeffs", "load_const", "action",
+                          "action_coeff")]
 
 
 def _kernel_forms():
@@ -311,12 +325,20 @@ def _kernel_forms():
         out[f"{tag}_load_two_coeffs"] = (
             (k1 * k2 * f * g * v + 3.0 * f * v) * T.dx, K.QUAD)
         out[f"{tag}_load_const"] = (k2 * v * T.dx, K.REF)
+        z = T.Function(V)
+        z.dat = rng.standard_normal(V.dim)
+        out[f"{tag}_action"] = (T.action(
+            (k1 * T.inner(T.grad(u), T.grad(v)) - 2.0 * u * v) * T.dx, z),
+            K.ACT)
+        out[f"{tag}_action_coeff"] = (T.action(
+            (k2 * g * T.inner(T.grad(u), T.grad(v)) + 3.0 * u * v) * T.dx,
+            z), K.QUAD)
     return out
 
 
 @pytest.mark.parametrize("name", KERNEL_FORMS)
 def test_kernel_arithmetic_matches_plain(name):
-    """The kernel's two variants, emulated from the arrays it is handed,
+    """The kernel's three variants, emulated from the arrays it is handed,
     equal the plain version within 1e-12 max|ref| (float64): this checks
     the reference tensors, the spec layout and the table offsets on the
     CPU, for P1/P2 on triangles and tets, two Constants and two

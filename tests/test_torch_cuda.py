@@ -1,5 +1,6 @@
-"""K1 and K2 on the card: each CUDA kernel against its plain PyTorch
-version, and the launch counts.  Marked `cuda`; skips where torch has no CUDA device.
+"""K1 and K2 on the card: each CUDA kernel (K1's action variant
+included) against its plain PyTorch version, the launch counts, and the
+matrix-free operator on the card against the CPU.  Marked `cuda`; skips where torch has no CUDA device.
 Run on a machine with an NVIDIA GPU with
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 (--noconftest: tests/conftest.py configures jax, which these tests do not
@@ -75,6 +76,68 @@ def test_kernel_matches_plain_on_card(on_cuda, dtype, rtol):
             ref = K.cell_eval_plain(spec, ce, ws, cv)
             err = float((out - ref).abs().max())
             assert err <= rtol * float(ref.abs().max()), err
+
+
+def _action_forms():
+    """action(a, z) of K1's action variant (and, with a coefficient
+    besides z, of its quadrature variant) on P1/P2 triangles and tets."""
+    out = []
+    for deg, mesh in ((1, T.UnitSquareMesh(37, 37)),
+                      (2, T.UnitSquareMesh(32, 32)),
+                      (1, T.UnitCubeMesh(5, 7, 3)),
+                      (2, T.UnitCubeMesh(5, 7, 3))):
+        V = T.FunctionSpace(mesh, "CG", deg)
+        u, v = T.TrialFunction(V), T.TestFunction(V)
+        z = T.Function(V, val=torch.as_tensor(
+            np.random.default_rng(deg).standard_normal(V.dim)))
+        w = T.Function(V, val=torch.linspace(0.5, 1.5, V.dim,
+                                                dtype=torch.float64))
+        k = T.Constant(1.5)
+        gg = T.inner(T.grad(u), T.grad(v))
+        out += [T.action(a, z) for a in (
+            gg * T.dx, (k * gg - 2.0 * u * v) * T.dx, w * gg * T.dx)]
+    return out
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 2e-6)])
+def test_action_kernel_matches_plain_on_card(on_cuda, dtype, rtol):
+    modes = set()
+    for form in _action_forms():
+        asm = FormAssembler(form)
+        coords, coeffs, consts = asm._inputs()
+        (ci,) = asm._compiled
+        spec = K.family_spec(ci)
+        modes.add(spec.mode)
+        cv = tuple(consts[c.count].to(dtype) for c in ci.constants)
+        for t in range(asm._stencil.ntypes):
+            ce, ws = asm._stencil.gather_cell_inputs(t, coords, coeffs, ci)
+            ce, ws = ce.to(dtype), tuple(w.to(dtype) for w in ws)
+            n0 = K.kernel_launches
+            out = K.cell_eval(spec, ce, ws, cv)
+            assert K.kernel_launches == n0 + 1
+            ref = K.cell_eval_plain(spec, ce, ws, cv)
+            err = float((out - ref).abs().max())
+            assert err <= rtol * float(ref.abs().max()), err
+    assert modes == {K.ACT, K.QUAD}
+
+
+def test_matfree_matvec_on_card_matches_cpu(on_cuda):
+    """The matrix-free P2-tet operator (K1's action variant on the card)
+    against the same operator on the CPU (the plain version)."""
+    from firedrake_tpu_torch.assembly.matfree import MatrixFreeOperator
+    x = np.random.default_rng(0).standard_normal(
+        T.FunctionSpace(T.UnitCubeMesh(6, 5, 4), "CG", 2).dim)
+    out = []
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        V = T.FunctionSpace(T.UnitCubeMesh(6, 5, 4), "CG", 2)
+        u, v = T.TrialFunction(V), T.TestFunction(V)
+        A = MatrixFreeOperator(T.inner(T.grad(u), T.grad(v)) * T.dx)
+        out.append((A.matvec(torch.as_tensor(x, device=dev)).cpu(),
+                    A.diagonal().cpu()))
+    for a, b in zip(*out):
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
 
 
 @pytest.mark.parametrize("dtype,rtol,atol", [(torch.float64, 1e-12, 0.0),
