@@ -2,7 +2,10 @@
 
     python3 chip_smoke.py                 # the card run (needs CUDA)
     python3 chip_smoke.py --cpu-rehearsal [label ...]
-                                          # the GMG solves on the CPU only
+                                          # the GMG and gather-route solves
+                                          # on the CPU only
+    python3 chip_smoke.py --cpu-study     # the gather-route solves' CPU
+                                          # convergence study (error bounds)
 
 Phases of the card run (each prints its own lines and its seconds; any
 failure raises and the exit code is non-zero):
@@ -10,7 +13,8 @@ failure raises and the exit code is non-zero):
 1. device  — needs torch.cuda; prints the card's name and power limit.
 2. build   — compiles both hand-written kernels (firedrake_tpu_torch/csrc:
              K1 cell_eval.cu, K2 batched_inv.cu) with nvcc for sm_90a, one
-             nvcc each, concurrently; prints seconds, registers and spills.
+             nvcc each, concurrently; prints seconds, registers and spills;
+             and the host sparsity builder (native/coo_build.cpp, g++).
 3. kernels — K1 against its plain PyTorch version and the torch
              BatchedLowerer (P1/P2 grad.grad + mass on both triangle types,
              P2 k*w*grad.grad, two Constants and two coefficients, P1 and
@@ -25,7 +29,9 @@ failure raises and the exit code is non-zero):
              events queued while the card sleeps, L2 flushed before each
              launch), `call_ms` the time per call of back-to-back calls
              (host and card together); the plain version and (K2)
-             torch.linalg.inv by call time.
+             torch.linalg.inv by call time.  K2's large variant
+             (33 <= n <= 128) at (65,536, 40, 40) and (16,384, 64, 64), bit
+             for bit with its plain version, timed the same way.
 4. main    — four solves through LinearVariationalSolver, each with every
              launch count set to 0 just before it and read just after:
              the README Helmholtz problem (UnitSquareMesh(1024), P1, CG +
@@ -37,7 +43,23 @@ failure raises and the exit code is non-zero):
              Chebyshev(2) + vertex-star patch, whose patch solves are K2).
              Each checks convergence, the relative residual, the nodal
              error, that the solution is on the card, and the launches.
-5. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
+5. gather  — the gather route at full size, each case with every launch
+             count set to 0 before and read after, printing its stage
+             seconds and K1 launches: gather_p1_1024 (the Helmholtz
+             operator at UnitSquareMesh(1024) by FormAssembler(a,
+             use_stencil=False), its Matrix.to_scipy() within 1e-12 max|A|
+             of the stencil route's, f32 kernels within 2e-6 normwise,
+             warm assembly times beside the route's byte bound, the CSR
+             matvec (ELL and flat forms) beside StencilMatrix.matvec and
+             torch's sparse CSR product); neumann_helmholtz_disk (-lap u +
+             u = f, du/dn = grad(u_ex) . n on ds, UnitDiskMesh(9), P1) and
+             sipg_dg1_disk (SIPG with dS and ds terms, -lap u = 4,
+             UnitDiskMesh(8), DG1), both CG + Jacobi through
+             LinearVariationalSolver: converged, on the card, K1 launched
+             and the lowerer not, iterations within 1% of the CPU
+             rehearsal, nodal and L2 (errornorm, a 0-form) errors below
+             the bounds of GATHER.
+6. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
              -lap u = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on the
              boundary, P2 on MeshHierarchy(UnitCubeMesh(8), 4) (12,582,912
              tets, 16,974,593 dofs), CG + GMG (Chebyshev(2) + Jacobi) with
@@ -93,9 +115,12 @@ GMG = {
 MAIN_GMG = ("gmg_p1_1m", "gmg_star_p2_1m")
 # Iterations of the same solves on the CPU (python3 chip_smoke.py
 # --cpu-rehearsal, run on the 8-core host of an H100 machine); the card
-# must agree within one.
+# must agree within one (the GMG solves) or within 1% (the gather-route
+# solves: thousands of CG iterations, rounded in another order).
 CPU_REHEARSAL_ITS = {"gmg_p1_1m": 10, "gmg_star_p2_1m": 6,
-                     "gmg_p2_tet_16m": 11}
+                     "gmg_p2_tet_16m": 11,
+                     # the gather-route solves: within 1% on the card
+                     "neumann_helmholtz_disk": 2789, "sipg_dg1_disk": 3028}
 
 
 def phase(name):
@@ -134,6 +159,10 @@ def build_phase():
     from firedrake_tpu_torch.compiler import cell_eval as K, nvcc
     from firedrake_tpu_torch.ops import batched_inverse as BI
     srcs = {"cell_eval": K._SRC, "batched_inv": BI._SRC}
+    from firedrake_tpu_torch import native
+    # the host library (g++) beside the two nvcc builds
+    _, native_s = _sync_time(native.load)
+    print(f"native coo_build: g++ build_s {native_s:.3f}")
     nvcc.compile_sources(list(srcs.values()))
     K.build()
     BI.build()
@@ -434,6 +463,51 @@ def k2_checks(fd, sp):
     return rows[("P2 star patches 512^2", "float64")]
 
 
+def k2_large_checks():
+    """K2's large variant (33 <= n <= 128) against its plain version on
+    random SPD batches, bit for bit up to signed zeros, and timed beside
+    torch.linalg.inv and its bound.  Returns the (65,536, 40, 40) float64
+    row."""
+    from firedrake_tpu_torch.ops import batched_inverse as BI
+    rows = []
+    for nb, n in ((65536, 40), (16384, 64)):
+        for dt in (torch.float64, torch.float32):
+            A = _spd(nb, n, n, dt)
+            err = _k2_compare(BI, f"large n={n}", A)
+            exact = torch.equal(BI.batched_inv(A) + 0.0,
+                                BI.batched_inv_plain(A) + 0.0)
+            print(f"  bit for bit with the plain version: {exact}")
+            if not exact:
+                raise AssertionError(f"K2 large n={n}: not bit for bit")
+            tm = _pair_ms(lambda: BI.batched_inv(A),
+                          lambda: BI.batched_inv_plain(A),
+                          reps=5, plain_reps=2)
+            runs = tm.pop("runs")
+            lib1 = _cuda_ms(lambda: torch.linalg.inv(A), 3, 1)
+            lib2 = _cuda_ms(lambda: torch.linalg.inv(A), 3, 1)
+            bytes_ms = 1e3 * 2 * A.numel() * A.element_size() \
+                / HBM_BYTES_PER_S
+            ops_ms = 1e3 * 2 * n ** 3 * nb / PEAK_FLOPS
+            row = dict(shape=[nb, n, n], dtype=str(dt)[6:], **tm,
+                       library_ms=(lib1 + lib2) / 2,
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms
+                       else "operations", max_abs_err=err)
+            rows.append(row)
+            print(f"  time K2 large device {tm['ms']:.4f} ms  call "
+                  f"{tm['call_ms']:.4f} ms  plain {tm['plain_ms']:.4f} ms  "
+                  f"torch.linalg.inv {row['library_ms']:.4f} ms  bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})  share "
+                  f"{row['bound_ms'] / tm['ms']:.3f} (runs device/device/"
+                  "call/call/plain/plain/lib/lib "
+                  + "/".join(f"{x:.4f}" for x in runs + (lib1, lib2))
+                  + ")")
+            del A
+            torch.cuda.empty_cache()
+    print("k2_large_timings " + json.dumps(rows))
+    return rows[0]
+
+
 def kernels_phase():
     t0 = phase("kernels")
     import firedrake_tpu_torch as fd
@@ -444,8 +518,9 @@ def kernels_phase():
     k2 = k2_checks(fd, sp)
     del sp
     torch.cuda.empty_cache()
+    k2_large = k2_large_checks()
     phase_done("kernels", t0)
-    return k1, k2
+    return k1, k2, k2_large
 
 
 def _sync_time(fn):
@@ -463,13 +538,15 @@ class _Counts:
         from firedrake_tpu_torch.compiler import cell_eval as K
         from firedrake_tpu_torch.ops import batched_inverse as BI
         self.K, self.BI = K, BI
-        K.kernel_launches = K.lowerer_evals = BI.kernel_launches = 0
+        K.kernel_launches = K.lowerer_evals = 0
+        BI.kernel_launches = BI.large_launches = 0
         return self
 
     def __exit__(self, *exc):
         torch.cuda.synchronize()
         self.k1 = self.K.kernel_launches
         self.k2 = self.BI.kernel_launches
+        self.k2_large = self.BI.large_launches
         self.lowerer = self.K.lowerer_evals
 
 
@@ -746,12 +823,330 @@ def north_star_phase():
     return counts, rows[0]
 
 
+# ---------------------------------------------------------- the gather route
+# The gather-route solves: mesh level at full size, the levels of the CPU
+# convergence study (python3 chip_smoke.py --cpu-study), and the bounds on
+# the nodal and L2 errors fixed from that study (PERF.md).
+# Both errors fall 3.7-4x per level in the study; each bound is twice the
+# error extrapolated from the study's last level at that rate.
+GATHER = {
+    "neumann_helmholtz_disk": dict(level=9, study=(4, 5, 6, 7),
+                                   nodal=1.1e-4, l2=8.5e-5),
+    "sipg_dg1_disk": dict(level=8, study=(3, 4, 5, 6), nodal=6.5e-6,
+                          l2=1.7e-5),
+}
+SOLVE_PARAMS = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": 1e-10,
+                "ksp_max_it": 100000}
+
+
+def _neumann_problem(fd, level):
+    """-lap u + u = f on UnitDiskMesh(level), du/dn = g: exact u =
+    cos(pi x) cos(pi y), f = (1 + 2 pi^2) u interpolated into P1, g =
+    grad(u) . n with the discrete normal (exact on the polygon).  grad(u)
+    is written out: grad of pi * x fails in both packages' language layer
+    (the gradient of the literal pi gets shape (0,))."""
+    mesh = fd.UnitDiskMesh(level)
+    V = fd.FunctionSpace(mesh, "CG", 1)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    x, y = fd.SpatialCoordinate(mesh)
+    u_ex = fd.cos(fd.pi * x) * fd.cos(fd.pi * y)
+    f = fd.Function(V).interpolate((1 + 2 * fd.pi ** 2) * u_ex)
+    n = fd.FacetNormal(mesh)
+    a = (fd.inner(fd.grad(u), fd.grad(v)) + u * v) * fd.dx
+    grad_ex = fd.as_vector([-fd.pi * fd.sin(fd.pi * x) * fd.cos(fd.pi * y),
+                            -fd.pi * fd.cos(fd.pi * x) * fd.sin(fd.pi * y)])
+    L = f * v * fd.dx + fd.inner(grad_ex, n) * v * fd.ds
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(fd.LinearVariationalProblem(a, L, uh),
+                                        solver_parameters=SOLVE_PARAMS)
+    return dict(a=a, L=L, uh=uh, solver=solver, u_ex=u_ex,
+                exact=fd.Function(V).interpolate(u_ex))
+
+
+def _sipg_problem(fd, level, alpha=10.0):
+    """-lap u = 4 on UnitDiskMesh(level) in DG1, u = 0 weakly on the
+    boundary: the symmetric interior penalty form of the JAX package's
+    tests/regression/test_dg.py::test_dg_poisson_sipg (h = CellDiameter);
+    exact u = 1 - x^2 - y^2."""
+    mesh = fd.UnitDiskMesh(level)
+    V = fd.FunctionSpace(mesh, "DG", 1)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    x, y = fd.SpatialCoordinate(mesh)
+    n = fd.FacetNormal(mesh)
+    h = fd.CellDiameter(mesh)
+    alpha = fd.Constant(alpha)
+    a = fd.inner(fd.grad(u), fd.grad(v)) * fd.dx \
+        - fd.inner(fd.avg(fd.grad(u)), fd.jump(v, n)) * fd.dS \
+        - fd.inner(fd.jump(u, n), fd.avg(fd.grad(v))) * fd.dS \
+        + alpha / fd.avg(h) * fd.inner(fd.jump(u, n), fd.jump(v, n)) * fd.dS \
+        - fd.inner(fd.grad(u), v * n) * fd.ds \
+        - fd.inner(u * n, fd.grad(v)) * fd.ds \
+        + alpha / h * fd.inner(u, v) * fd.ds
+    L = fd.Constant(4.0) * v * fd.dx
+    u_ex = 1 - x ** 2 - y ** 2
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(fd.LinearVariationalProblem(a, L, uh),
+                                        solver_parameters=SOLVE_PARAMS)
+    return dict(a=a, L=L, uh=uh, solver=solver, u_ex=u_ex,
+                exact=fd.Function(V).interpolate(u_ex))
+
+
+GATHER_PROBLEMS = {"neumann_helmholtz_disk": _neumann_problem,
+                   "sipg_dg1_disk": _sipg_problem}
+
+
+def _gather_errors(fd, p):
+    """(max nodal error, L2 error through errornorm, a 0-form)."""
+    nodal = float((p["uh"].dat - p["exact"].dat).abs().max())
+    return nodal, fd.errornorm(p["u_ex"], p["uh"])
+
+
+def _route_bytes(asm, itemsize):
+    """Bytes a gather-route rank-2 assembly moves: index tables and
+    coordinate values read, the gathered coordinates written and read by
+    K1, the element entries written and gathered back, the gather tables
+    read and the CSR values written."""
+    n = 0
+    for st in asm._statics:
+        cm = st["coords_map"]
+        n += cm.numel() * (4 + 3 * itemsize)
+    for ci, st in zip(asm._compiled, asm._statics):
+        ni, nj = ci.local_shape()
+        n += 2 * ni * nj * st["n"] * itemsize
+    acc = asm._acc
+    if hasattr(acc, "tbl"):
+        n += 4 * acc.tbl.numel()
+        if acc.tblx is not None:
+            n += 4 * acc.tblx.numel() + 8 * 2 * acc.rows_x.numel()
+    else:
+        n += 8 * (acc.perm.numel() + acc.lengths.numel())
+    return n + 8 * asm.sparsity.nnz
+
+
+def _matvec_timings(A_g, A_s):
+    """The CSR matrix's matvec (the ELL form) beside the flat form (one
+    gather and a segment sum over the sorted rows), StencilMatrix.matvec
+    and torch's sparse CSR product (library_ms), in turns, with the byte
+    bound: values, column indices and row pointers read once, x read
+    and y written once."""
+    n = A_g.shape[0]
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(n),
+                        device="cuda")
+    s = A_g.sparsity
+    lib = torch.sparse_csr_tensor(
+        torch.as_tensor(s.indptr, device="cuda"),
+        torch.as_tensor(s.coo_cols.astype(np.int64), device="cuda"),
+        A_g.data, size=A_g.shape)
+    lengths = torch.as_tensor(s.row_lengths, device="cuda")
+    A_g.matvec(x)                       # builds the ELL values once
+    fns = {"ell": lambda: A_g.matvec(x),
+           "csr": lambda: torch.segment_reduce(
+               A_g.data * x.index_select(0, A_g._tables["cols"]), "sum",
+               lengths=lengths),
+           "stencil": lambda: A_s.matvec(x),
+           "library": lambda: lib @ x}
+    ref = fns["stencil"]()
+    out = {}
+    for name, fn in fns.items():
+        err = float((fn() - ref).abs().max())
+        if not err <= F64_TOL * float(ref.abs().max()):
+            raise AssertionError(f"matvec {name} disagrees: {err}")
+        out[name] = []
+    for name in list(fns) + list(fns)[::-1]:
+        out[name].append(_cuda_ms(fns[name], reps=50, warm=5))
+    nbytes = s.nnz * (8 + 4) + (n + 1) * 8 + 2 * n * 8
+    row = {k: sum(v) / 2 for k, v in out.items()}
+    row["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+    print(f"  matvec (call time of 50, ms) ELL {row['ell']:.4f} flat CSR "
+          f"{row['csr']:.4f} StencilMatrix {row['stencil']:.4f} torch "
+          f"sparse CSR {row['library']:.4f} bound {row['bound_ms']:.4f} "
+          f"(runs " + " ".join(f"{k} {'/'.join(f'{x:.4f}' for x in v)}"
+                               for k, v in out.items()) + ")")
+    return row
+
+
+def _route_k1_checks(asm, label):
+    """K1 against its plain version and the lowerer on the gather route's
+    own inputs: each cell integral's cell-last gathers over all its cells
+    (coordinates through coords_map, coefficients through coeff_maps), in
+    float64 and float32, at full size."""
+    from firedrake_tpu_torch.compiler import cell_eval as K
+    coords, coeffs, consts = asm._inputs()
+    cells = [(ci, st) for ci, st in zip(asm._compiled, asm._statics)
+             if ci.integral_type == "cell"]
+    if not cells:
+        raise AssertionError(f"{label}: no cell integral to check")
+    for ci, st in cells:
+        spec = K.family_spec(ci)
+        if spec is None:
+            raise AssertionError(f"{label}: a cell integral is not in "
+                                 "K1's family")
+        ce = coords[st["coords_map"]]
+        ws = tuple(coeffs[c.count][st["coeff_maps"][c.count]]
+                   for c in ci.coefficients)
+        cv = tuple(consts[c.count] for c in ci.constants)
+        _k1_compare(K, f"{label} rank {asm.rank}", 0, spec, ci, ce, ws, cv,
+                    False)
+        del ce, ws
+
+
+def gather_assembly(fd):
+    """gather_p1_1024: the Helmholtz operator at UnitSquareMesh(1024)
+    assembled by the gather route, held to the stencil route's matrix,
+    timed warm in float64 and with float32 kernels."""
+    import os
+    from firedrake_tpu_torch.assemble import FormAssembler
+    label = "gather_p1_1024"
+    mesh = fd.UnitSquareMesh(1024, 1024)
+    V = fd.FunctionSpace(mesh, "CG", 1)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    a = (fd.inner(fd.grad(u), fd.grad(v)) + u * v) * fd.dx
+    with _Counts() as counts:
+        asm, build_s = _sync_time(lambda: FormAssembler(a, use_stencil=False))
+        A, cold_s = _sync_time(asm.assemble)
+        warm_ms = _cuda_ms(asm.assemble, reps=10, warm=1)
+    _route_k1_checks(asm, label)
+    A_s = FormAssembler(a).assemble()
+    Sg, Ss = A.to_scipy(), A_s.to_scipy()
+    ref = abs(Ss).max()
+    err = abs(Sg - Ss).max()
+    os.environ["FDTPU_PREC"] = "f32"
+    try:
+        asm32 = FormAssembler(a, use_stencil=False)
+    finally:
+        del os.environ["FDTPU_PREC"]
+    A32 = asm32.assemble()
+    err32 = float(torch.linalg.vector_norm(A32.data - A.data)
+                  / torch.linalg.vector_norm(A.data))
+    warm32_ms = _cuda_ms(asm32.assemble, reps=10, warm=1)
+    b64, b32 = _route_bytes(asm, 8), _route_bytes(asm32, 4)
+    print(f"{label}: dofs {V.dim} cells {mesh.num_cells} nnz "
+          f"{asm.sparsity.nnz} accumulation {type(asm._acc).__name__} "
+          f"statics_build_s {build_s:.3f} "
+          f"assembly_cold_s {cold_s:.4f} k1_launches {counts.k1} "
+          f"lowerer_evals {counts.lowerer} max|A_gather - A_stencil| "
+          f"{err:.3e} (max|A| {ref:.3e}) f32 normwise {err32:.3e}")
+    print(f"  warm assembly f64 {warm_ms:.4f} ms (route bytes {b64}, bound "
+          f"{1e3 * b64 / HBM_BYTES_PER_S:.4f} ms) f32 kernels "
+          f"{warm32_ms:.4f} ms (route bytes {b32}, bound "
+          f"{1e3 * b32 / HBM_BYTES_PER_S:.4f} ms)")
+    if not err <= F64_TOL * ref:
+        raise AssertionError(f"{label}: gather and stencil matrices differ")
+    if not err32 <= F32_RTOL:
+        raise AssertionError(f"{label}: f32 kernels off by {err32}")
+    if counts.k1 <= 0 or counts.lowerer:
+        raise AssertionError(f"{label}: assembly bypassed K1")
+    mv = _matvec_timings(A, A_s)
+    return counts, mv
+
+
+def gather_solve(fd, label):
+    """One gather-route solve at full size through LinearVariationalSolver,
+    its launch counts read around set-up, assembly and solve; after them
+    K1 held to its plain version on the route's inputs of a and L, and
+    errornorm (a 0-form)."""
+    from firedrake_tpu_torch.assemble import get_assembler
+    cfg = GATHER[label]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")     # a non-converged solve warns
+        with _Counts() as counts:
+            p, setup_s = _sync_time(
+                lambda: GATHER_PROBLEMS[label](fd, cfg["level"]))
+            _, cold_s = _sync_time(lambda: (fd.assemble(p["a"]),
+                                            fd.assemble(p["L"])))
+            _, warm_s = _sync_time(lambda: (fd.assemble(p["a"]),
+                                            fd.assemble(p["L"])))
+            _, solve_s = _sync_time(p["solver"].solve)
+    for form in (p["a"], p["L"]):
+        _route_k1_checks(get_assembler(form), label)
+    torch.cuda.empty_cache()
+    solver, uh = p["solver"], p["uh"]
+    its = solver.ksp_iterations
+    (nodal, l2), err_s = _sync_time(lambda: _gather_errors(fd, p))
+    want = CPU_REHEARSAL_ITS.get(label)
+    print(f"{label}: dofs {uh.function_space().dim} setup_s {setup_s:.3f} "
+          f"assembly_cold_s {cold_s:.3f} assembly_warm_s {warm_s:.4f} "
+          f"solve_s {solve_s:.4f} iterations {its} (CPU rehearsal {want}) "
+          f"ms_per_iteration {1e3 * solve_s / max(its, 1):.4f} converged "
+          f"{solver.converged} max_nodal_err {nodal:.4e} (bound "
+          f"{cfg['nodal']}) l2_err {l2:.4e} (bound {cfg['l2']}, errornorm "
+          f"{err_s:.3f} s) on {uh.dat.device} k1_launches {counts.k1} "
+          f"lowerer_evals {counts.lowerer}")
+    if not uh.dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if not solver.converged:
+        raise AssertionError(f"{label}: solve did not converge")
+    if counts.k1 <= 0 or counts.lowerer:
+        raise AssertionError(f"{label}: cell integrals bypassed K1")
+    if want is None or abs(its - want) > 0.01 * want:
+        raise AssertionError(f"{label}: {its} iterations, the CPU "
+                             f"rehearsal took {want}")
+    if not (nodal < cfg["nodal"] and l2 < cfg["l2"]):
+        raise AssertionError(f"{label}: errors {nodal}, {l2} above bounds")
+    return counts
+
+
+def gather_phase():
+    t0 = phase("gather")
+    import firedrake_tpu_torch as fd
+    fd.set_device(torch.device("cuda"))
+    used = {}
+    used["gather_p1_1024"], mv = gather_assembly(fd)
+    torch.cuda.empty_cache()
+    for label in GATHER:
+        used[label] = gather_solve(fd, label)
+        torch.cuda.empty_cache()
+    # the cached gather-route assemblers hold ~1 GB of index tables on the
+    # card; free them before the 16M phase reads its peak memory
+    from firedrake_tpu_torch.assemble import _assembler_cache
+    _assembler_cache.clear()
+    torch.cuda.empty_cache()
+    phase_done("gather", t0)
+    return used, mv
+
+
+def cpu_study():
+    """The gather-route solves on the CPU at the study levels: iterations,
+    nodal and L2 errors, and their rates per level."""
+    import firedrake_tpu_torch as fd
+    fd.set_device("cpu")
+    for label, cfg in GATHER.items():
+        prev = None
+        for level in cfg["study"]:
+            t0 = time.perf_counter()
+            p = GATHER_PROBLEMS[label](fd, level)
+            p["solver"].solve()
+            nodal, l2 = _gather_errors(fd, p)
+            rates = ("" if prev is None else
+                     f" nodal_ratio {prev[0] / nodal:.3f} l2_ratio "
+                     f"{prev[1] / l2:.3f}")
+            print(f"cpu_study {label} level {level}: dofs "
+                  f"{p['uh'].function_space().dim} iterations "
+                  f"{p['solver'].ksp_iterations} converged "
+                  f"{p['solver'].converged} max_nodal_err {nodal:.4e} "
+                  f"l2_err {l2:.4e}{rates} seconds "
+                  f"{time.perf_counter() - t0:.1f}", flush=True)
+            prev = (nodal, l2)
+
+
 def cpu_rehearsal(labels):
     """The GMG solves (all, or those named) on the CPU with the plain
     kernel versions; prints each iteration count."""
     import firedrake_tpu_torch as fd
     fd.set_device("cpu")
-    for label in labels or GMG:
+    for label in labels or list(GMG) + list(GATHER):
+        if label in GATHER:
+            t0 = time.perf_counter()
+            p = GATHER_PROBLEMS[label](fd, GATHER[label]["level"])
+            p["solver"].solve()
+            nodal, l2 = _gather_errors(fd, p)
+            print(f"cpu_rehearsal {label}: dofs "
+                  f"{p['uh'].function_space().dim} iterations "
+                  f"{p['solver'].ksp_iterations} converged "
+                  f"{p['solver'].converged} max_nodal_err {nodal:.4e} "
+                  f"l2_err {l2:.4e} seconds {time.perf_counter() - t0:.1f} "
+                  f"host_max_rss_gib {_max_rss_gib():.2f}", flush=True)
+            continue
         cfg = GMG[label]
         t0 = time.perf_counter()
         _, _, a, L, bc, uh, solver, exact = _gmg_problem(fd, **cfg)
@@ -770,11 +1165,14 @@ def main():
     t0 = time.perf_counter()
     device_phase()
     build_phase()
-    k1, k2 = kernels_phase()
+    k1, k2, k2_large = kernels_phase()
     used = main_phase()
+    gathered, matvec = gather_phase()
+    used.update(gathered)
     used["gmg_p2_tet_16m"], k1_action = north_star_phase()
     for label, c in used.items():
-        print(f"launches {label}: k1 {c.k1} k2 {c.k2}")
+        print(f"launches {label}: k1 {c.k1} k2 {c.k2} k2_large "
+              f"{c.k2_large}")
     main_path = used["gmg_star_p2_1m"]
     print(f"total_s {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": [
@@ -808,7 +1206,25 @@ def main():
          "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"],
          "library_ms": k2["library_ms"],
-         "torch_ms": k2["library_ms"]}]}))
+         "torch_ms": k2["library_ms"]},
+        # the large variant (33 <= n <= 128), same source; no solve path
+        # of this script has patches that large
+        {"name": "batched_inv_large",
+         "route": "cuda",
+         "source": "firedrake_tpu_torch/csrc/batched_inv.cu",
+         "replaces": "firedrake_tpu/ops/batched_inverse.py:60",
+         "launches": main_path.k2_large,
+         "launches_by_path": {k: c.k2_large for k, c in used.items()},
+         "shape": k2_large["shape"],
+         "max_abs_err": k2_large["max_abs_err"],
+         "ms": k2_large["ms"],
+         "call_ms": k2_large["call_ms"],
+         "plain_ms": k2_large["plain_ms"],
+         "bound_ms": k2_large["bound_ms"],
+         "bound_by": k2_large["bound_by"],
+         "library_ms": k2_large["library_ms"]}],
+        # the CSR matrix's SpMV at 1,050,625 rows (torch ops, no kernel)
+        "gather_matvec_ms": matvec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -817,5 +1233,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-rehearsal"]:
         cpu_rehearsal(sys.argv[2:])
+    elif sys.argv[1:2] == ["--cpu-study"]:
+        cpu_study()
     else:
         main()

@@ -7,8 +7,10 @@ runs on the CUDA card unless the caller asks for the CPU with
 
 Ported so far: the main path of the README problem — structured meshes,
 Lagrange spaces, stencil assembly with the hand-written cell kernel
-(compiler/cell_eval.py), Dirichlet conditions and CG with Jacobi — and
-geometric multigrid on structured hierarchies (mg/), with Chebyshev or
+(compiler/cell_eval.py), Dirichlet conditions and CG with Jacobi — the
+gather route (unstructured meshes, ds/dS facet integrals, 0-forms, CSR
+matrices; assembly/sparsity.py, assembly/matrix.py), norm and errornorm,
+and geometric multigrid on structured hierarchies (mg/), with Chebyshev or
 Richardson smoothing, Jacobi or vertex-star patch smoothers (patch solves
 through the batched-inverse kernel, ops/batched_inverse.py), an LU
 coarse solve and matrix-free levels (assembly/matfree.py).
@@ -20,7 +22,10 @@ from .functionspace import (FunctionSpace, VectorFunctionSpace,
                             TensorFunctionSpace)
 from .function import Function, Cofunction, Constant
 from .bcs import DirichletBC
-from .assemble import assemble, get_assembler
+from .assemble import assemble, get_assembler, FormAssembler
+from .assembly.sparsity import Sparsity
+from .assembly.matrix import Matrix, MatView
+from .norms import norm, errornorm
 from .interpolation import interpolate
 from .solving import (solve, LinearVariationalProblem,
                       LinearVariationalSolver)

@@ -3,7 +3,8 @@ matrix_free/operators.py ImplicitMatrix).
 
 A `MatrixFreeOperator` fills the assembled operator's duck type (matvec,
 diagonal, with_dirichlet, shape, dtype, copy) without storing entries:
-`matvec` is one rank-1 stencil assembly of action(a, x), whose element
+`matvec` is one rank-1 assembly of action(a, x) (the stencil route on
+structured meshes, else the gather route), whose element
 vectors come from K1's action terms (compiler/cell_eval.py), and
 `diagonal` is a diagonal-only assembly of a.  A P2-tet operator at 17M
 dofs would hold ~65 channel planes; the matrix-free one holds dof
@@ -62,8 +63,8 @@ class MatrixFreeOperator:
     def matvec(self, x):
         cd = dict(self._coeff_dats)
         cd[self._w.count] = x
-        return self._asm1._run_stencil(self._mesh.device_coordinates(), cd,
-                                       self._consts)
+        return self._asm1._evaluate(self._mesh.device_coordinates(), cd,
+                                    self._consts)
 
     __matmul__ = matvec
 

@@ -358,7 +358,10 @@ class StencilPlan:
 
 
 def build_stencil_plan(asm):
-    """StencilPlan for a FormAssembler, or None when inapplicable."""
+    """StencilPlan for a FormAssembler, or None when inapplicable
+    (FDTPU_NO_STENCIL=1 turns the route off, as in the JAX package)."""
+    if os.environ.get("FDTPU_NO_STENCIL") == "1":
+        return None
     mesh = asm.mesh
     s = getattr(mesh, "_structured", None)
     if s is None or asm.rank not in (1, 2):

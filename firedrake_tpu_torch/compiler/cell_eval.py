@@ -14,7 +14,8 @@ other forms with coefficients sum over quadrature points (QUAD).  The
 family:
 
 * affine simplices (triangles, tetrahedra) with P1 coordinates;
-* scalar Lagrange P1/P2 test and trial spaces;
+* scalar Lagrange P1/P2 test and trial spaces, and Discontinuous Lagrange
+  P1/P2 where its tabulation equals Lagrange's node for node;
 * integrands that are sums of ``c * prod(w) * inner(grad u, grad v)``,
   ``c * prod(w) * u * v`` (rank 2), ``c * prod(w) * v`` or the action
   term ``c * prod(w) * inner(grad z, grad v)`` (rank 1), where ``c`` is a
@@ -235,11 +236,32 @@ class FamilySpec:
         return torch.stack(vals)
 
 
+_LAGRANGE_LIKE = {}
+
+
+def _lagrange_like(elem):
+    """Whether a Discontinuous Lagrange element tabulates as the Lagrange
+    element of its cell and degree, node for node (the kernel's tables
+    come from the element, its loops from the dof count): checked once
+    per element at the points of a degree-4 rule."""
+    key = (elem.cell.name, elem.degree, hash(elem))
+    if key not in _LAGRANGE_LIKE:
+        from ..elements import make_scalar_element
+        cg = make_scalar_element(elem.cell.name, "Lagrange", elem.degree)
+        pts = _cell_rule(elem.cell.name, 4)[0]
+        a, b = elem.tabulate(pts, 1), cg.tabulate(pts, 1)
+        _LAGRANGE_LIKE[key] = elem.ndof == cg.ndof and all(
+            np.array_equal(a[d], b[d]) for d in (0, 1))
+    return _LAGRANGE_LIKE[key]
+
+
 def _scalar_lagrange(space, mesh):
     elem = getattr(space, "element", None)
+    family = getattr(elem, "family", None)
     return (getattr(space, "mesh_obj", None) is mesh
-            and getattr(elem, "family", None) == "Lagrange"
+            and family in ("Lagrange", "Discontinuous Lagrange")
             and getattr(elem, "degree", 0) in (1, 2)
+            and (family == "Lagrange" or _lagrange_like(elem))
             and tuple(space.value_shape) == ()
             and space.block_size == 1
             and getattr(elem, "mapping", "identity") == "identity"

@@ -1,9 +1,13 @@
 """Per-integral kernel construction (the TSFC compile_form analogue,
 reference: tsfc compile_form).
 
-Only cell integrals are ported, evaluated cell-last over all cells at
-once (compiler/batched.py).  Facet integrals and the cell-major kernels
-of the gather route are not ported yet.
+Two kinds of kernel per integral: the cell-last batched kernel over all
+cells at once (compiler/batched.py; K1 takes its family's forms,
+compiler/cell_eval.py), and kernels over ONE entity's gathered inputs
+(``cell_kernel``, ``exterior_facet_kernel``, ``interior_facet_kernel``),
+which the gather route evaluates over all entities with
+``torch.func.vmap``.  Interior-facet kernels see both cells: their local
+tensors have doubled slots, the '+' cell's dofs then the '-' cell's.
 """
 from __future__ import annotations
 
@@ -13,12 +17,18 @@ import torch
 from ..language.core import Coefficient, ConstantBase
 from ..language.measure import Integral
 from .preprocess import push_grad, estimate_degree
-from .lowering import einsum
+from .lowering import (einsum, CellContext, ExteriorFacetContext,
+                       InteriorFacetContext, Lowerer)
 
 
 class CompiledIntegral:
     def __init__(self, integral: Integral, test, trial, mesh):
         self.integral_type = integral.integral_type
+        if self.integral_type != "cell" \
+                and mesh.cell.facet_cell_name is None:
+            raise NotImplementedError(
+                "facet integrals on cells with two facet classes (prisms) "
+                "are not ported yet: ROADMAP.md queue 1, item 15")
         self.subdomain_id = integral.subdomain_id
         self.test = test
         self.trial = trial
@@ -48,6 +58,51 @@ class CompiledIntegral:
                 # curved cells: detJ is degree tdim*(cd-1), Jinv rational
                 deg += mesh.topological_dimension * (cd - 1)
         self.degree = max(int(deg), 1)
+
+    # ------------------------------------------------ per-entity kernels
+    def _lower(self, ctx, coeffs, consts):
+        low = Lowerer(ctx, self.test, self.trial, coeffs,
+                      {c.count: v for c, v in zip(self.constants, consts)})
+        v = low.run(self.integrand)                    # (ni', nj', nq)
+        out = einsum("ijq,q->ij", v, ctx.scale())
+        return torch.broadcast_to(out, self.local_shape())
+
+    def cell_kernel(self):
+        """fn(coords (ndofc, g), coeffs, consts) -> (ni, nj)."""
+        def fn(coords_e, coeffs, consts):
+            ctx = CellContext(self.mesh, self.degree, coords_e,
+                              rule=self.qrule)
+            return self._lower(ctx, dict(zip(
+                (c.count for c in self.coefficients), coeffs)), consts)
+        return fn
+
+    def exterior_facet_kernel(self):
+        """fn(coords, local facet, coeffs, consts) -> (ni, nj)."""
+        def fn(coords_e, lf, coeffs, consts):
+            ctx = ExteriorFacetContext(self.mesh, self.degree, coords_e, lf)
+            return self._lower(ctx, dict(zip(
+                (c.count for c in self.coefficients), coeffs)), consts)
+        return fn
+
+    def interior_facet_kernel(self):
+        """fn(coords_p, coords_m, lf_p, lf_m, o_rel, coeffs_p, coeffs_m,
+        consts) -> (2 ni, 2 nj); o_rel is the index of the relative vertex
+        permutation of the facet as the '-' cell sees it."""
+        def fn(coords_p, coords_m, lf_p, lf_m, o_rel, coeffs_p, coeffs_m,
+               consts):
+            ctx = InteriorFacetContext(self.mesh, self.degree, coords_p,
+                                       coords_m, lf_p, lf_m, o_rel)
+            cd = {c.count: {"+": wp, "-": wm} for c, wp, wm in
+                  zip(self.coefficients, coeffs_p, coeffs_m)}
+            return self._lower(ctx, cd, consts)
+        return fn
+
+    def kernel(self):
+        return {
+            "cell": self.cell_kernel,
+            "exterior_facet": self.exterior_facet_kernel,
+            "interior_facet": self.interior_facet_kernel,
+        }[self.integral_type]()
 
     def cell_kernel_batched(self):
         """Cell-last kernel: coords (ndofc, g, C), coeffs (nslot, C) ->
@@ -79,9 +134,11 @@ class CompiledIntegral:
         return len(_cell_rule(self.mesh.cell.name, self.degree)[0])
 
     def local_shape(self):
+        """(ni, nj) of the local tensor; interior facets double both."""
+        double = 2 if self.integral_type == "interior_facet" else 1
         ni = nj = 1
         if self.test is not None:
-            ni = self.test.space.element.ndof
+            ni = self.test.space.element.ndof * double
         if self.trial is not None:
-            nj = self.trial.space.element.ndof
+            nj = self.trial.space.element.ndof * double
         return ni, nj

@@ -13,8 +13,9 @@ tensor is  sum_q integrand * scale(q).
 
 Geometry: J[q,g,t] = sum_j coords[j,g] dphi_j[q,t]; physical derivatives
 contract reference-derivative axes with Jinv (pseudo-inverse on
-manifolds).  Only cell and point contexts are ported; facet integrals
-are not yet.
+manifolds).  Contexts: cell, points (interpolation), exterior facet and
+interior facet; an interior-facet integrand doubles the argument slots
+('+' then '-') and reads coefficients per side.
 """
 from __future__ import annotations
 
@@ -29,8 +30,9 @@ from ..language.core import (Zero, ScalarValue, Identity,
                              Abs, MathFunction, Atan2, MinMax, Indexed,
                              Conj, Real, Imag,
                              Grad, Restricted, Condition, BoolOp,
-                             Conditional, SpatialCoordinate, CellDiameter,
-                             CellVolume, CellOrientation)
+                             Conditional, SpatialCoordinate, FacetNormal,
+                             CellDiameter, CellVolume, FacetArea,
+                             CellOrientation)
 from ..language.tensor_algebra import (Inner, Dot, Outer, Cross, Transpose,
                                        Trace, Determinant, Inverse,
                                        ListTensor)
@@ -68,6 +70,41 @@ def _cell_rule(cell_name, degree):
 def _tables_at(element, points, order):
     """numpy tables dict {d: (nq, nslot, *vs, *(t,)*d)}."""
     return element_tables(element, points, order)
+
+
+def _facet_points(cell, qf_pts):
+    """(nlf, nq, tdim): facet-rule points embedded in each local facet."""
+    out = []
+    for lf in range(len(cell.facets)):
+        A, b = cell.facet_embedding(lf)
+        out.append(qf_pts @ A.T + b[None, :])
+    return np.stack(out)
+
+
+def _minus_facet_points(cell, qf_pts, facet_cell):
+    """(nlf, n_ori, nq, tdim): minus-side points matching the plus-side
+    quadrature order under each relative vertex permutation."""
+    import itertools
+    nfv = facet_cell.num_vertices
+    perms = list(itertools.permutations(range(nfv)))
+    # barycentric coords of qf_pts w.r.t. facet reference vertices
+    V = facet_cell.vertices                       # (nfv, fdim)
+    if facet_cell.dim == 0:
+        bary = np.ones((len(qf_pts), 1))
+    else:
+        # solve  [V^T; 1] b = [p; 1]
+        M = np.vstack([V.T, np.ones(nfv)])        # (fdim+1, nfv)
+        P = np.hstack([qf_pts, np.ones((len(qf_pts), 1))]).T
+        bary = np.linalg.lstsq(M, P, rcond=None)[0].T   # (nq, nfv)
+    out = np.zeros((len(cell.facets), len(perms), len(qf_pts), cell.dim))
+    for lf in range(len(cell.facets)):
+        A, b = cell.facet_embedding(lf)
+        for oi, pi in enumerate(perms):
+            # minus-side facet-local bary: b~[i'] = bary[pos] where
+            # V-[i'] == V+[pi[i']]
+            fpts = bary[:, list(pi)] @ V          # (nq, fdim)
+            out[lf, oi] = fpts @ A.T + b[None, :]
+    return out
 
 
 # ============================================================== contexts
@@ -220,6 +257,130 @@ class PointsContext(BaseContext):
         return len(self.qpts)
 
 
+class _FacetContext(BaseContext):
+    """Shared part of the facet contexts: the facet rule, the facet
+    measure and the unit normal, both from the '+' cell.  Cells with one
+    facet class only (CompiledIntegral refuses prisms)."""
+
+    def __init__(self, mesh, degree):
+        super().__init__(mesh, degree)
+        self.facet_cell = self.cell.facet_cell
+        qf = make_quadrature(self.facet_cell.name, degree)
+        self.qf_pts, self.qwts = qf.points, qf.weights
+        self.fpts = _facet_points(self.cell, self.qf_pts)  # (nlf, nq, t)
+        self.fdim = self.facet_cell.dim
+
+    def _tables(self, element, pts, order):
+        if hasattr(element, "tabulate_facet"):
+            raise NotImplementedError(
+                "facet-only elements (HDiv trace) are not ported yet: "
+                "ROADMAP.md queue 1, item 14")
+        return _tables_at(element, pts, order)
+
+    def _plus_tables(self, element, order):
+        """{d: (nlf, nq, ...)} tables at each local facet's points."""
+        per = [self._tables(element, self.fpts[lf], order)
+               for lf in range(len(self.fpts))]
+        return {d: self.const(np.stack([p[d] for p in per]))
+                for d in per[0]}
+
+    def scale(self):
+        key = "fscale"
+        if key not in self._cache:
+            J = self.geom("+")["J"]                    # (nq, g, t)
+            wq = self.const(self.qwts)
+            if self.fdim == 0:
+                s = torch.ones_like(wq)
+            else:
+                A = self.const(np.stack(
+                    [self.cell.facet_embedding(lf)[0]
+                     for lf in range(len(self.fpts))]))[self.lf_plus]
+                T = einsum("qgt,tf->qgf", J, A)
+                Gm = einsum("qgf,qge->qfe", T, T)
+                s = torch.sqrt(_smalldet(Gm))
+            self._cache[key] = s * wq.to(s.dtype)
+        return self._cache[key]
+
+    def _plus_normal(self):
+        key = "normal"
+        if key not in self._cache:
+            nref = self.const(self.cell.facet_reference_normals)[
+                self.lf_plus]
+            Jinv = self.geom("+")["Jinv"]              # (nq, t, g)
+            u = einsum("qtg,t->qg", Jinv, nref)
+            self._cache[key] = u / torch.linalg.vector_norm(
+                u, dim=-1, keepdim=True)
+        return self._cache[key]
+
+    def facet_area(self):
+        return torch.sum(self.scale())
+
+    def num_q(self):
+        return len(self.qwts)
+
+
+class ExteriorFacetContext(_FacetContext):
+    kind = "exterior_facet"
+
+    def __init__(self, mesh, degree, coords_e, lf):
+        super().__init__(mesh, degree)
+        self._coords = coords_e
+        self.lf_plus = lf
+
+    def coords_of(self, side):
+        return self._coords
+
+    def ref_table(self, element, order, side):
+        key = ("tab", hash(element), order)
+        if key not in self._cache:
+            # gathered by local facet
+            self._cache[key] = {d: t[self.lf_plus] for d, t in
+                                self._plus_tables(element, order).items()}
+        return self._cache[key][order]
+
+    def normal(self, side="+"):
+        return self._plus_normal()
+
+
+class InteriorFacetContext(_FacetContext):
+    kind = "interior_facet"
+
+    def __init__(self, mesh, degree, coords_p, coords_m, lf_p, lf_m,
+                 o_rel):
+        super().__init__(mesh, degree)
+        self.mpts = _minus_facet_points(self.cell, self.qf_pts,
+                                        self.facet_cell)
+        self._coords = {"+": coords_p, "-": coords_m}
+        self.lf_plus, self.lf_minus = lf_p, lf_m
+        self.o_rel = o_rel
+
+    def coords_of(self, side):
+        return self._coords[side]
+
+    def ref_table(self, element, order, side):
+        key = ("tab", hash(element), order, side)
+        if key not in self._cache:
+            if side == "+":
+                tabs = {d: t[self.lf_plus] for d, t in
+                        self._plus_tables(element, order).items()}
+            else:
+                # by the minus cell's local facet and the relative
+                # orientation of its vertices
+                nlf, nori = self.mpts.shape[:2]
+                per = [[self._tables(element, self.mpts[lf, o], order)
+                        for o in range(nori)] for lf in range(nlf)]
+                tabs = {d: self.const(np.stack([np.stack(
+                    [per[lf][o][d] for o in range(nori)])
+                    for lf in range(nlf)]))[self.lf_minus, self.o_rel]
+                    for d in per[0][0]}
+            self._cache[key] = tabs
+        return self._cache[key][order]
+
+    def normal(self, side="+"):
+        n = self._plus_normal()
+        return n if side == "+" else -n
+
+
 # ============================================================== evaluator
 _MATHFNS = {
     "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
@@ -255,13 +416,27 @@ class Lowerer:
         self.ctx = ctx
         self.test = test
         self.trial = trial
-        self.coeff_dats = coeff_dats      # count -> tensor
+        self.coeff_dats = coeff_dats      # count -> tensor or {'+', '-'}
         self.const_vals = const_vals      # count -> tensor
         self.memo = {}
+        self.interior = ctx.kind == "interior_facet"
 
     # ----------------------------------------------------------- helpers
+    def slot_count(self, arg):
+        nd = arg.space.element.ndof
+        return 2 * nd if self.interior else nd
+
     def arg_table(self, arg, order, side):
-        return self.ctx.ref_table(arg.space.element, order, side or "+")
+        elem = arg.space.element
+        if self.interior:
+            # doubled slots: the '+' cell's dofs, then the '-' cell's
+            if side is None:
+                raise ValueError(
+                    "arguments must be restricted ('+'/'-') in dS integrals")
+            T = self.ctx.ref_table(elem, order, side)
+            Z = torch.zeros_like(T)
+            return torch.cat([T, Z] if side == "+" else [Z, T], dim=1)
+        return self.ctx.ref_table(elem, order, side or "+")
 
     def _to_phys(self, T, d, side, T1=None):
         """Contract the trailing d reference-derivative axes with Jinv.
@@ -360,10 +535,23 @@ class Lowerer:
         if t is SpatialCoordinate:
             X = self.ctx.geom(side or "+")["X"]        # (nq, g)
             return X[None, None]
+        if t is FacetNormal:
+            if not hasattr(self.ctx, "normal"):
+                raise ValueError("FacetNormal is only defined in facet "
+                                 "integrals (ds/dS)")
+            if self.interior and side is None:
+                raise ValueError("FacetNormal must be restricted in dS")
+            return self.ctx.normal(side or "+")[None, None]
         if t is CellDiameter:
             return self.ctx.cell_diameter(side or "+").reshape(1, 1, 1)
         if t is CellVolume:
             return self.ctx.cell_volume(side or "+").reshape(1, 1, 1)
+        if t is FacetArea:
+            if not hasattr(self.ctx, "facet_area"):
+                raise ValueError(
+                    "FacetArea is only defined in facet integrals "
+                    "(ds/dS), not dx")
+            return self.ctx.facet_area().reshape(1, 1, 1)
         if t is CellOrientation:
             return literal(1.0, (1, 1, 1), dev)
 
@@ -516,7 +704,17 @@ class Lowerer:
                 return P[:, None]                      # (ni, 1, nq, ...)
             return P[None]                             # (1, nj, nq, ...)
         if isinstance(base, Coefficient):
+            if self.interior and side is None:
+                if not getattr(base.space.element, "continuous", False):
+                    raise ValueError(
+                        "coefficients must be restricted ('+'/'-') in "
+                        "dS integrals")
+                # ufl apply_default_restrictions: a continuous terminal
+                # is single-valued on the facet, so '+' stands for both
+                side = "+"
             dat = self.coeff_dats[base.count]
+            if isinstance(dat, dict):
+                dat = dat[side or "+"]
             elem = base.space.element
             T = ctx.ref_table(elem, d, side or "+")
             T1 = (ctx.ref_table(elem, 1, side or "+")

@@ -4,7 +4,8 @@
 // (body _gj_kernel), which inverts blocks of 256 n x n matrices per grid
 // step, the batch in lanes, by Gauss-Jordan without pivoting.  This kernel
 // computes the same inverse of each matrix of a (nb, n, n) batch, for any
-// nb and 1 <= n <= 32, in float32 or float64.  Its callers are the
+// nb and 1 <= n <= 32, in float32 or float64; a second variant at the end
+// of the file takes 33 <= n <= 128.  Its callers are the
 // vertex-star patch smoothers (solvers/preconditioners.py), with n = 7
 // (P1 triangles), 15 (P1 Kuhn tets) and 19 (P2 triangles).
 //
@@ -313,6 +314,113 @@ int launch_bucket(const void* a, void* out, long long nb, int n,
   }
 }
 
+// ------------------------------------------------ 33 <= n <= 128: blocks
+// A row no longer fits a lane's registers, so the large variant keeps
+// the matrices in shared memory, in place as above: one thread per row,
+// floor(128 / n) matrices per block of 128 threads (3 at n = 40, 1 at
+// n = 128; 133 KB of shared memory in float64 at n = 128).  A matrix is
+// stored by columns with a padded stride n + 1, so the threads of a
+// matrix, one per row, touch consecutive words when they sweep a column.
+// Step k has two phases between __syncthreads(): thread i forms entry i
+// of the pivot row times the correctly rounded 1 / pivot and saves entry
+// i of column k; then every thread i != k updates its row with the
+// pivot row (read as a broadcast) and thread k stores it.  Each product
+// and difference is rounded on its own, so the result equals the plain
+// version bit for bit, signed zeros aside.  What bounds it: bytes on
+// paper (each matrix read and written once); in practice shared memory,
+// which every step reads and writes whole (two 8-byte loads and a store
+// per entry in float64, ~5 cycles of the SM's shared-memory bandwidth
+// per warp and entry against ~2 of issue): 4.26 ms at (65,536, 40, 40)
+// float64 on an H100 (chip_smoke.py), against a 0.50 ms byte bound.
+// Grouping each thread's updates by four, loads before stores, gave 4.19
+// ms in another call: not kept.  The first version of this variant, one matrix per block
+// of 256 threads over its n^2 entries, spent its issue slots on index
+// arithmetic and took 8.19 ms.  Rows held in registers, as in the warp
+// variant, would read only the broadcast pivot row.
+constexpr int kMaxLargeN = 128;
+constexpr int kLargeThreads = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(kLargeThreads)
+    gj_large_kernel(const T* __restrict__ a, T* __restrict__ out,
+                    long long nb, int n, int per_block) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = n + 1;                     // padded column stride
+  const int msize = n * ld + 2 * n;         // matrix, pivot row, column
+  const int nn = n * n;
+  T* base = reinterpret_cast<T*>(smem_raw);
+  const int m = threadIdx.x / n, i = threadIdx.x - (threadIdx.x / n) * n;
+  const bool active = m < per_block;
+  T* S = base + (size_t)(active ? m : 0) * msize;  // S[j * ld + i] = A_ij
+  T* piv = S + n * ld;                      // pivot row times 1 / pivot
+  T* col = piv + n;                         // column k before step k
+  for (long long b0 = (long long)blockIdx.x * per_block; b0 < nb;
+       b0 += (long long)gridDim.x * per_block) {
+    const int count = nb - b0 < per_block ? (int)(nb - b0) : per_block;
+    const T* src = a + b0 * nn;
+    for (int e = threadIdx.x; e < count * nn; e += kLargeThreads) {
+      const int mm = e / nn, r = e - mm * nn, ii = r / n, jj = r - ii * n;
+      base[(size_t)mm * msize + jj * ld + ii] = src[e];
+    }
+    __syncthreads();
+    for (int k = 0; k < n; ++k) {
+      if (active) {
+        const T inv = rcp_rn(S[k * ld + k]);
+        // (k, k) of the inverse is 1 * inv
+        piv[i] = i == k ? inv : mul_rn(S[i * ld + k], inv);
+        col[i] = S[k * ld + i];
+      }
+      __syncthreads();
+      if (active && i == k) {
+        for (int j = 0; j < n; ++j) S[j * ld + i] = piv[j];
+      } else if (active) {
+        const T c = col[i];
+        // column k holds the inverse's column k from here on: 0 - c * inv
+        S[k * ld + i] = T(0);
+#pragma unroll 4
+        for (int j = 0; j < n; ++j)
+          S[j * ld + i] = sub_rn(S[j * ld + i], mul_rn(c, piv[j]));
+      }
+      __syncthreads();
+    }
+    T* dst = out + b0 * nn;
+    for (int e = threadIdx.x; e < count * nn; e += kLargeThreads) {
+      const int mm = e / nn, r = e - mm * nn, ii = r / n, jj = r - ii * n;
+      dst[e] = base[(size_t)mm * msize + jj * ld + ii];
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_large(const void* a, void* out, long long nb, int n,
+                 cudaStream_t stream) {
+  const int per_block = kLargeThreads / n;
+  const size_t smem =
+      (size_t)per_block * ((size_t)n * (n + 1) + 2 * (size_t)n) * sizeof(T);
+  auto kernel = gj_large_kernel<T>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kLargeThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return -4;
+  const long long chunks = (nb + per_block - 1) / per_block;
+  long long blocks = (long long)sms * per_sm;
+  if (blocks > chunks) blocks = chunks;
+  kernel<<<(unsigned)blocks, kLargeThreads, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<T*>(out), nb, n, per_block);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fdt_batched_inv(int is_double, const void* a, void* out,
@@ -321,4 +429,13 @@ extern "C" int fdt_batched_inv(int is_double, const void* a, void* out,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double ? launch_bucket<double>(a, out, nb, n, s)
                    : launch_bucket<float>(a, out, nb, n, s);
+}
+
+extern "C" int fdt_batched_inv_large(int is_double, const void* a,
+                                     void* out, long long nb, int n,
+                                     void* stream) {
+  if (nb <= 0 || n <= kMaxN || n > kMaxLargeN) return -2;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_double ? launch_large<double>(a, out, nb, n, s)
+                   : launch_large<float>(a, out, nb, n, s);
 }

@@ -119,43 +119,11 @@ class FunctionSpaceData:
             return      # ragged columns: generic numbering/executor
         if getattr(elem, "family", None) != "Lagrange":
             return
-        base = mesh._base_mesh
-        nlay = int(mesh._layers)
-        k = elem.degree
-        from .elements.lagrange import make_scalar_element
-        from .assembly.columns import column_factorization, ColumnLayout
-        try:
-            base_elem = make_scalar_element(base.cell.name, elem.family, k)
-        except Exception:
-            return
-        fac = column_factorization(elem, base_elem, k)
-        if fac is None:
-            return
-        sb, sz = fac
-        base_sdata = get_shared_data(base, base_elem)
-        Hd = k * nlay + 1
-        if self.num_nodes != base_sdata.num_nodes * Hd:
-            return
-        old = self.cell_node_map.astype(np.int64)
-        ncell_b = base_sdata.cell_node_map.shape[0]
-        if old.shape[0] != ncell_b * nlay:
-            return
-        bmap = base_sdata.cell_node_map.astype(np.int64)
-        c = np.arange(old.shape[0])
-        b, l = c // nlay, c % nlay               # cell id = b*nlay + l
-        pred = bmap[b][:, sb] * Hd + (l[:, None] * k + sz[None, :])
-        perm = np.full(self.num_nodes, -1, dtype=np.int64)
-        perm[old.ravel()] = pred.ravel()
-        # dofs are identified geometrically from every adjacent cell, so
-        # the old->new map must be a consistent bijection — verify fully
-        if (perm < 0).any() or not np.array_equal(perm[old], pred):
-            return
-        if np.unique(perm).size != self.num_nodes:
-            return
-        self.cell_node_map = pred.astype(_IDX)
-        self.node_perm = perm
-        self.column = ColumnLayout(base_sdata, sb, sz, k, nlay)
-        self.column_numbered = True
+        # the JAX package renumbers dofs column-major here for its
+        # column executor (assembly/columns.py), which is not ported
+        raise NotImplementedError(
+            "column-numbered spaces on extruded meshes (assembly/columns.py)"
+            " are not ported yet: ROADMAP.md queue 1, item 15")
 
     def _maybe_grid_renumber(self):
         import os

@@ -12,9 +12,14 @@ Role: the dense local inverses behind the patch smoothers
   pivoting, transcribed to torch in the same order of operations;
 * CUDA tensors with 4 <= n <= 32: the hand-written kernel
   (``csrc/batched_inv.cu``: in-place elimination, one row per lane,
-  floor(32 / n) matrices per warp), counted in ``kernel_launches``; it
-  rounds as ``batched_inv_plain`` does, so the two agree bit for bit up
-  to signed zeros; larger n raises.
+  floor(32 / n) matrices per warp), counted in ``kernel_launches``;
+* CUDA tensors with 33 <= n <= 128: the kernel's large variant in the
+  same source (in place in shared memory, one thread per row, floor(128
+  / n) matrices per block), counted in ``kernel_launches`` and
+  ``large_launches``; larger n raises.
+
+Both variants round as ``batched_inv_plain`` does, so each agrees with it
+bit for bit up to signed zeros.
 
 Unlike the JAX package there is no ``force_pallas``/``interpret`` switch and
 no padding of the batch to a multiple of 256: the kernel takes any batch.
@@ -30,10 +35,16 @@ from ..compiler.smallmat import inv as _cofactor_inv
 
 __all__ = ["batched_inv", "batched_solve", "batched_inv_plain"]
 
-#: launches of the CUDA kernel (counted where it launches, nowhere else)
+#: launches of the CUDA kernel, both variants (counted where it launches,
+#: nowhere else)
 kernel_launches = 0
-#: largest n the kernel takes (a lane holds a row, a warp has 32 lanes)
-MAX_N = 32
+#: launches of the large variant alone
+large_launches = 0
+#: largest n of the warp variant (a lane holds a row, a warp has 32 lanes)
+WARP_N = 32
+#: largest n the kernel takes (the large variant's n x (n + 1) block in
+#: shared memory: 133 KB in float64)
+MAX_N = 128
 
 _SRC = nvcc.source("batched_inv.cu")
 _lib = None
@@ -67,22 +78,20 @@ def build():
     if _lib is not None:
         return 0.0
     lib = nvcc.load(_SRC)
-    fn = lib.fdt_batched_inv
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.fdt_batched_inv, lib.fdt_batched_inv_large):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     _lib = lib
     return nvcc.build_logs.get(_SRC, (0.0, ""))[0]
 
 
 def _launch(A):
-    global kernel_launches
+    global kernel_launches, large_launches
     n = A.shape[-1]
     if n > MAX_N:
         raise ValueError(
-            f"batched_inv: the CUDA kernel takes n <= {MAX_N}, got {n} "
-            "(larger blocks, e.g. P2-tet vertex stars and BDDC, wait for "
-            "ROADMAP.md queue 2, K2 beyond n = 32)")
+            f"batched_inv: the CUDA kernel takes n <= {MAX_N}, got {n}")
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"batched_inv takes float32/float64, got {A.dtype}")
     A2 = A.reshape(-1, n, n).contiguous()
@@ -90,14 +99,16 @@ def _launch(A):
     if A2.shape[0] == 0:
         return out.reshape(A.shape)
     build()
+    large = n > WARP_N
+    fn = _lib.fdt_batched_inv_large if large else _lib.fdt_batched_inv
     with torch.cuda.device(A.device):
-        rc = _lib.fdt_batched_inv(int(A.dtype == torch.float64),
-                                  A2.data_ptr(), out.data_ptr(),
-                                  A2.shape[0], n,
-                                  nvcc.current_stream(A.device))
+        rc = fn(int(A.dtype == torch.float64), A2.data_ptr(),
+                out.data_ptr(), A2.shape[0], n,
+                nvcc.current_stream(A.device))
     if rc != 0:
         raise RuntimeError(f"batched_inv kernel launch failed: code {rc}")
     kernel_launches += 1
+    large_launches += large
     return out.reshape(A.shape)
 
 

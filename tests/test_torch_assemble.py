@@ -102,19 +102,30 @@ def test_gather_inputs_bit_equal():
 
 
 def test_unported_routes_raise():
+    """What the port still refuses raises NotImplementedError naming its
+    ROADMAP.md item.  The cases this test first held to raising (0-forms,
+    facet integrals, rows and columns on two grids, unstructured meshes)
+    now take the gather route (tests/test_torch_gather.py)."""
     mesh = T.UnitSquareMesh(2, 2)
     V = T.FunctionSpace(mesh, "CG", 1)
-    with pytest.raises(NotImplementedError, match="gather route"):
-        T.assemble(T.Function(V) * T.dx)                      # 0-form
-    with pytest.raises(NotImplementedError, match="gather route"):
-        T.assemble(T.TestFunction(V) * T.ds)                  # facets
+    assert isinstance(T.assemble(T.Function(V) * T.dx), float)  # 0-form
+    assert isinstance(T.assemble(T.TestFunction(V) * T.ds),      # facets
+                      T.Cofunction)
     V2 = T.FunctionSpace(mesh, "CG", 2)      # rows and columns on two grids
-    with pytest.raises(NotImplementedError, match="gather route"):
-        T.assemble(T.TrialFunction(V) * T.TestFunction(V2) * T.dx)
+    assert isinstance(T.assemble(T.TrialFunction(V) * T.TestFunction(V2)
+                                 * T.dx), T.Matrix)
     m = T.UnitDiskMesh(1)                                     # unstructured
     W = T.FunctionSpace(m, "CG", 1)
-    with pytest.raises(NotImplementedError, match="gather route"):
-        T.assemble(T.TestFunction(W) * T.dx)
+    assert isinstance(T.assemble(T.TestFunction(W) * T.dx), T.Cofunction)
+    with pytest.raises(NotImplementedError, match="item 17"):  # complex
+        T.assemble(T.Constant(1j) * T.TestFunction(V) * T.dx)
+    ext = T.ExtrudedMesh(T.UnitIntervalMesh(2), 2)            # extruded
+    with pytest.raises(NotImplementedError, match="item 15"):
+        T.FunctionSpace(ext, "CG", 1)
+    from firedrake_tpu_torch.assemble import FormAssembler as TFA
+    Q = T.FunctionSpace(T.UnitSquareMesh(2, 2, quadrilateral=True), "CG", 2)
+    with pytest.raises(NotImplementedError, match="item 14"):  # spectral
+        TFA(T.TrialFunction(Q) * T.TestFunction(Q) * T.dx, use_stencil=False)
 
 
 def test_function_assign_and_bc_zero_match_jax():

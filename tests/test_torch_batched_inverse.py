@@ -65,10 +65,20 @@ def test_solve_matches_pallas_interpret(rhs):
     _close(ours.numpy(), ref, 1e-12, 0.0)
 
 
+@pytest.mark.parametrize("n", [33, 40, 64])
+def test_large_n_matches_pallas_interpret(n):
+    """Blocks beyond a warp's 32 rows (the kernel's large variant on the
+    card): the plain version against the JAX package's kernel."""
+    A = _spd((6,), n, seed=n)
+    ref = np.asarray(JB.batched_inv(A, force_pallas=True, interpret=True))
+    ours = BI.batched_inv(torch.as_tensor(A))
+    _close(ours.numpy(), ref, 1e-12, 0.0)
+
+
 def test_kernel_limits_raise():
     n0 = BI.kernel_launches
-    with pytest.raises(ValueError, match="n <= 32"):
-        BI._launch(torch.zeros(2, 33, 33))
+    with pytest.raises(ValueError, match="n <= 128"):
+        BI._launch(torch.zeros(2, 129, 129))
     with pytest.raises(ValueError, match="square"):
         BI.batched_inv(torch.zeros(2, 4, 5))
     assert BI.kernel_launches == n0
@@ -98,9 +108,9 @@ def _in_place_gj(A):
 def test_in_place_order_equals_plain_bit_for_bit(dt):
     """The kernel's in-place elimination skips only exact operations of
     the plain [A | I] version (x * 0, 0 - p, 1 * r), so for every n the
-    kernel takes the two give the same rounded numbers, signed zeros
-    aside (cleared by adding 0.0)."""
-    for n in range(4, 33):
+    kernel takes (both variants) the two give the same rounded numbers,
+    signed zeros aside (cleared by adding 0.0)."""
+    for n in list(range(4, 33)) + [33, 40, 64]:
         A = torch.as_tensor(_spd((24,), n, seed=100 + n), dtype=dt)
         ours = _in_place_gj(A) + 0.0
         ref = BI.batched_inv_plain(A) + 0.0

@@ -1,6 +1,7 @@
-"""K1 and K2 on the card: each CUDA kernel (K1's action variant
-included) against its plain PyTorch version, the launch counts, and the
-matrix-free operator on the card against the CPU.  Marked `cuda`; skips where torch has no CUDA device.
+"""K1 and K2 on the card: each CUDA kernel (K1's action variant and
+K2's large variant included) against its plain PyTorch version, the
+launch counts, and the matrix-free operator and the gather route's
+matrix and vectors on the card against the CPU.  Marked `cuda`; skips where torch has no CUDA device.
 Run on a machine with an NVIDIA GPU with
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 (--noconftest: tests/conftest.py configures jax, which these tests do not
@@ -157,10 +158,11 @@ def test_batched_inv_matches_plain_on_card(on_cuda, dtype, rtol, atol):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_batched_inv_every_n_and_ragged_batches_on_card(on_cuda, dtype):
-    """Every n the kernel takes, at batch sizes that fill no warp, chunk
-    or block: the kernel rounds as the plain version does, so the two are
-    equal (signed zeros cleared by adding 0.0)."""
-    for n in range(4, 33):
+    """Every n of the warp variant and some of the large one, at batch
+    sizes that fill no warp, chunk or grid: the kernel rounds as the plain
+    version does, so the two are equal (signed zeros cleared by adding
+    0.0)."""
+    for n in list(range(4, 33)) + [33, 40, 64, 100, 128]:
         for nb in (1, 3, 4097):
             B = np.random.default_rng(n * nb).standard_normal((nb, n, n))
             A = torch.as_tensor(B @ B.transpose(0, 2, 1) + n * np.eye(n),
@@ -185,3 +187,46 @@ def test_moving_the_mesh_with_a_cuda_tensor(on_cuda):
         out.append((A.channels.cpu(), mesh.cell_volumes))
     assert torch.allclose(out[0][0], out[1][0], rtol=1e-12, atol=0)
     assert np.array_equal(out[0][1], out[1][1])
+
+
+def test_batched_inv_large_variant_counts_on_card(on_cuda):
+    A = torch.eye(40, dtype=torch.float64, device="cuda").repeat(5, 1, 1)
+    n0, m0 = BI.kernel_launches, BI.large_launches
+    assert torch.equal(BI.batched_inv(A), A)
+    assert (BI.kernel_launches, BI.large_launches) == (n0 + 1, m0 + 1)
+    with pytest.raises(ValueError, match="n <= 128"):
+        BI.batched_inv(torch.zeros(2, 129, 129, device="cuda"))
+
+
+def test_gather_route_on_card_matches_cpu(on_cuda):
+    """The gather route on the card (K1 for the cell terms, the vmapped
+    facet kernels, the gather tables) against the CPU: the SIPG matrix
+    and a load vector on DG1 over UnitDiskMesh(3), a 0-form, and the
+    Matrix's matvec."""
+    out = []
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        mesh = T.UnitDiskMesh(3)
+        V = T.FunctionSpace(mesh, "DG", 1)
+        u, v = T.TrialFunction(V), T.TestFunction(V)
+        n = T.FacetNormal(mesh)
+        h = T.CellDiameter(mesh)
+        w = T.Function(V, val=torch.linspace(0.5, 1.5, V.dim,
+                                                dtype=torch.float64))
+        a = T.inner(T.grad(u), T.grad(v)) * T.dx \
+            - T.inner(T.avg(T.grad(u)), T.jump(v, n)) * T.dS \
+            - T.inner(T.jump(u, n), T.avg(T.grad(v))) * T.dS \
+            + 10.0 / T.avg(h) * T.inner(T.jump(u, n), T.jump(v, n)) * T.dS \
+            + 10.0 / h * u * v * T.ds
+        L = w * v * T.dx + T.jump(v) * T.avg(w) * T.dS + w * v * T.ds
+        n0 = K.kernel_launches
+        A = T.assemble(a)
+        b = T.assemble(L)
+        if dev == "cuda":
+            assert K.kernel_launches == n0 + 2
+        x = torch.linspace(-1.0, 1.0, V.dim, dtype=torch.float64,
+                           device=dev)
+        out.append((A.data.cpu(), b.dat.cpu(), A.matvec(x).cpu(),
+                    torch.tensor(T.assemble(w * w * T.dx + w("+") * T.dS))))
+    for a, b in zip(*out):
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
