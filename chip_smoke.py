@@ -2,10 +2,14 @@
 
     python3 chip_smoke.py                 # the card run (needs CUDA)
     python3 chip_smoke.py --cpu-rehearsal [label ...]
-                                          # the GMG and gather-route solves
-                                          # on the CPU only
-    python3 chip_smoke.py --cpu-study     # the gather-route solves' CPU
-                                          # convergence study (error bounds)
+                                          # the GMG, gather-route and
+                                          # nonlinear-phase solves on the
+                                          # CPU only (the counts the card
+                                          # must match)
+    python3 chip_smoke.py --cpu-study [label ...]
+                                          # the gather-route solves' and
+                                          # the P1 nonlinear cases' CPU
+                                          # convergence study (bounds)
 
 Phases of the card run (each prints its own lines and its seconds; any
 failure raises and the exit code is non-zero):
@@ -59,7 +63,32 @@ failure raises and the exit code is non-zero):
              and the lowerer not, iterations within 1% of the CPU
              rehearsal, nodal and L2 (errornorm, a 0-form) errors below
              the bounds of GATHER.
-6. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
+6. nonlinear — at 1,050,625 P1 dofs on gmg_p1_1m's hierarchy, each case
+             with every launch count set to 0 before its counted run and
+             read after: newton_p1_1m (-lap u + u^2 = f, u = s = sin(pi x)
+             sin(pi y), u = 0 on the boundary, u0 = 0; Newton, snes_rtol
+             1e-10, CG + GMG at ksp_rtol 1e-8, assembled Jacobian) and
+             newton_mf_p1_1m (the same, mat_type matfree): before each
+             solve K1 is held to its plain version and the lowerer on the
+             path's own cell-last inputs (residual, Jacobian and, matrix-
+             free, its action; f64 and f32, full size); then per Newton
+             step |F|, CG iterations and the residual, Jacobian, PC set-up
+             and solve times; gates: converged, Newton steps equal to the
+             CPU rehearsal, CG iterations per step within one of it,
+             |F| / |F0| <= 1e-10, nodal error below NEWTON_ERR, K1
+             launched and the lowerer not, the two solutions within 1e-10.
+             krylov_p1_1m: gmg_p1_1m's linear system under GMRES, FGMRES,
+             BiCGStab and MINRES with GMG at ksp_rtol 1e-10: iterations
+             within one of the rehearsal, the residual each method tests
+             <= 1e-10 (GMRES and MINRES: the preconditioned one; their true
+             one below LEFT_PC_TRUE_RESIDUAL).  burgers_p2_256:
+             demos/burgers.py at UnitSquareMesh(256), vector P2 (526,338
+             dofs), two time steps, Newton + GMRES + Jacobi; every cell
+             integral runs the torch BatchedLowerer, whose device time is
+             summed per assembly (CUDA events); gates: Newton steps equal
+             to the rehearsal, GMRES iterations within 2%, energies
+             decreasing and within 1e-8 of the rehearsal's.
+7. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
              -lap u = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on the
              boundary, P2 on MeshHierarchy(UnitCubeMesh(8), 4) (12,582,912
              tets, 16,974,593 dofs), CG + GMG (Chebyshev(2) + Jacobi) with
@@ -77,6 +106,7 @@ failure raises and the exit code is non-zero):
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -116,11 +146,26 @@ MAIN_GMG = ("gmg_p1_1m", "gmg_star_p2_1m")
 # Iterations of the same solves on the CPU (python3 chip_smoke.py
 # --cpu-rehearsal, run on the 8-core host of an H100 machine); the card
 # must agree within one (the GMG solves) or within 1% (the gather-route
-# solves: thousands of CG iterations, rounded in another order).
+# solves: thousands of CG iterations, rounded in another order).  The
+# Neumann count is the same with grad(u_ex) in the form as with the
+# gradient written out.
 CPU_REHEARSAL_ITS = {"gmg_p1_1m": 10, "gmg_star_p2_1m": 6,
                      "gmg_p2_tet_16m": 11,
                      # the gather-route solves: within 1% on the card
-                     "neumann_helmholtz_disk": 2789, "sipg_dg1_disk": 3028}
+                     "neumann_helmholtz_disk": 2789, "sipg_dg1_disk": 3028,
+                     # the nonlinear phase: Newton steps and CG iterations
+                     # per step (within one on the card); the Krylov
+                     # methods' iterations (within one); Burgers' Newton
+                     # steps, GMRES iterations per Newton step (within 2%)
+                     # and energies (within 1e-8)
+                     "newton_p1_1m": (3, [8, 8, 8]),
+                     "newton_mf_p1_1m": (3, [8, 8, 8]),
+                     "krylov_p1_1m": {"gmres": 7, "fgmres": 10,
+                                      "bicgstab": 5, "minres": 7},
+                     "burgers_p2_256": dict(
+                         newton=[2, 2], gmres=[[55, 64], [56, 64]],
+                         energy=[0.49999999997637545, 0.49997733541826966,
+                                 0.4999546803647855])}
 
 
 def phase(name):
@@ -364,24 +409,34 @@ def _k1_compare(K, label, t, spec, ci, ce, ws, cv, timed):
     return rows
 
 
+def _stencil_k1_checks(asm, label, timed=False):
+    """K1 against its plain version and the lowerer on the stencil route's
+    own inputs: every cell integral's strided gathers over each cell type,
+    in float64 and float32, at full size; with `timed`, the first cell
+    type's launches are timed too.  Returns the timed rows."""
+    from firedrake_tpu_torch.compiler import cell_eval as K
+    if asm._stencil is None:
+        raise AssertionError(f"{label}: not on the stencil route")
+    coords, coeffs, consts = asm._inputs()
+    rows = []
+    for ci in asm._compiled:
+        spec = K.family_spec(ci)
+        if spec is None:
+            raise AssertionError(f"{label}: not in K1's family")
+        cv = tuple(consts[c.count] for c in ci.constants)
+        for t in range(asm._stencil.ntypes):
+            ce, ws = asm._stencil.gather_cell_inputs(t, coords, coeffs, ci)
+            rows += _k1_compare(K, label, t, spec, ci, ce, ws, cv,
+                                timed and t == 0)
+            del ce, ws
+    return rows
+
+
 def k1_checks(fd, sp):
     from firedrake_tpu_torch.assemble import FormAssembler
-    from firedrake_tpu_torch.compiler import cell_eval as K
     rows = []
     for label, form, timed in _cases(fd, sp):
-        asm = FormAssembler(form)
-        coords, coeffs, consts = asm._inputs()
-        for ci in asm._compiled:
-            spec = K.family_spec(ci)
-            if spec is None:
-                raise AssertionError(f"{label}: not in K1's family")
-            cv = tuple(consts[c.count] for c in ci.constants)
-            for t in range(asm._stencil.ntypes):
-                ce, ws = asm._stencil.gather_cell_inputs(t, coords, coeffs,
-                                                         ci)
-                rows += _k1_compare(K, label, t, spec, ci, ce, ws, cv,
-                                    timed and t == 0)
-        del asm
+        rows += _stencil_k1_checks(FormAssembler(form), label, timed)
     torch.cuda.synchronize()
     print("k1_timings " + json.dumps(rows))
     return rows[0]
@@ -532,22 +587,32 @@ def _sync_time(fn):
 
 
 class _Counts:
-    """Every launch counter set to 0 on entry and read on exit."""
+    """Every launch counter set to 0 on entry and read on exit; a `_Counts`
+    entered more than once sums its blocks' readings.  `k1_by_variant`
+    splits K1's launches by the kernel's variant."""
+
+    def __init__(self):
+        self.k1 = self.k2 = self.k2_large = self.lowerer = 0
+        self.k1_by_variant = dict(ref=0, quad=0, act=0)
 
     def __enter__(self):
         from firedrake_tpu_torch.compiler import cell_eval as K
         from firedrake_tpu_torch.ops import batched_inverse as BI
         self.K, self.BI = K, BI
         K.kernel_launches = K.lowerer_evals = 0
+        K.launches_by_mode[:] = [0, 0, 0]
         BI.kernel_launches = BI.large_launches = 0
         return self
 
     def __exit__(self, *exc):
         torch.cuda.synchronize()
-        self.k1 = self.K.kernel_launches
-        self.k2 = self.BI.kernel_launches
-        self.k2_large = self.BI.large_launches
-        self.lowerer = self.K.lowerer_evals
+        K = self.K
+        self.k1 += K.kernel_launches
+        self.k2 += self.BI.kernel_launches
+        self.k2_large += self.BI.large_launches
+        self.lowerer += K.lowerer_evals
+        for name, mode in (("ref", K.REF), ("quad", K.QUAD), ("act", K.ACT)):
+            self.k1_by_variant[name] += K.launches_by_mode[mode]
 
 
 def _check(label, uh, solver, exact, bound, counts, k2=0):
@@ -570,9 +635,32 @@ def _check(label, uh, solver, exact, bound, counts, k2=0):
                              f"expected {k2}")
 
 
+def _release(label):
+    """Drop what a phase leaves on the card before a later phase reads its
+    peak memory: the port's module caches (assemblers, interpolation
+    plans, grid transfers, function space data, which hold meshes and
+    their device coordinates) and unreachable cycles (solvers and their
+    preconditioner closures)."""
+    import gc
+    from firedrake_tpu_torch.assemble import _assembler_cache
+    from firedrake_tpu_torch.interpolation import _interp_cache
+    from firedrake_tpu_torch.mg.transfer import _transfer_cache
+    from firedrake_tpu_torch.functionspace import _fsdata_cache
+    for cache in (_assembler_cache, _interp_cache, _transfer_cache,
+                  _fsdata_cache):
+        cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label}: device memory allocated after release "
+          f"{torch.cuda.memory_allocated()} bytes")
+
+
 class _StageTimes:
-    """Seconds spent in the GMG set-up's stages during one solve: each
-    named module function is wrapped, synchronised on both sides."""
+    """Seconds spent in named stages during one solve: each named module
+    function (or class attribute) is wrapped, synchronised on both sides;
+    `secs` sums each stage, `calls` lists its calls' seconds in order,
+    over every block the object is entered for.  The default stages are
+    the GMG set-up's."""
 
     STAGES = (("pc_setup", "firedrake_tpu_torch.mg.vcycle",
                "GMGPreconditioner"),
@@ -586,11 +674,15 @@ class _StageTimes:
                "batched_inv"),
               ("solve", "firedrake_tpu_torch.solving", "_run_ksp"))
 
+    def __init__(self, stages=None):
+        self.stages = stages or self.STAGES
+        self.secs = {name: 0.0 for name, _, _ in self.stages}
+        self.calls = {name: [] for name, _, _ in self.stages}
+
     def __enter__(self):
         import importlib
-        self.secs = {name: 0.0 for name, _, _ in self.STAGES}
         self.saved = []
-        for name, mod, path in self.STAGES:
+        for name, mod, path in self.stages:
             owner = importlib.import_module(mod)
             *outer, attr = path.split(".")
             for o in outer:
@@ -604,6 +696,7 @@ class _StageTimes:
         def run(*a, **kw):
             out, s = _sync_time(lambda: fn(*a, **kw))
             self.secs[name] += s
+            self.calls[name].append(s)
             return out
         return run
 
@@ -842,9 +935,7 @@ SOLVE_PARAMS = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": 1e-10,
 def _neumann_problem(fd, level):
     """-lap u + u = f on UnitDiskMesh(level), du/dn = g: exact u =
     cos(pi x) cos(pi y), f = (1 + 2 pi^2) u interpolated into P1, g =
-    grad(u) . n with the discrete normal (exact on the polygon).  grad(u)
-    is written out: grad of pi * x fails in both packages' language layer
-    (the gradient of the literal pi gets shape (0,))."""
+    grad(u) . n with the discrete normal (exact on the polygon)."""
     mesh = fd.UnitDiskMesh(level)
     V = fd.FunctionSpace(mesh, "CG", 1)
     u, v = fd.TrialFunction(V), fd.TestFunction(V)
@@ -853,9 +944,7 @@ def _neumann_problem(fd, level):
     f = fd.Function(V).interpolate((1 + 2 * fd.pi ** 2) * u_ex)
     n = fd.FacetNormal(mesh)
     a = (fd.inner(fd.grad(u), fd.grad(v)) + u * v) * fd.dx
-    grad_ex = fd.as_vector([-fd.pi * fd.sin(fd.pi * x) * fd.cos(fd.pi * y),
-                            -fd.pi * fd.cos(fd.pi * x) * fd.sin(fd.pi * y)])
-    L = f * v * fd.dx + fd.inner(grad_ex, n) * v * fd.ds
+    L = f * v * fd.dx + fd.inner(fd.grad(u_ex), n) * v * fd.ds
     uh = fd.Function(V)
     solver = fd.LinearVariationalSolver(fd.LinearVariationalProblem(a, L, uh),
                                         solver_parameters=SOLVE_PARAMS)
@@ -1098,19 +1187,443 @@ def gather_phase():
         torch.cuda.empty_cache()
     # the cached gather-route assemblers hold ~1 GB of index tables on the
     # card; free them before the 16M phase reads its peak memory
-    from firedrake_tpu_torch.assemble import _assembler_cache
-    _assembler_cache.clear()
-    torch.cuda.empty_cache()
+    _release("gather")
     phase_done("gather", t0)
     return used, mv
 
 
-def cpu_study():
-    """The gather-route solves on the CPU at the study levels: iterations,
-    nodal and L2 errors, and their rates per level."""
+# ------------------------------------------------------- the nonlinear phase
+# The three P1 cases share gmg_p1_1m's hierarchy, MeshHierarchy(
+# UnitSquareMesh(32), 5): 1,050,625 dofs.  `study`: the levels of the CPU
+# convergence study (python3 chip_smoke.py --cpu-study), which fixed the
+# bounds below beforehand (PERF.md).
+NONLINEAR_N0, NONLINEAR_LEVELS = 32, 5
+NONLINEAR_STUDY = (1, 2, 3)
+NEWTON_PARAMS = {"snes_rtol": 1e-10, "ksp_type": "cg", "ksp_rtol": 1e-8,
+                 "pc_type": "mg"}
+# Bounds, each twice the value extrapolated from the study's last level to
+# level 5: max |u - s| of newton_p1_1m (s interpolated; 5.4768e-4,
+# 1.3696e-4, 3.4241e-5 at levels 1-3, 4.0x per level), and the true
+# relative residual of the left-preconditioned methods in krylov_p1_1m
+# (GMRES and MINRES test the preconditioned residual, |M^-1 r| /
+# |M^-1 b| <= 1e-10; their |r| / |b| was 1.194e-8, 1.376e-8, 2.164e-8,
+# at most 1.57x per level).
+NEWTON_ERR = 4.3e-6
+LEFT_PC_TRUE_RESIDUAL = 1.1e-7
+KRYLOV_METHODS = ("gmres", "fgmres", "bicgstab", "minres")
+LEFT_PC = ("gmres", "minres")
+BURGERS_N, BURGERS_STEPS = 256, 2
+BURGERS_PARAMS = {"snes_rtol": 1e-8, "ksp_rtol": 1e-10}
+# per Newton step: the residual assembly, the Jacobian (assembled, or the
+# matrix-free operator), the PC set-up and the linear solve
+NEWTON_STAGES = (
+    ("residual", "firedrake_tpu_torch.solving",
+     "NonlinearVariationalSolver._residual"),
+    ("jacobian", "firedrake_tpu_torch.solving",
+     "NonlinearVariationalSolver._jacobian"),
+    ("pc_setup", "firedrake_tpu_torch.solving", "build_pc"),
+    ("solve", "firedrake_tpu_torch.solving", "_run_ksp"))
+
+
+def _newton_problem(fd, mesh, mat_type="aij"):
+    """-lap u + u^2 = f, u = 0 on the boundary, u0 = 0, f interpolated
+    from 2 pi^2 s + s^2 with s = sin(pi x) sin(pi y), so that u = s."""
+    V = fd.FunctionSpace(mesh, "CG", 1)
+    x, y = fd.SpatialCoordinate(mesh)
+    s = fd.sin(fd.pi * x) * fd.sin(fd.pi * y)
+    f = fd.Function(V).interpolate(2 * fd.pi ** 2 * s + s * s)
+    u, v = fd.Function(V), fd.TestFunction(V)
+    F = fd.inner(fd.grad(u), fd.grad(v)) * fd.dx + u * u * v * fd.dx \
+        - f * v * fd.dx
+    problem = fd.NonlinearVariationalProblem(
+        F, u, bcs=fd.DirichletBC(V, 0, "on_boundary"))
+    solver = fd.NonlinearVariationalSolver(
+        problem, solver_parameters=dict(NEWTON_PARAMS, mat_type=mat_type))
+    return dict(u=u, problem=problem, solver=solver,
+                exact=fd.Function(V).interpolate(s))
+
+
+def _newton_readings(p):
+    """(Newton steps, CG iterations per step, final |F| / |F0|, max nodal
+    error against s)."""
+    solver, u = p["solver"], p["u"]
+    r0 = solver.history[0]["rnorm"]
+    rel = float(torch.linalg.vector_norm(solver._residual(u.dat))) / r0
+    err = float((u.dat - p["exact"].dat).abs().max())
+    return (solver.snes_iterations,
+            [h["ksp_iterations"] for h in solver.history], rel, err)
+
+
+def _krylov_problem(fd, mesh, method):
+    """gmg_p1_1m's linear system under one Krylov method with GMG."""
+    V = fd.FunctionSpace(mesh, "CG", 1)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    x, y = fd.SpatialCoordinate(mesh)
+    f = fd.Function(V).interpolate(2 * fd.pi ** 2 * fd.sin(fd.pi * x)
+                                   * fd.sin(fd.pi * y))
+    a, L = fd.inner(fd.grad(u), fd.grad(v)) * fd.dx, fd.inner(f, v) * fd.dx
+    bc = fd.DirichletBC(V, 0, "on_boundary")
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(a, L, uh, bcs=bc),
+        solver_parameters={"ksp_type": method, "pc_type": "mg",
+                           "ksp_rtol": 1e-10})
+    return dict(a=a, L=L, bc=bc, uh=uh, solver=solver)
+
+
+def _krylov_readings(fd, p):
+    """(iterations, true relative residual |b - A u| / |b|, preconditioned
+    relative residual |M^-1 (b - A u)| / |M^-1 b|)."""
+    A = fd.assemble(p["a"], bcs=p["bc"])
+    b = fd.assemble(p["L"], bcs=p["bc"]).dat
+    r = b - A.matvec(p["uh"].dat)
+    pc = p["solver"]._gmg
+    norm = torch.linalg.vector_norm
+    return (p["solver"].ksp_iterations, float(norm(r) / norm(b)),
+            float(norm(pc(r)) / norm(pc(b))))
+
+
+def _burgers_problem(fd, n):
+    """demos/burgers.py at UnitSquareMesh(n): vector P2, nu = 1e-4, the
+    time step 1/n, u0 = (sin(pi x), 0)."""
+    mesh = fd.UnitSquareMesh(n, n)
+    V = fd.VectorFunctionSpace(mesh, "CG", 2)
+    X = fd.SpatialCoordinate(mesh)
+    u_, u = fd.Function(V, name="u_prev"), fd.Function(V, name="u")
+    v = fd.TestFunction(V)
+    u_.interpolate(fd.as_vector([fd.sin(fd.pi * X[0]), 0.0]))
+    u.assign(u_)
+    nu = fd.Constant(0.0001)
+    timestep = 1.0 / n
+    F = (fd.inner((u - u_) / timestep, v)
+         + fd.inner(fd.dot(u, fd.nabla_grad(u)), v)
+         + nu * fd.inner(fd.grad(u), fd.grad(v))) * fd.dx
+    return dict(u=u, u_=u_, F=F)
+
+
+def _burgers_steps(fd, p, steps, around=contextlib.nullcontext):
+    """The demo's time loop for `steps` steps: (Newton steps per time
+    step, GMRES iterations per Newton step, energies, the solvers).  Each
+    solve runs inside `around()`; the energies, a check, outside it."""
+    energy = [fd.assemble(fd.inner(p["u"], p["u"]) * fd.dx)]
+    newton, gmres, solvers = [], [], []
+    for _ in range(steps):
+        solver = fd.NonlinearVariationalSolver(
+            fd.NonlinearVariationalProblem(p["F"], p["u"]),
+            solver_parameters=BURGERS_PARAMS)
+        with around():
+            solver.solve()
+        if not solver.converged:
+            raise AssertionError("burgers: Newton did not converge")
+        newton.append(solver.snes_iterations)
+        gmres.append([h["ksp_iterations"] for h in solver.history])
+        solvers.append(solver)
+        p["u_"].assign(p["u"])
+        energy.append(fd.assemble(fd.inner(p["u"], p["u"]) * fd.dx))
+    return newton, gmres, energy, solvers
+
+
+class _LowererTimes:
+    """Device time of the torch BatchedLowerer (CUDA events around each of
+    its evaluations), summed per assembly: each evaluation of a form on
+    either route (FormAssembler._run or _run_stencil) opens one, labelled
+    by the form's rank.  Entered more than once, it keeps adding."""
+
+    def __init__(self):
+        self.buckets = []
+
+    def __enter__(self):
+        from firedrake_tpu_torch.compiler import cell_eval as K
+        from firedrake_tpu_torch.assemble import FormAssembler as FA
+        self.K, self.FA = K, FA
+        self.orig = K._chunked, FA._run, FA._run_stencil
+
+        def chunked(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = self.orig[0](*a, **kw)
+            e.record()
+            self.buckets[-1][1].append((s, e))
+            return out
+
+        def opens(fn):
+            def run(asm, *a, **kw):
+                self.buckets.append((asm.rank, []))
+                return fn(asm, *a, **kw)
+            return run
+
+        K._chunked = chunked
+        FA._run, FA._run_stencil = opens(self.orig[1]), opens(self.orig[2])
+        return self
+
+    def __exit__(self, *exc):
+        self.K._chunked, self.FA._run, self.FA._run_stencil = self.orig
+        torch.cuda.synchronize()
+        self.per_assembly = [
+            (rank, sum(s.elapsed_time(e) for s, e in ev), len(ev))
+            for rank, ev in self.buckets]
+
+
+def _newton_k1_checks(fd, p, label, matfree):
+    """K1 on the Newton path's own inputs before the solve: the residual's
+    and the Jacobian's cell integrals (and the matrix-free Jacobian's
+    action) at the iterate u = s, the action's operand a seeded random
+    vector; u is put back to 0 after."""
+    from firedrake_tpu_torch.assemble import get_assembler
+    from firedrake_tpu_torch.assembly.matfree import action_assembler
+    prob, u = p["problem"], p["u"]
+    u.dat = p["exact"].dat.clone()
+    _stencil_k1_checks(get_assembler(prob.F), f"{label} residual")
+    _stencil_k1_checks(get_assembler(prob.J), f"{label} Jacobian")
+    if matfree:
+        asm, w = action_assembler(prob.J)
+        w.dat = torch.as_tensor(np.random.default_rng(1).standard_normal(
+            w.function_space().dim), device=u.dat.device)
+        _stencil_k1_checks(asm, f"{label} action")
+        w.dat = torch.zeros_like(w.dat)
+    u.dat = torch.zeros_like(u.dat)
+    torch.cuda.empty_cache()
+
+
+def _steps_line(label, hist, st):
+    for i, h in enumerate(hist):
+        print(f"{label} step {i}: |F| {h['rnorm']:.6e} ksp_iterations "
+              f"{h['ksp_iterations']} residual_ms "
+              f"{1e3 * st.calls['residual'][i]:.3f} jacobian_ms "
+              f"{1e3 * st.calls['jacobian'][i]:.3f} pc_setup_ms "
+              f"{1e3 * st.calls['pc_setup'][i]:.3f} solve_ms "
+              f"{1e3 * st.calls['solve'][i]:.3f}")
+
+
+def newton_run(fd, mesh, label, hier_s):
+    matfree = label == "newton_mf_p1_1m"
+    want_n, want_k = CPU_REHEARSAL_ITS[label]
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _newton_problem(
+        fd, mesh, "matfree" if matfree else "aij"))
+    _newton_k1_checks(fd, p, label, matfree)
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")        # a non-converged solve warns
+        with _Counts() as counts, _StageTimes(NEWTON_STAGES) as st:
+            _, solve_s = _sync_time(p["solver"].solve)
+    peak = torch.cuda.max_memory_allocated()
+    n, ksp, rel, err = _newton_readings(p)
+    _steps_line(label, p["solver"].history, st)
+    print(f"{label}: dofs {p['u'].function_space().dim} newton_steps {n} "
+          f"(CPU rehearsal {want_n}) ksp_iterations {ksp} (CPU rehearsal "
+          f"{want_k}) converged {p['solver'].converged} final_rel_residual "
+          f"{rel:.3e} max_nodal_err {err:.3e} (bound {NEWTON_ERR}) "
+          f"hierarchy_s {hier_s:.3f} setup_s {setup_s:.3f} solve_s "
+          f"{solve_s:.3f} device_peak {peak} ({peak / 2 ** 30:.3f} GiB) on "
+          f"{p['u'].dat.device} k1_launches {counts.k1} k1_by_variant "
+          f"{counts.k1_by_variant} lowerer_evals {counts.lowerer}")
+    if not p["u"].dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if not p["solver"].converged or n != want_n:
+        raise AssertionError(f"{label}: {n} Newton steps, the CPU rehearsal "
+                             f"took {want_n}")
+    if len(ksp) != len(want_k) or any(abs(a - b) > 1
+                                      for a, b in zip(ksp, want_k)):
+        raise AssertionError(f"{label}: CG iterations {ksp}, the CPU "
+                             f"rehearsal took {want_k}")
+    if not rel <= 1e-10 or not err < NEWTON_ERR:
+        raise AssertionError(f"{label}: residual {rel}, nodal error {err}")
+    if counts.k1 <= 0 or counts.lowerer:
+        raise AssertionError(f"{label}: the solve bypassed K1")
+    return counts, p["u"].dat.clone()
+
+
+def krylov_run(fd, mesh):
+    label = "krylov_p1_1m"
+    counts = _Counts()           # summed over the four solves alone
+    for method in KRYLOV_METHODS:
+        p = _krylov_problem(fd, mesh, method)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            with counts, _StageTimes() as st:
+                p["solver"].solve()
+        its, true_rel, pc_rel = _krylov_readings(fd, p)
+        want = CPU_REHEARSAL_ITS[label][method]
+        print(f"{label} {method}: iterations {its} (CPU rehearsal {want}) "
+              f"converged {p['solver'].converged} rel_residual "
+              f"{true_rel:.3e} preconditioned_rel_residual {pc_rel:.3e} "
+              f"pc_setup_s {st.secs['pc_setup']:.3f} solve_s "
+              f"{st.secs['solve']:.4f} ms_per_iteration "
+              f"{1e3 * st.secs['solve'] / max(its, 1):.4f}")
+        if not p["solver"].converged or abs(its - want) > 1:
+            raise AssertionError(f"{label} {method}: {its} iterations, "
+                                 f"the CPU rehearsal took {want}")
+        # the residual each method's test reads: preconditioned for the
+        # left-preconditioned ones, else the true one
+        if not (pc_rel if method in LEFT_PC else true_rel) <= 1e-10:
+            raise AssertionError(f"{label} {method}: residual "
+                                 f"{true_rel} / {pc_rel}")
+        if method in LEFT_PC and not true_rel < LEFT_PC_TRUE_RESIDUAL:
+            raise AssertionError(f"{label} {method}: true residual "
+                                 f"{true_rel}")
+        del p
+        torch.cuda.empty_cache()
+    print(f"{label}: k1_launches {counts.k1} k1_by_variant "
+          f"{counts.k1_by_variant} lowerer_evals {counts.lowerer}")
+    if counts.k1 <= 0 or counts.lowerer:
+        raise AssertionError(f"{label}: assembly bypassed K1")
+    return counts
+
+
+def burgers_run(fd):
+    label = "burgers_p2_256"
+    want = CPU_REHEARSAL_ITS[label]
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _burgers_problem(fd, BURGERS_N))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        counts, st, lt = _Counts(), _StageTimes(NEWTON_STAGES), \
+            _LowererTimes()
+        solve_s = []
+
+        @contextlib.contextmanager
+        def around():
+            with counts, st, lt:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                yield
+                torch.cuda.synchronize()
+                solve_s.append(time.perf_counter() - t)
+        newton, gmres, energy, solvers = _burgers_steps(
+            fd, p, BURGERS_STEPS, around)
+    peak = torch.cuda.max_memory_allocated()
+    k = 0
+    for t, solver in enumerate(solvers):
+        for i, h in enumerate(solver.history):
+            print(f"{label} time step {t} newton step {i}: |F| "
+                  f"{h['rnorm']:.6e} gmres_iterations {h['ksp_iterations']} "
+                  f"jacobian_ms {1e3 * st.calls['jacobian'][k]:.3f} "
+                  f"pc_setup_ms {1e3 * st.calls['pc_setup'][k]:.3f} "
+                  f"solve_ms {1e3 * st.calls['solve'][k]:.3f}")
+            k += 1
+    asm = [(r, ms, n) for r, ms, n in lt.per_assembly if n]
+    for rank in (1, 2):
+        ms = [m for r, m, _ in asm if r == rank]
+        print(f"{label}: rank-{rank} assemblies {len(ms)} lowerer_ms per "
+              f"assembly " + " ".join(f"{m:.3f}" for m in ms))
+    rel_e = max(abs(a - b) / abs(b) for a, b in zip(energy, want["energy"]))
+    print(f"{label}: dofs {p['u'].function_space().dim} newton_steps "
+          f"{newton} (CPU rehearsal {want['newton']}) gmres_iterations "
+          f"{gmres} (CPU rehearsal {want['gmres']}) energy "
+          + " ".join(repr(e) for e in energy)
+          + f" (rel. to the rehearsal {rel_e:.3e}) setup_s {setup_s:.3f} "
+          f"solve_s {' '.join(f'{x:.3f}' for x in solve_s)} device_peak "
+          f"{peak} ({peak / 2 ** 30:.3f} GiB) k1_launches {counts.k1} "
+          f"k1_by_variant {counts.k1_by_variant} lowerer_evals "
+          f"{counts.lowerer} lowerer_ms_total "
+          f"{sum(m for _, m, _ in asm):.3f}")
+    if not p["u"].dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if newton != want["newton"]:
+        raise AssertionError(f"{label}: Newton steps {newton}")
+    for got, ref in zip(gmres, want["gmres"]):
+        if len(got) != len(ref) or any(abs(a - b) > 0.02 * b
+                                       for a, b in zip(got, ref)):
+            raise AssertionError(f"{label}: GMRES iterations {gmres}")
+    if not all(b < a for a, b in zip(energy, energy[1:])) \
+            or not rel_e <= 1e-8:
+        raise AssertionError(f"{label}: energies {energy}")
+    if not counts.lowerer:
+        raise AssertionError(f"{label}: the lowerer did not run")
+    return counts
+
+
+def nonlinear_phase():
+    """Newton (assembled and matrix-free Jacobians) and the four Krylov
+    methods at 1,050,625 P1 dofs with GMG, then two Burgers time steps at
+    526,338 vector P2 dofs (the torch lowerer)."""
+    t0 = phase("nonlinear")
+    import firedrake_tpu_torch as fd
+    fd.set_device(torch.device("cuda"))
+    used = {}
+    hier, hier_s = _sync_time(lambda: fd.MeshHierarchy(
+        fd.UnitSquareMesh(NONLINEAR_N0, NONLINEAR_N0), NONLINEAR_LEVELS))
+    mesh = hier.meshes[-1]
+    used["newton_p1_1m"], u_asm = newton_run(fd, mesh, "newton_p1_1m",
+                                             hier_s)
+    used["newton_mf_p1_1m"], u_mf = newton_run(fd, mesh, "newton_mf_p1_1m",
+                                               hier_s)
+    diff = float((u_mf - u_asm).abs().max() / u_asm.abs().max())
+    print(f"newton_mf_p1_1m: max|u_mf - u_assembled| / max|u| {diff:.3e}")
+    if not diff <= 1e-10:
+        raise AssertionError("newton_mf_p1_1m: differs from newton_p1_1m")
+    del u_asm, u_mf
+    used["krylov_p1_1m"] = krylov_run(fd, mesh)
+    del hier, mesh
+    _release("newton and krylov")
+    used["burgers_p2_256"] = burgers_run(fd)
+    _release("nonlinear")
+    phase_done("nonlinear", t0)
+    return used
+
+
+def nonlinear_cpu(labels, levels=NONLINEAR_LEVELS, n=BURGERS_N,
+                  tag="cpu_rehearsal"):
+    """The nonlinear phase's cases on the CPU (the plain kernel versions):
+    the counts the card must match, and the errors and residuals of the
+    convergence study."""
     import firedrake_tpu_torch as fd
     fd.set_device("cpu")
+    mesh = None
+    for label in labels:
+        t0 = time.perf_counter()
+        if label == "burgers_p2_256":
+            p = _burgers_problem(fd, n)
+            newton, gmres, energy, _ = _burgers_steps(fd, p, BURGERS_STEPS)
+            print(f"{tag} {label} n {n}: dofs "
+                  f"{p['u'].function_space().dim} newton {newton} gmres "
+                  f"{gmres} energy {[repr(e) for e in energy]} seconds "
+                  f"{time.perf_counter() - t0:.1f}", flush=True)
+            continue
+        if mesh is None:
+            mesh = fd.MeshHierarchy(fd.UnitSquareMesh(
+                NONLINEAR_N0, NONLINEAR_N0), levels).meshes[-1]
+        if label == "krylov_p1_1m":
+            for method in KRYLOV_METHODS:
+                p = _krylov_problem(fd, mesh, method)
+                p["solver"].solve()
+                its, true_rel, pc_rel = _krylov_readings(fd, p)
+                print(f"{tag} {label} {method} levels {levels}: iterations "
+                      f"{its} rel_residual {true_rel:.3e} "
+                      f"preconditioned_rel_residual {pc_rel:.3e}",
+                      flush=True)
+            continue
+        p = _newton_problem(fd, mesh, "matfree" if label == "newton_mf_p1_1m"
+                            else "aij")
+        p["solver"].solve()
+        steps, ksp, rel, err = _newton_readings(p)
+        print(f"{tag} {label} levels {levels}: dofs "
+              f"{p['u'].function_space().dim} newton {steps} ksp {ksp} "
+              f"final_rel_residual {rel:.3e} max_nodal_err {err:.4e} "
+              f"seconds {time.perf_counter() - t0:.1f} host_max_rss_gib "
+              f"{_max_rss_gib():.2f}", flush=True)
+
+
+NONLINEAR_LABELS = ("newton_p1_1m", "newton_mf_p1_1m", "krylov_p1_1m",
+                    "burgers_p2_256")
+
+
+def cpu_study(labels):
+    """The gather-route solves and the nonlinear phase's P1 cases (all, or
+    those named) on the CPU at their study levels: iterations, errors and
+    residuals, and (gather) their rates per level."""
+    import firedrake_tpu_torch as fd
+    labels = labels or list(GATHER) + ["newton_p1_1m", "krylov_p1_1m"]
+    for label in labels:
+        if label in ("newton_p1_1m", "krylov_p1_1m"):
+            for level in NONLINEAR_STUDY:
+                nonlinear_cpu([label], levels=level, tag="cpu_study")
+    fd.set_device("cpu")
     for label, cfg in GATHER.items():
+        if label not in labels:
+            continue
         prev = None
         for level in cfg["study"]:
             t0 = time.perf_counter()
@@ -1133,8 +1646,12 @@ def cpu_rehearsal(labels):
     """The GMG solves (all, or those named) on the CPU with the plain
     kernel versions; prints each iteration count."""
     import firedrake_tpu_torch as fd
+    labels = labels or list(GMG) + list(GATHER) + list(NONLINEAR_LABELS)
+    nonlinear_cpu([lb for lb in labels if lb in NONLINEAR_LABELS])
     fd.set_device("cpu")
-    for label in labels or list(GMG) + list(GATHER):
+    for label in labels:
+        if label in NONLINEAR_LABELS:
+            continue
         if label in GATHER:
             t0 = time.perf_counter()
             p = GATHER_PROBLEMS[label](fd, GATHER[label]["level"])
@@ -1169,6 +1686,7 @@ def main():
     used = main_phase()
     gathered, matvec = gather_phase()
     used.update(gathered)
+    used.update(nonlinear_phase())
     used["gmg_p2_tet_16m"], k1_action = north_star_phase()
     for label, c in used.items():
         print(f"launches {label}: k1 {c.k1} k2 {c.k2} k2_large "
@@ -1234,6 +1752,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-rehearsal"]:
         cpu_rehearsal(sys.argv[2:])
     elif sys.argv[1:2] == ["--cpu-study"]:
-        cpu_study()
+        cpu_study(sys.argv[2:])
     else:
         main()

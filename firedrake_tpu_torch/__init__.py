@@ -13,22 +13,36 @@ matrices; assembly/sparsity.py, assembly/matrix.py), norm and errornorm,
 and geometric multigrid on structured hierarchies (mg/), with Chebyshev or
 Richardson smoothing, Jacobi or vertex-star patch smoothers (patch solves
 through the batched-inverse kernel, ops/batched_inverse.py), an LU
-coarse solve and matrix-free levels (assembly/matfree.py).
+coarse solve and matrix-free levels (assembly/matfree.py); the Krylov
+layer (CG, GMRES, FGMRES, BiCGStab, MINRES, Richardson, Chebyshev),
+Newton with line search (assembled or matrix-free Jacobian), EquationBC,
+nullspaces, LinearSolver and L2 projection.
 """
 from .language import *            # noqa: F401,F403  (UFL surface)
 from .mesh.utility import *        # noqa: F401,F403
 from .mesh.topology import MeshTopology
 from .functionspace import (FunctionSpace, VectorFunctionSpace,
-                            TensorFunctionSpace)
+                            TensorFunctionSpace, RestrictedFunctionSpace)
 from .function import Function, Cofunction, Constant
-from .bcs import DirichletBC
+from .bcs import DirichletBC, EquationBC, homogenize
 from .assemble import assemble, get_assembler, FormAssembler
 from .assembly.sparsity import Sparsity
 from .assembly.matrix import Matrix, MatView
 from .norms import norm, errornorm
 from .interpolation import interpolate
 from .solving import (solve, LinearVariationalProblem,
-                      LinearVariationalSolver)
-from .mg import MeshHierarchy, prolong, restrict, inject
+                      LinearVariationalSolver, NonlinearVariationalProblem,
+                      NonlinearVariationalSolver, LinearSolver)
+from .projection import project, Projector
+from .adapt import refine_marked, adapt
+from .nullspace import VectorSpaceBasis, MixedVectorSpaceBasis
+from .solvers.snes import AuxiliaryOperatorSNES
+from .mg import MeshHierarchy, HierarchyBase, prolong, restrict, inject
+from .mg.mesh import (ExtrudedMeshHierarchy, SemiCoarsenedExtrudedHierarchy,
+                      NonNestedHierarchy)
 from .device import set_device, get_device
 from math import pi
+
+#: the reference's label for untagged facets (firedrake/mesh.py:87);
+#: dS(UNMARKED)/ds(UNMARKED) select facets with no marker
+UNMARKED = -1

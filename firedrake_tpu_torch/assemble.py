@@ -540,6 +540,15 @@ def _bc_key(bcs):
                   bc.sub_component) for bc in bcs)
 
 
+def build_key():
+    """What a FormAssembler reads from its surroundings when it is built:
+    the kernel precision, the route switch, the gather accumulation and
+    the device.  Every cache of assemblers keys on it."""
+    return (os.environ.get("FDTPU_PREC", ""),
+            os.environ.get("FDTPU_NO_STENCIL", ""),
+            os.environ.get("FDTPU_GATHER_ACC", ""), str(get_device()))
+
+
 def get_assembler(form: Form, bcs=None, mat_type="aij",
                   zero_bc_nodes=False) -> FormAssembler:
     bcs = as_bcs(bcs)
@@ -551,9 +560,7 @@ def get_assembler(form: Form, bcs=None, mat_type="aij",
     # renumbers Constant terminals structurally, and the assembler binds
     # its form's Constant objects (values read at call time by count)
     key = (form.signature(), id(form.mesh()), _bc_key(bcs), mat_type,
-           zero_bc_nodes, os.environ.get("FDTPU_PREC", ""),
-           os.environ.get("FDTPU_NO_STENCIL", ""),
-           os.environ.get("FDTPU_GATHER_ACC", ""), str(get_device()),
+           zero_bc_nodes, build_key(),
            tuple(id(c) for c in form.coefficients()),
            tuple(c.count for c in form.constants()))
     if key not in _assembler_cache:

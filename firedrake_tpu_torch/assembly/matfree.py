@@ -23,13 +23,28 @@ def is_matfree(A):
     return isinstance(A, (MatrixFreeOperator, DirichletMatrixFree))
 
 
+def action_assembler(a):
+    """(FormAssembler of action(a, w), w) for the bilinear form a: made
+    once per form object and kept on the form itself, so that repeated
+    operators over one form (a Newton solve's Jacobian, step after step)
+    share one action form, one input coefficient w and one assembly plan,
+    and all of them go when the form goes.  Keyed by what a FormAssembler
+    reads when it is built (assemble.build_key)."""
+    from ..language.calculus import action
+    from ..function import Function
+    from ..assemble import FormAssembler, build_key
+    key = build_key()
+    cache = a.__dict__.setdefault("_action_assemblers", {})
+    if key not in cache:
+        w = Function(a.arguments()[1].space, name="mf_x")
+        cache[key] = (FormAssembler(action(a, w)), w)
+    return cache[key]
+
+
 class MatrixFreeOperator:
     """y = A @ x evaluated by assembling action(a, x)."""
 
     def __init__(self, a):
-        from ..language.calculus import action
-        from ..function import Function
-        from ..assemble import FormAssembler
         args = a.arguments()
         if len(args) != 2:
             raise ValueError("MatrixFreeOperator needs a bilinear form")
@@ -37,9 +52,8 @@ class MatrixFreeOperator:
         self.col_space = args[1].space
         if self.row_space.dim != self.col_space.dim:
             raise NotImplementedError("matrix-free rectangular operators")
-        self._w = Function(self.col_space, name="mf_x")
         self._a = a
-        self._asm1 = FormAssembler(action(a, self._w))
+        self._asm1, self._w = action_assembler(a)
         self._asm2 = None                    # built lazily for diagonal
         self._mesh = self.row_space.mesh_obj
         # coefficient and Constant values are read once, here, as in the

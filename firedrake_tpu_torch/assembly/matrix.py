@@ -122,6 +122,24 @@ class Matrix:
         d = self.data[pos.clamp(min=0)]
         return torch.where(pos >= 0, d, torch.zeros_like(d))
 
+    def entries(self, rows, cols):
+        """A[rows, cols] for int64 index tensors of one shape, gathered on
+        the data's device: each (row, col) is looked up among the stored
+        entries' sorted keys; 0 where the sparsity has no entry (as
+        A.to_scipy()[rows, cols])."""
+        t = self._tables
+        if "keys" not in t:
+            # row * ncols + col of each stored entry, sorted ascending as
+            # the CSR order is row-major: made on first use and shared by
+            # the Sparsity's matrices (only the patch PC reads entries)
+            t["keys"] = t["rows"].long() * self.sparsity.ncols + t["cols"]
+        keys = t["keys"]
+        q = rows * self.sparsity.ncols + cols
+        pos = torch.searchsorted(keys, q.reshape(-1)).clamp(
+            max=keys.numel() - 1).reshape(q.shape)
+        vals = self.data[pos]
+        return torch.where(keys[pos] == q, vals, torch.zeros_like(vals))
+
     def transpose_matvec(self, y):
         """A^T y by a scatter-add over the columns (for adjoint solves;
         on the card its sums run in no fixed order)."""

@@ -1,10 +1,11 @@
-"""Strong (Dirichlet) boundary conditions.
+"""Strong (Dirichlet) boundary conditions, and boundary conditions given by
+an equation on the boundary (EquationBC).
 
 Reference: firedrake/bcs.py:259 DirichletBC (node lists from facet closures
-:129, application :404).  Nodes come from the FunctionSpaceData closure
-computation on the host; values are materialized as a full-length dof
-vector (zero off the boundary), so application is an indexed write on the
-device."""
+:129, application :404), :470 EquationBC.  Nodes come from the
+FunctionSpaceData closure computation on the host; values are
+materialized as a full-length dof vector (zero off the boundary), so
+application is an indexed write on the device."""
 from __future__ import annotations
 
 import numpy as np
@@ -102,12 +103,59 @@ class DirichletBC:
                 f"{self.sub_domain})")
 
 
+def homogenize(bc: DirichletBC) -> DirichletBC:
+    """The same condition with value 0."""
+    return DirichletBC(bc.function_space_obj, 0.0, bc.sub_domain,
+                       bc.sub_component)
+
+
+class EquationBC:
+    """Boundary condition given by an equation on the boundary subdomain:
+    the residual and Jacobian rows of the boundary dofs are replaced by
+    those of the boundary form (reference: firedrake/bcs.py:470
+    EquationBC).  Taken by the nonlinear solve."""
+
+    def __init__(self, eq, u, sub_domain, bcs=None, J=None, V=None):
+        from .language.measure import Equation, Form
+        from .language.calculus import derivative
+        if isinstance(eq, Equation):
+            F = eq.lhs
+            if isinstance(eq.rhs, Form) and not eq.rhs.empty():
+                F = F - eq.rhs
+        else:
+            F = eq
+        self.F = F
+        self.u = u
+        self.sub_domain = sub_domain
+        self.function_space_obj = V if V is not None \
+            else u.function_space()
+        self.J = J if J is not None else derivative(F, u)
+
+    def function_space(self):
+        return self.function_space_obj
+
+    @property
+    def dof_indices(self) -> np.ndarray:
+        """Flat dof indices of the nodes on the subdomain's facets
+        (expanded over components)."""
+        V = self.function_space_obj
+        idx = V.boundary_nodes(self.sub_domain).astype(np.int64)
+        bs = V.block_size
+        if bs > 1:
+            idx = (idx[:, None] * bs + np.arange(bs)[None, :]).reshape(-1)
+        return idx.astype(np.int32)
+
+    def __repr__(self):
+        return (f"EquationBC({self.function_space_obj.name}, "
+                f"{self.sub_domain})")
+
+
 def as_bcs(bcs):
     """Normalize a user-supplied ``bcs`` argument: None, a solitary BC,
     or an iterable of BCs -> tuple (reference: firedrake/solving.py
     _extract_bcs accepts a bare DirichletBC)."""
     if bcs is None:
         return ()
-    if isinstance(bcs, DirichletBC):
+    if isinstance(bcs, (DirichletBC, EquationBC)):
         return (bcs,)
     return tuple(bcs)

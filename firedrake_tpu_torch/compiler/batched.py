@@ -345,9 +345,13 @@ class BatchedLowerer(Lowerer):
             g = ctx.geom(side or "+")
             if d == 0:
                 return g["X"][None, None]              # (1,1,nq,g,C)
+            nq, gd = g["X"].shape[:2]
             if d == 1:
-                return g["J"][None, None]
-            nq = g["X"].shape[0]
+                # grad(x) is the identity in physical space (the JAX
+                # package returns the reference Jacobian here)
+                eye = torch.eye(gd, dtype=g["X"].dtype, device=ctx.device)
+                return eye.reshape(1, 1, 1, gd, gd, 1).expand(
+                    1, 1, nq, gd, gd, 1)
             return literal(0.0, (1, 1, nq) + out_shape + (1,), ctx.device)
         if isinstance(base, Argument):
             elem = base.space.element

@@ -55,6 +55,8 @@ from . import nvcc
 
 #: launches of the CUDA kernel (counted where it launches, nowhere else)
 kernel_launches = 0
+#: the same launches by variant, indexed by FamilySpec.mode (REF, QUAD, ACT)
+launches_by_mode = [0, 0, 0]
 #: forms outside the family evaluated through the torch BatchedLowerer
 lowerer_evals = 0
 
@@ -270,8 +272,15 @@ def _scalar_lagrange(space, mesh):
 
 
 def _summands(e):
+    """The summands of e, with scalar products distributed over sums: the
+    derivative of u*u*v arrives as (du*u + u*du)*v."""
     if type(e) is Sum:
         return _summands(e.operands[0]) + _summands(e.operands[1])
+    if type(e) is Product and e.operands[0].shape == () \
+            and e.operands[1].shape == ():
+        sa, sb = (_summands(o) for o in e.operands)
+        if len(sa) > 1 or len(sb) > 1:
+            return [Product(a, b) for a in sa for b in sb]
     return [e]
 
 
@@ -368,14 +377,21 @@ def _build_spec(ci):
                                              for c in ci.constants):
         return None
     rank = 1 if ci.trial is None else 2
-    terms, zs = [], set()
+    # terms of one kind over the same Constants and coefficients are one
+    # term whose literal is the sum of theirs (du*u*v + u*du*v is
+    # 2*u*du*v)
+    merged, zs = {}, set()
     for s in _summands(ci.integrand):
         t = _match_term(s, ci, rank)
         if t is None:
             return None
-        terms.append(t[:4])
-        if t[4] is not None:
-            zs.add(t[4])
+        kind, lit, kidx, cidx, z = t
+        key = (kind, tuple(sorted(kidx)), tuple(sorted(cidx)))
+        merged[key] = merged.get(key, 0.0) + lit
+        if z is not None:
+            zs.add(z)
+    terms = [(kind, lit, kidx, cidx)
+             for (kind, kidx, cidx), lit in merged.items()]
     if len(terms) > MAX_TERMS or len(zs) > 1:
         return None
     zidx = zs.pop() if zs else None
@@ -503,6 +519,7 @@ def _launch(spec, ce, ws, consts):
     if rc != 0:
         raise RuntimeError(f"cell_eval kernel launch failed: code {rc}")
     kernel_launches += 1
+    launches_by_mode[spec.mode] += 1
     return out
 
 

@@ -689,7 +689,12 @@ class Lowerer:
             if d == 0:
                 return ctx.geom(side or "+")["X"][None, None]
             if d == 1:
-                return ctx.geom(side or "+")["J"][None, None]
+                # grad(x) is the identity in physical space (the JAX
+                # package returns the reference Jacobian here)
+                X = ctx.geom(side or "+")["X"]           # (nq, g)
+                nq, gd = X.shape
+                eye = torch.eye(gd, dtype=X.dtype, device=X.device)
+                return eye.reshape(1, 1, 1, gd, gd).expand(1, 1, nq, gd, gd)
             # grad(grad(x)) is identically zero in physical space
             return literal(0.0, (1, 1, ctx.num_q()) + out_shape,
                            ctx.device)

@@ -96,7 +96,7 @@ def push_grad(e: Expr, memo=None) -> Expr:
     if hit is not None and hit[0] is e:
         return hit[1]
     if isinstance(e, Grad):
-        out = _push_one_grad(push_grad(e.operands[0], memo))
+        out = _push_one_grad(push_grad(e.operands[0], memo), e.shape[-1])
     elif isinstance(e, Terminal):
         out = e
     else:
@@ -113,29 +113,31 @@ def _is_grad_terminal(e):
         isinstance(e, Restricted) and _is_grad_terminal(e.operands[0]))
 
 
-def _push_one_grad(e: Expr) -> Expr:
-    """grad(e) with grad distributed one level; e is already pushed."""
+def _push_one_grad(e: Expr, gdim: int) -> Expr:
+    """grad(e) with grad distributed one level; e is already pushed.
+    gdim is the geometric dimension of the outer grad: a constant
+    operand (a literal, a Constant) has no mesh terminal to read it
+    from, and its gradient is Zero(e.shape + (gdim,))."""
     if _is_grad_terminal(e):
         if isinstance(e, Restricted):
             # grad(u('+')) == (grad u)('+')
-            return Restricted(_push_one_grad(e.operands[0]), e.side)
+            return Restricted(_push_one_grad(e.operands[0], gdim), e.side)
         return Grad(e)
     if isinstance(e, Zero) or isinstance(e, (ScalarValue, ConstantBase,
                                              Identity)):
-        from ..language.core import _guess_gdim
-        return Zero(e.shape + (_guess_gdim(e),))
+        return Zero(e.shape + (gdim,))
     if isinstance(e, Sum):
-        return Sum(_push_one_grad(e.operands[0]),
-                   _push_one_grad(e.operands[1]))
+        return Sum(_push_one_grad(e.operands[0], gdim),
+                   _push_one_grad(e.operands[1], gdim))
     if isinstance(e, Product):
         # one operand is scalar; Outer folds all-scalar cases to Product
         a, b = e.operands
-        ga, gb = _push_one_grad(a), _push_one_grad(b)
+        ga, gb = _push_one_grad(a, gdim), _push_one_grad(b, gdim)
         # d(a*b) = b (x) ga + a (x) gb, shape e.shape+(gdim,)
         return Sum(Outer(b, ga), Outer(a, gb))
     if isinstance(e, Division):
         a, b = e.operands
-        ga, gb = _push_one_grad(a), _push_one_grad(b)
+        ga, gb = _push_one_grad(a, gdim), _push_one_grad(b, gdim)
         t1 = Division(ga, b)
         t2 = Outer(Division(a, Power(b, ScalarValue(2.0))), gb)
         return Sum(t1, Product(ScalarValue(-1.0), t2))
@@ -144,33 +146,34 @@ def _push_one_grad(e: Expr) -> Expr:
         if not _expr_const_wrt_x(b):
             raise NotImplementedError("grad of f**g with varying exponent")
         return Product(Product(b, Power(a, Sum(b, ScalarValue(-1.0)))),
-                       _push_one_grad(a))
+                       _push_one_grad(a, gdim))
     if isinstance(e, MathFunction):
         from ..language.calculus import _CHAIN
         df = _CHAIN[e.fname](e.operands[0])
-        return Product(df, _push_one_grad(e.operands[0]))
+        return Product(df, _push_one_grad(e.operands[0], gdim))
     if isinstance(e, Abs):
         return Product(MathFunction("sign", e.operands[0]),
-                       _push_one_grad(e.operands[0]))
+                       _push_one_grad(e.operands[0], gdim))
     if isinstance(e, Indexed):
         # grad(A[idx]) = grad(A)[idx] — Indexed consumes leading axes, the
         # new gradient axis is last, so plain Indexed is exactly right.
-        return Indexed(_push_one_grad(e.operands[0]), e.indices)
+        return Indexed(_push_one_grad(e.operands[0], gdim), e.indices)
     if isinstance(e, ListTensor):
-        return ListTensor(*[_push_one_grad(o) for o in e.operands])
+        return ListTensor(*[_push_one_grad(o, gdim) for o in e.operands])
     if isinstance(e, Conditional):
-        return Conditional(e.operands[0], _push_one_grad(e.operands[1]),
-                           _push_one_grad(e.operands[2]))
+        return Conditional(e.operands[0],
+                           _push_one_grad(e.operands[1], gdim),
+                           _push_one_grad(e.operands[2], gdim))
     if isinstance(e, Inner):
         a, b = e.operands
-        ga, gb = _push_one_grad(a), _push_one_grad(b)
+        ga, gb = _push_one_grad(a, gdim), _push_one_grad(b, gdim)
         # d(a:b)_g = a_K dG b_{K g} + b_K dG a_{K g}
         return Sum(_contract_all_but_last(a, gb),
                    _contract_all_but_last(b, ga))
     if isinstance(e, Dot) and len(e.operands[0].shape) == 1 \
             and len(e.operands[1].shape) == 1:
         a, b = e.operands
-        ga, gb = _push_one_grad(a), _push_one_grad(b)
+        ga, gb = _push_one_grad(a, gdim), _push_one_grad(b, gdim)
         return Sum(Dot(a, gb), Dot(b, ga))
     raise NotImplementedError(
         f"grad() through {type(e).__name__}; rewrite the form with grad "

@@ -76,6 +76,37 @@ class Function(Coefficient):
         interpolate_onto(expr, self)
         return self
 
+    def project(self, expr, **kwargs):
+        """The L2 projection of expr into this Function's space."""
+        from .projection import project
+        return project(expr, self, **kwargs)
+
+    # ----------------------------------------------- not yet ported
+    def sub(self, i):
+        _unported("Function.sub", 14)
+
+    def split(self):
+        _unported("Function.split", 14)
+
+    @property
+    def subfunctions(self):
+        _unported("Function.subfunctions", 14)
+
+    def at(self, *args, **kwargs):
+        _unported("Function.at (point evaluation)", 18)
+
+    def __call__(self, arg):
+        # u('+') / u('-') restrict, as for every Coefficient
+        if isinstance(arg, str) and arg in ("+", "-"):
+            return super().__call__(arg)
+        _unported("Function(x) (point evaluation)", 18)
+
+    def vector(self):
+        _unported("Function.vector", 18)
+
+    def riesz_representation(self, riesz_map="L2"):
+        _unported("Function.riesz_representation", 17)
+
     def __repr__(self):
         return f"Function({self.name!r}, {self.space!r})"
 
@@ -96,6 +127,11 @@ class Constant(ConstantBase):
     def __init__(self, value, domain=None, name=None):
         super().__init__(value)
         self.name = name or f"c_{self.count}"
+
+
+def _unported(what, item):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue "
+                              f"1, item {item}")
 
 
 def _eval_pointwise(expr, V):

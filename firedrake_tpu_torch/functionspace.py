@@ -552,10 +552,10 @@ class FunctionSpace:
         return hash((id(self.mesh_obj), hash(self.element)))
 
     def __mul__(self, other):
-        """V * Q builds a MixedFunctionSpace (reference:
-        functionspaceimpl.py WithGeometry.__mul__)."""
-        from .mixed import MixedFunctionSpace
-        return MixedFunctionSpace([self, other])
+        """V * Q builds a MixedFunctionSpace in the reference
+        (functionspaceimpl.py WithGeometry.__mul__)."""
+        raise NotImplementedError("mixed spaces (V * Q) are not ported "
+                                  "yet: ROADMAP.md queue 1, item 14")
 
     def __repr__(self):
         return (f"FunctionSpace({self.mesh_obj.name}, "

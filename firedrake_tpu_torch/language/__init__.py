@@ -45,13 +45,12 @@ def TrialFunctions(V):
 
 
 def split(u):
-    """Split a mixed function/argument into components (UFL split)."""
+    """Split a mixed function/argument into components (UFL split); a
+    function or argument on a plain space is its own only component."""
     V = u.function_space()
-    from ..mixed import MixedFunctionSpace, mixed_arguments
-    if isinstance(V, MixedFunctionSpace):
-        if isinstance(u, Argument):
-            return mixed_arguments(V, u.number)
-        return u.parts
+    if type(V).__name__ == "MixedFunctionSpace":
+        raise NotImplementedError("split of a mixed space is not ported "
+                                  "yet: ROADMAP.md queue 1, item 14")
     return (u,)
 
 

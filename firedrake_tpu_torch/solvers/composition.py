@@ -5,8 +5,9 @@ e.g. ``mg_levels_ksp_type``, ``mg_levels_pc_type``, ``mg_coarse_pc_type``.
 
 Every solver/PC built here is a callable on device tensors.  Ported so
 far: ``none``, ``jacobi``, ``lu``/``cholesky``, ``ksp``, ``mg`` (geometric
-multigrid) and ``patch`` (vertex-star additive Schwarz).  Every other
-``pc_type`` raises NotImplementedError.
+multigrid) and ``patch`` (vertex-star additive Schwarz), under any of the
+KSP methods of solvers/krylov.py.  Every other ``pc_type`` raises
+NotImplementedError naming ROADMAP.md queue 1, item 16.
 """
 from __future__ import annotations
 
@@ -114,6 +115,8 @@ def build_ksp(ctx: OpCtx, params: dict, prefix: str = ""):
               atol=float(opt(params, prefix, "ksp_atol", 1e-50)),
               max_it=int(opt(params, prefix, "ksp_max_it",
                              100 if inner else 10000)))
+    if ksp_type in ("gmres", "fgmres"):
+        kw["restart"] = int(opt(params, prefix, "ksp_gmres_restart", 30))
     if ksp_type == "chebyshev":
         pct = opt(params, prefix, "pc_type",
                   "jacobi" if ctx.mat is not None else "none")
@@ -151,7 +154,8 @@ def build_pc(ctx: OpCtx, params: dict, prefix: str = ""):
     make = _PCS.get(pc_type)
     if make is None:
         raise NotImplementedError(
-            f"pc_type {pc_type!r} (prefix {prefix!r}) is not ported yet; "
+            f"pc_type {pc_type!r} (prefix {prefix!r}) is not ported yet "
+            "(the rest of the PC zoo is ROADMAP.md queue 1, item 16); "
             f"available: {sorted(_PCS)}")
     return make(ctx, params, prefix)
 

@@ -1,30 +1,45 @@
-"""solve() dispatch + the linear variational solver.
+"""solve() dispatch, the linear and nonlinear variational solvers and
+LinearSolver.
 
 Reference: firedrake/solving.py:34 (solve), firedrake/variational_solver.py
-(LinearVariationalSolver :293).  PETSc KSP is replaced by the Krylov
+(LinearVariationalSolver :293, NonlinearVariationalSolver :309-461),
+firedrake/solving_utils.py:138 (_SNESContext), firedrake/linear_solver.py.
+PETSc SNES and KSP are replaced by the Newton loop below and the Krylov
 loops of solvers/krylov.py; the `solver_parameters` dict API is kept.
 
-Ported so far: linear problems, assembled (mat_type aij) or matrix-free
-(mat_type matfree, assembly/matfree.py), with Dirichlet conditions,
-solved by CG, Richardson or Chebyshev (or preonly) with the PCs of
-solvers/composition.py: none, jacobi, lu, ksp, mg (geometric multigrid)
-and patch; preonly + lu is a host sparse LU.  Nonlinear problems (and
-their matrix-free Newton step), nullspaces, hybridization, SCPC,
-fieldsplit and distributed solves raise NotImplementedError.
+Ported: linear problems, assembled (mat_type aij) or matrix-free
+(mat_type matfree, assembly/matfree.py), with Dirichlet conditions and
+nullspaces (nullspace.py), by CG, GMRES, FGMRES, BiCGStab, MINRES,
+Richardson or Chebyshev (or preonly) with the PCs of
+solvers/composition.py; preonly + lu is a host sparse LU.  Nonlinear
+problems by Newton (newtonls; line searches basic, none, bt, l2) with an
+assembled or matrix-free Jacobian, Dirichlet conditions and EquationBCs
+(whose Newton steps are a host sparse LU, as in the JAX package), and
+snes_type python (solvers/snes.py).  Hybridization, SCPC, fieldsplit,
+nonlinear multigrid, nonlinear patch preconditioning, deflation and
+distributed solves raise NotImplementedError naming their ROADMAP.md
+item.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 
 from .language.measure import Form, Equation
-from .bcs import DirichletBC, as_bcs
+from .language.calculus import derivative
+from .bcs import DirichletBC, EquationBC, as_bcs
 from .assemble import assemble
+from .function import Function
 from .solvers.krylov import KSP_METHODS
 from .solvers.preconditioners import identity_pc
-from .device import as_tensor
+from .solvers.composition import OpCtx, build_pc
+from .device import as_tensor, to_numpy
 
-__all__ = ["solve", "LinearVariationalProblem", "LinearVariationalSolver"]
+__all__ = ["solve", "LinearVariationalProblem", "LinearVariationalSolver",
+           "NonlinearVariationalProblem", "NonlinearVariationalSolver",
+           "LinearSolver"]
 
 DEFAULT_KSP_PARAMS = {
     "ksp_type": "gmres",
@@ -32,6 +47,13 @@ DEFAULT_KSP_PARAMS = {
     "ksp_rtol": 1e-7,
     "ksp_atol": 1e-50,
     "ksp_max_it": 10000,
+}
+DEFAULT_SNES_PARAMS = {
+    "snes_type": "newtonls",
+    "snes_rtol": 1e-8,
+    "snes_atol": 1e-50,
+    "snes_max_it": 50,
+    "snes_linesearch_type": "basic",
 }
 
 
@@ -48,15 +70,23 @@ def flatten_parameters(params, sep="_"):
     return out
 
 
-def _merged_params(solver_parameters):
+def _merged_params(solver_parameters, nonlinear=False):
     p = dict(DEFAULT_KSP_PARAMS)
+    if nonlinear:
+        p.update(DEFAULT_SNES_PARAMS)
     p.update(flatten_parameters(solver_parameters))
     return p
 
 
+def _split_bcs(bcs):
+    bcs = as_bcs(bcs)
+    return (tuple(b for b in bcs if isinstance(b, DirichletBC)),
+            tuple(b for b in bcs if isinstance(b, EquationBC)))
+
+
 def _bc_data(bcs, n):
     """(bc_idx int array, g full vector) — Dirichlet bcs only."""
-    bcs = tuple(b for b in as_bcs(bcs) if isinstance(b, DirichletBC))
+    bcs = _split_bcs(bcs)[0]
     if not bcs:
         return np.zeros(0, dtype=np.int32), np.zeros(n)
     idx = np.unique(np.concatenate([bc.dof_indices for bc in bcs]))
@@ -73,10 +103,27 @@ def _run_ksp(op, b, params, pc=None, x0=None):
     if meth is None:
         raise NotImplementedError(f"ksp_type {ksp_type!r} is not ported "
                                   f"yet; available: {sorted(KSP_METHODS)}")
-    return meth(op, b, x0=x0, pc=pc or identity_pc,
-                rtol=params.get("ksp_rtol", 1e-7),
-                atol=params.get("ksp_atol", 1e-50),
-                max_it=int(params.get("ksp_max_it", 10000)))
+    kw = dict(rtol=params.get("ksp_rtol", 1e-7),
+              atol=params.get("ksp_atol", 1e-50),
+              max_it=int(params.get("ksp_max_it", 10000)))
+    # the JAX package reads ksp_gmres_restart for gmres only (fgmres keeps
+    # its default of 30 here)
+    if ksp_type == "gmres":
+        kw["restart"] = int(params.get("ksp_gmres_restart", 30))
+    return meth(op, b, x0=x0, pc=pc or identity_pc, **kw)
+
+
+def _with_nullspace(op, b, nullspace):
+    """The operator and right-hand side with the nullspace projected out
+    (the PETSc MatNullSpace role): op(x) = P A P x + (x - P x), b = P b."""
+    if nullspace is None or nullspace.is_trivial():
+        return op, b
+
+    def projected(x):
+        px = nullspace.orthogonalize(x)
+        return nullspace.orthogonalize(op(px)) + (x - px)
+
+    return projected, nullspace.orthogonalize(b)
 
 
 class LinearVariationalProblem:
@@ -95,7 +142,9 @@ class LinearVariationalProblem:
         self.constant_jacobian = constant_jacobian
 
 
-_UNPORTED = {"hybridization", "scpc", "ilu", "fieldsplit"}
+#: pc_type values of the JAX package's solver that are not ported yet, and
+#: their ROADMAP.md queue 1 items
+_UNPORTED = {"hybridization": 14, "scpc": 14, "ilu": 16, "fieldsplit": 16}
 
 
 def direct_solve(A, b):
@@ -121,15 +170,17 @@ class LinearVariationalSolver:
         p = self.problem
         params = self.params
         mat_type = params.get("mat_type", "aij")
-        if params.get("pc_type") in _UNPORTED or params.get("distributed") \
-                or mat_type not in ("aij", "matfree"):
+        if params.get("pc_type") in _UNPORTED:
             raise NotImplementedError(
-                f"pc_type {params.get('pc_type')!r} / distributed / "
-                f"mat_type {mat_type!r} solves are not ported yet; ported: "
-                "mat_type 'aij' or 'matfree' with pc_type none, jacobi, "
-                "lu, ksp, mg or patch")
-        if self.nullspace is not None:
-            raise NotImplementedError("nullspaces are not ported yet")
+                f"pc_type {params['pc_type']!r} is not ported yet: "
+                f"ROADMAP.md queue 1, item {_UNPORTED[params['pc_type']]}")
+        if params.get("distributed"):
+            raise NotImplementedError("distributed solves are not ported "
+                                      "yet: ROADMAP.md queue 1, item 20")
+        if mat_type not in ("aij", "matfree"):
+            raise NotImplementedError(
+                f"mat_type {mat_type!r} is not ported; ported: 'aij' and "
+                "'matfree'")
         V = p.u.function_space()
         n = V.dim
         bc_idx, g = _bc_data(p.bcs, n)
@@ -165,7 +216,6 @@ class LinearVariationalSolver:
             self.ksp_iterations = 1
             self.converged = True
             return
-        from .solvers.composition import OpCtx, build_pc
         ctx = OpCtx(mat=A, space=V, form=p.a, bcs=p.bcs,
                     appctx=self.appctx)
         # the GMG hierarchy (level operators, smoothers) is built once per
@@ -181,31 +231,261 @@ class LinearVariationalSolver:
             self.ksp_iterations = 1
             self.converged = True
             return
-        res = _run_ksp(A.matvec, bvec, params, pc=pc,
-                       x0=as_tensor(p.u.dat))
+        op, bvec = _with_nullspace(A.matvec, bvec, self.nullspace)
+        res = _run_ksp(op, bvec, params, pc=pc, x0=as_tensor(p.u.dat))
         p.u.dat = res.x
         self.ksp_iterations = res.iterations
         self.converged = res.converged
         if not self.converged:
-            import warnings
             warnings.warn(f"linear solve did not converge: "
                           f"rnorm={res.residual_norm:.3e} after "
                           f"{self.ksp_iterations} its")
 
 
+# --------------------------------------------------------------- nonlinear
+#: the ROADMAP.md item of the nonlinear solver options not ported yet
+_UNPORTED_SNES = "ROADMAP.md queue 1, item 16"
+
+
+class NonlinearVariationalProblem:
+    """F(u; v) = 0 for u (reference: variational_solver.py
+    NonlinearVariationalProblem); J defaults to the Gateaux derivative of
+    F."""
+
+    def __init__(self, F, u, bcs=None, J=None, Jp=None,
+                 form_compiler_parameters=None):
+        self.F = F
+        self.u = u
+        self.bcs = as_bcs(bcs)
+        self.J = J if J is not None else derivative(F, u)
+
+
+class NonlinearVariationalSolver:
+    """Newton with line search, the PETSc SNES newtonls analogue
+    (reference: solving_utils.py:138 _SNESContext; the function and
+    Jacobian callbacks :527, :561).
+
+    After solve(): ``snes_iterations``, ``converged``, and ``history``, one
+    dict per Newton step with the residual norm before the step and the
+    linear solve's iteration count."""
+
+    def __init__(self, problem, *, solver_parameters=None,
+                 options_prefix=None, appctx=None, nullspace=None,
+                 pre_jacobian_callback=None, pre_function_callback=None,
+                 **kwargs):
+        self.problem = problem
+        self.params = _merged_params(solver_parameters, nonlinear=True)
+        self.appctx = appctx or {}
+
+    def _residual(self, uvec):
+        """F(u) with the EquationBC rows replaced by the boundary forms'
+        and the Dirichlet rows by u - g."""
+        p = self.problem
+        p.u.dat = uvec
+        r = as_tensor(assemble(p.F).dat)
+        for ebc in _split_bcs(p.bcs)[1]:
+            eidx = as_tensor(ebc.dof_indices.astype(np.int64))
+            r = r.index_put((eidx,), as_tensor(assemble(ebc.F).dat)[eidx])
+        idx, g = self._dirichlet
+        if len(idx):
+            r = r.index_put((idx,), uvec[idx] - g[idx])
+        return r
+
+    def _check_options(self, params):
+        spt = params.get("snes_python_type", "")
+        if params.get("snes_type") in ("fas", "pfas") \
+                or spt.endswith("PMGSNES"):
+            raise NotImplementedError(
+                "nonlinear multigrid (snes_type 'fas'/'pfas', PMGSNES) is "
+                f"not ported yet: {_UNPORTED_SNES}")
+        if params.get("npc_snes_type") == "patch":
+            raise NotImplementedError(
+                "nonlinear patch preconditioning (npc_snes_type 'patch') is "
+                f"not ported yet: {_UNPORTED_SNES}")
+        if self.appctx.get("deflation") is not None:
+            raise NotImplementedError(
+                f"deflated Newton is not ported yet: {_UNPORTED_SNES}")
+
+    def solve(self):
+        p = self.problem
+        params = self.params
+        self._check_options(params)
+        V = p.u.function_space()
+        bc_idx, g = _bc_data(p.bcs, V.dim)
+        idx = as_tensor(bc_idx.astype(np.int64))
+        self._dirichlet = (idx, as_tensor(g))
+        if params.get("snes_type") == "python":
+            # SNES-level python types: AuxiliaryOperatorSNES subclasses
+            from .solvers.snes import (resolve_snes_python,
+                                       AuxiliaryOperatorSNES)
+            spt = params.get("snes_python_type", "")
+            cls = resolve_snes_python(spt)
+            if not issubclass(cls, AuxiliaryOperatorSNES):
+                raise TypeError(f"snes_python_type {spt!r} must "
+                                "subclass AuxiliaryOperatorSNES")
+            obj = cls()
+            self.snes_iterations = obj.solve(p, params, appctx=self.appctx)
+            self.converged = obj.converged
+            return
+        rtol = params.get("snes_rtol", 1e-8)
+        atol = params.get("snes_atol", 1e-50)
+        stol = params.get("snes_stol", 1e-8)
+        max_it = int(params.get("snes_max_it", 50))
+        ls = params.get("snes_linesearch_type", "basic")
+        mat_type = params.get("mat_type", "aij")
+
+        # the initial guess on the constraint manifold
+        u = as_tensor(p.u.dat)
+        if len(idx):
+            u = u.index_put((idx,), self._dirichlet[1][idx])
+        r = self._residual(u)
+        r0 = float(torch.linalg.vector_norm(r))
+        rnorm = r0
+        self.snes_iterations = 0
+        self.history = []
+        stalled = False
+        for it in range(max_it):
+            if rnorm <= max(rtol * r0, atol) or r0 == 0.0:
+                break
+            du, its = self._newton_step(u, r, bc_idx, params, mat_type)
+            # snes_stol: a step too small relative to the iterate
+            if float(torch.linalg.vector_norm(du)) <= stol * max(
+                    float(torch.linalg.vector_norm(u)), 1e-30):
+                stalled = True
+                break
+            self.history.append(dict(rnorm=rnorm, ksp_iterations=its))
+            t = 1.0
+            u_new = u + du
+            r_new = self._residual(u_new)
+            if ls not in ("basic", "none"):     # backtracking: bt, l2
+                for _ in range(7):
+                    if float(torch.linalg.vector_norm(r_new)) < rnorm:
+                        break
+                    t *= 0.5
+                    u_new = u + t * du
+                    r_new = self._residual(u_new)
+            u, r = u_new, r_new
+            rnorm = float(torch.linalg.vector_norm(r))
+            self.snes_iterations = it + 1
+        p.u.dat = u
+        self.converged = stalled or rnorm <= max(rtol * r0, atol)
+        if not self.converged:
+            warnings.warn(f"Newton did not converge: |r|={rnorm:.3e} "
+                          f"after {self.snes_iterations} iterations")
+
+    def _jacobian(self, bc_idx, mat_type):
+        """The Jacobian at the current iterate with identity Dirichlet
+        rows: assembled, or matrix-free (the action of J through
+        MatrixFreeOperator, whose action form is made once per J)."""
+        J = self.problem.J
+        if mat_type == "matfree":
+            from .assembly.matfree import MatrixFreeOperator
+            A = MatrixFreeOperator(J)
+        else:
+            A = assemble(J)
+        return A.with_dirichlet(bc_idx) if len(bc_idx) else A
+
+    def _newton_step(self, u, r, bc_idx, params, mat_type):
+        """(du, linear iterations) of J du = -r at u."""
+        p = self.problem
+        p.u.dat = u
+        V = p.u.function_space()
+        ebcs = _split_bcs(p.bcs)[1]
+        if ebcs:
+            if mat_type == "matfree":
+                raise ValueError("EquationBC needs an assembled Jacobian; "
+                                 "got mat_type 'matfree'")
+            return _equation_bc_step(assemble(p.J), ebcs, bc_idx, r), 1
+        A = self._jacobian(bc_idx, mat_type)
+        if mat_type != "matfree" and params.get("ksp_type") == "preonly" \
+                and params.get("pc_type") in ("lu", "cholesky", "ilu"):
+            return direct_solve(A, -r), 1
+        pc_params = params
+        if mat_type == "matfree":
+            # as in the JAX package: the matrix-free Krylov operator has no
+            # assembled diagonal, so jacobi falls back to no PC
+            ctx = OpCtx(matvec=A.matvec, space=V, form=p.J, bcs=p.bcs,
+                        appctx=self.appctx)
+            if params.get("pc_type", "none") == "jacobi":
+                pc_params = dict(params, pc_type="none")
+        else:
+            ctx = OpCtx(mat=A, space=V, form=p.J, bcs=p.bcs,
+                        appctx=self.appctx)
+        pc = build_pc(ctx, pc_params, "")
+        if params.get("ksp_type") == "preonly":
+            return pc(-r), 1
+        res = _run_ksp(A.matvec, -r, params, pc=pc)
+        return res.x, res.iterations
+
+
+def _equation_bc_step(J, ebcs, bc_idx, r):
+    """The Newton step with EquationBC rows: the Jacobian's boundary rows
+    replaced by the boundary forms' and the Dirichlet rows by identity
+    rows, solved by a host sparse LU (scipy), as the JAX package does."""
+    from scipy.sparse.linalg import spsolve
+    Js = J.to_scipy().tolil()
+    for ebc in ebcs:
+        Jb = assemble(ebc.J).to_scipy().tolil()
+        eidx = np.asarray(ebc.dof_indices)
+        Js[eidx] = Jb[eidx]
+    if len(bc_idx):
+        Js[bc_idx] = 0.0
+        Js[bc_idx, bc_idx] = 1.0
+    du = spsolve(Js.tocsc(), to_numpy(-r))
+    return torch.as_tensor(du, dtype=r.dtype, device=r.device)
+
+
+class LinearSolver:
+    """Solve with an assembled operator (reference:
+    firedrake/linear_solver.py).  After solve(): ``ksp_iterations`` and
+    ``converged``."""
+
+    def __init__(self, A, *, P=None, solver_parameters=None, **kwargs):
+        self.A = A
+        self.params = _merged_params(solver_parameters)
+
+    def solve(self, x: Function, b):
+        bvec = as_tensor(b.dat if isinstance(b, Function) else b)
+        A = self.A
+        if self.params.get("ksp_type") == "preonly":
+            x.dat = direct_solve(A, bvec)
+            self.ksp_iterations, self.converged = 1, True
+            return
+        ctx = OpCtx(mat=A, space=getattr(A, "row_space", None),
+                    bcs=getattr(A, "bcs", ()))
+        pc = build_pc(ctx, self.params, "")
+        res = _run_ksp(A.matvec, bvec, self.params, pc=pc)
+        x.dat = res.x
+        self.ksp_iterations = res.iterations
+        self.converged = res.converged
+
+
+# ------------------------------------------------------------------ solve()
 def solve(*args, **kwargs):
-    """solve(a == L, u, bcs=..., solver_parameters=...) (reference:
-    firedrake/solving.py:34).  Returns u."""
+    """solve(a == L, u, bcs=...), solve(F == 0, u, bcs=...) or
+    solve(A, x, b) (reference: firedrake/solving.py:34).  Returns u (or
+    x)."""
     if not isinstance(args[0], Equation):
-        raise NotImplementedError("solve(A, x, b) is not ported yet")
+        A, x, b = args[:3]
+        LinearSolver(A, solver_parameters=kwargs.get(
+            "solver_parameters")).solve(x, b)
+        return x
     eq, u = args[0], args[1]
-    if {a.number for a in eq.lhs.arguments()} != {0, 1}:
-        raise NotImplementedError("nonlinear solves (Newton) are not "
-                                  "ported yet")
-    problem = LinearVariationalProblem(eq.lhs, eq.rhs, u,
-                                       bcs=kwargs.get("bcs"))
-    solver = LinearVariationalSolver(
-        problem, solver_parameters=kwargs.get("solver_parameters"),
-        appctx=kwargs.get("appctx"), nullspace=kwargs.get("nullspace"))
+    bcs = kwargs.get("bcs")
+    sp = kwargs.get("solver_parameters")
+    appctx = kwargs.get("appctx")
+    if {a.number for a in eq.lhs.arguments()} == {0, 1}:
+        problem = LinearVariationalProblem(eq.lhs, eq.rhs, u, bcs=bcs)
+        solver = LinearVariationalSolver(
+            problem, solver_parameters=sp, appctx=appctx,
+            nullspace=kwargs.get("nullspace"))
+    else:
+        F = eq.lhs
+        if isinstance(eq.rhs, Form) and not eq.rhs.empty():
+            F = F - eq.rhs
+        problem = NonlinearVariationalProblem(F, u, bcs=bcs,
+                                              J=kwargs.get("J"))
+        solver = NonlinearVariationalSolver(problem, solver_parameters=sp,
+                                            appctx=appctx)
     solver.solve()
     return u

@@ -188,3 +188,45 @@ def test_coordinates_take_a_tensor():
     forms = [T.inner(T.TestFunction(T.FunctionSpace(m, "CG", 1)),
                      T.Constant(1.0)) * T.dx for m in (m1, m2)]
     _close(T.assemble(forms[1]).dat, T.assemble(forms[0]).dat, 0)
+
+
+def test_grad_of_a_literal_factor():
+    """grad(pi * w) and grad(pi * x[0]): the gradient of the literal is a
+    Zero of the outer gradient's dimension (the JAX package raises a
+    shape mismatch here).  Held to the JAX package's hand-expanded
+    pi * grad(w), and to analytic values: grad(x) is the identity in the
+    port (the JAX package evaluates it as the reference Jacobian)."""
+    rng = np.random.default_rng(5)
+    vals = rng.standard_normal(25)
+    out = {}
+    for fd, expand in ((J, True), (T, False)):
+        mesh = fd.UnitSquareMesh(4, 4)
+        V = fd.FunctionSpace(mesh, "CG", 1)
+        w = fd.Function(V, val=vals)
+        v = fd.TestFunction(V)
+        g = fd.pi * fd.grad(w) if expand else fd.grad(fd.pi * w)
+        out[fd] = fd.assemble(fd.inner(g, fd.grad(v)) * fd.dx).dat
+    _close(out[T], out[J], 1e-12)
+    mesh = T.UnitSquareMesh(4, 4)
+    V = T.FunctionSpace(mesh, "CG", 2)
+    x, y = T.SpatialCoordinate(mesh)
+    v = T.TestFunction(V)
+    _close(T.assemble(T.grad(T.pi * x)[0] * v * T.dx).dat,
+           T.assemble(T.pi * v * T.dx).dat, 1e-14)
+    assert abs(T.assemble(T.grad(T.pi * x)[1] * T.dx)) < 1e-15
+    got = T.Function(V).interpolate(T.grad(T.pi * x * y)[1])
+    _close(got.dat, T.Function(V).interpolate(T.pi * x).dat, 1e-14)
+    # errornorm's error u - u_h carries a literal -1; x*y is in P2
+    uh = T.Function(V).interpolate(x * y)
+    assert T.errornorm(x * y, uh, "H1") < 1e-13
+    assert abs(T.norm(x * y + 0 * uh, "H1") ** 2 - (2 / 3 + 1 / 9)) < 1e-13
+
+
+def test_split_of_a_plain_function():
+    V = T.FunctionSpace(T.UnitSquareMesh(2, 2), "CG", 1)
+    u = T.Function(V)
+    (s,) = T.split(u)
+    assert s is u
+    v = T.TestFunction(V)
+    (s,) = T.split(v)
+    assert s is v

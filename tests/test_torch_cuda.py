@@ -1,8 +1,9 @@
 """K1 and K2 on the card: each CUDA kernel (K1's action variant and
 K2's large variant included) against its plain PyTorch version, the
-launch counts, and the matrix-free operator and the gather route's
-matrix and vectors on the card against the CPU.  Marked `cuda`; skips where torch has no CUDA device.
-Run on a machine with an NVIDIA GPU with
+launch counts, and the matrix-free operator, the gather route's matrix
+and vectors, Newton (assembled and matrix-free Jacobians) and the Krylov
+methods on the card against the CPU.  Marked `cuda`; skips where torch
+has no CUDA device.  Run on a machine with an NVIDIA GPU with
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 (--noconftest: tests/conftest.py configures jax, which these tests do not
 use and such a machine need not have).
@@ -230,3 +231,72 @@ def test_gather_route_on_card_matches_cpu(on_cuda):
                     torch.tensor(T.assemble(w * w * T.dx + w("+") * T.dS))))
     for a, b in zip(*out):
         assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+
+
+def _newton_on(dev, mat_type):
+    """chip_smoke.py's newton_p1_1m problem at UnitSquareMesh(8) (two
+    levels, CG + GMG) on one device: (Newton iterations, KSP iterations
+    per step, solution on the host)."""
+    T.set_device(dev)
+    mesh = T.MeshHierarchy(T.UnitSquareMesh(4, 4), 1).meshes[-1]
+    V = T.FunctionSpace(mesh, "CG", 1)
+    x, y = T.SpatialCoordinate(mesh)
+    s = T.sin(T.pi * x) * T.sin(T.pi * y)
+    f = T.Function(V).interpolate(2 * T.pi ** 2 * s + s * s)
+    u, v = T.Function(V), T.TestFunction(V)
+    F = T.inner(T.grad(u), T.grad(v)) * T.dx + u * u * v * T.dx \
+        - f * v * T.dx
+    solver = T.NonlinearVariationalSolver(
+        T.NonlinearVariationalProblem(
+            F, u, bcs=T.DirichletBC(V, 0, "on_boundary")),
+        solver_parameters={"snes_rtol": 1e-10, "ksp_type": "cg",
+                           "ksp_rtol": 1e-8, "pc_type": "mg",
+                           "mat_type": mat_type})
+    K.lowerer_evals = 0
+    n0 = K.kernel_launches
+    solver.solve()
+    assert solver.converged and K.lowerer_evals == 0
+    if dev == "cuda":
+        assert u.dat.is_cuda and K.kernel_launches > n0
+    return (solver.snes_iterations,
+            [h["ksp_iterations"] for h in solver.history], u.dat.cpu())
+
+
+@pytest.mark.parametrize("mat_type", ["aij", "matfree"])
+def test_newton_on_card_matches_cpu(on_cuda, mat_type):
+    """Newton with an assembled or matrix-free Jacobian on the card (K1 for
+    the residual, the Jacobian and its action) against the CPU: the same
+    Newton and CG counts, the solution within 1e-12."""
+    nc, kc, uc = _newton_on("cpu", mat_type)
+    ng, kg, ug = _newton_on("cuda", mat_type)
+    assert (ng, kg) == (nc, kc)
+    assert float((ug - uc).abs().max()) <= 1e-12 * float(uc.abs().max())
+
+
+@pytest.mark.parametrize("method", ["gmres", "fgmres", "bicgstab",
+                                    "minres"])
+def test_krylov_on_card_matches_cpu(on_cuda, method):
+    """GMRES (and FGMRES, BiCGStab, MINRES) with Jacobi on the card against
+    the CPU on a non-symmetric operator: equal iteration counts (the
+    Hessenberg and rotations are float64 on the host either way), the
+    solution within 1e-10."""
+    out = []
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        mesh = T.UnitSquareMesh(16, 16)
+        V = T.FunctionSpace(mesh, "CG", 1)
+        u, v = T.TrialFunction(V), T.TestFunction(V)
+        a = (T.inner(T.grad(u), T.grad(v)) + u * v
+             + T.inner(T.dot(T.Constant([4.0, 2.0]), T.grad(u)), v)) * T.dx
+        uh = T.Function(V)
+        solver = T.LinearVariationalSolver(
+            T.LinearVariationalProblem(a, v * T.dx, uh,
+                                       bcs=T.DirichletBC(V, 0, (1, 3))),
+            solver_parameters={"ksp_type": method, "pc_type": "jacobi",
+                               "ksp_rtol": 1e-10})
+        solver.solve()
+        assert solver.converged
+        out.append((solver.ksp_iterations, uh.dat.cpu()))
+    assert out[0][0] == out[1][0]
+    assert float((out[1][1] - out[0][1]).abs().max()) \
+        <= 1e-10 * float(out[0][1].abs().max())

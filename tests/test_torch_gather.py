@@ -64,6 +64,26 @@ def _disk(fd, level, family, degree):
     return mesh, V, f, x, y
 
 
+def test_matrix_entries_equal_scipy():
+    """Matrix.entries gathers A[rows, cols] from the CSR values, bit for
+    bit equal to the scipy matrix, 0 where the sparsity has no entry."""
+    mesh = T.UnitDiskMesh(2)
+    V = T.FunctionSpace(mesh, "CG", 2)
+    u, v = T.TrialFunction(V), T.TestFunction(V)
+    A = T.assemble((T.inner(T.grad(u), T.grad(v)) + u * v) * T.dx)
+    assert "keys" not in A._tables          # made by the first lookup only
+    S = A.to_scipy()
+    rng = np.random.default_rng(4)
+    rows = rng.integers(0, V.dim, (40, 7))
+    cols = rng.integers(0, V.dim, (40, 7))
+    cols[:, 0] = rows[:, 0]                     # diagonal entries too
+    got = A.entries(torch.as_tensor(rows), torch.as_tensor(cols)).numpy()
+    want = np.asarray(S[rows.reshape(-1), cols.reshape(-1)]).reshape(
+        rows.shape)
+    assert np.array_equal(got, want)
+    assert (got == 0).any() and (got != 0).any()
+
+
 # ------------------------------------------------------- sparsity, native
 def test_native_coo_sort_unique_matches_numpy():
     rng = np.random.default_rng(0)

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -48,3 +49,82 @@ def test_device_defaults_to_cuda():
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "cuda"
     assert T.get_device() == torch.device("cpu")   # this module asked
+
+
+#: every public name of the JAX package that the port does not have yet,
+#: with the ROADMAP.md queue 1 item that brings it
+NOT_YET_PORTED = {
+    # item 13: DG advection, par_loop, fml and VTKFile
+    13: ["VertexBasedLimiter", "par_loop", "READ", "WRITE", "RW", "INC",
+         "MIN", "MAX", "fml", "VTKFile", "File"],
+    # item 14: mixed spaces, H(div), Slate
+    14: ["MixedFunctionSpace", "MixedFunction", "Tensor", "AssembledVector",
+         "assemble_slate", "DiagonalTensor", "Reciprocal", "Factorization",
+         "FiniteElement", "TensorProductElement", "HDiv", "EnrichedElement",
+         "BrokenElement"],
+    # item 16: the PC zoo, nonlinear multigrid, deflation, eigensolvers
+    16: ["PCBase", "AssembledPC", "AuxiliaryOperatorPC", "MassInvPC",
+         "PCDPC", "Deflation", "DeflatedSNES", "LinearEigenproblem",
+         "LinearEigensolver"],
+    # item 18: meshes, I/O and tooling
+    18: ["Mesh", "VertexOnlyMesh", "PointNotInDomainError", "Interpolator",
+         "CheckpointFile", "DumbCheckpoint", "FILE_CREATE", "FILE_READ",
+         "FILE_UPDATE",
+         "assemble_mixed_mass_matrix", "AdaptiveMeshHierarchy",
+         "GeometryProjectedMeshHierarchy", "OpenCascadeMeshHierarchy",
+         "TransferManager", "RandomGenerator", "PCG64", "parameters",
+         "Parameters", "set_log_level", "info", "warning", "error",
+         "debug", "info_red", "info_blue", "info_green", "DEBUG", "INFO",
+         "WARNING", "ERROR", "CRITICAL", "timed_region", "timed_function",
+         "print_event_summary", "write_flamegraph", "ProgressBar",
+         "Citations"],
+    # item 19: external operators
+    19: ["point_expr", "PointwiseOperator"],
+    # item 20: parallel
+    20: ["Ensemble", "EnsembleFunction", "EnsembleFunctionSpace",
+         "ensemble_solve", "ensemble_batched_solve"],
+}
+
+
+def test_import_swap_names_have_items():
+    """A script that swaps its import line finds every public name of the
+    JAX package in the port, or the name is listed above with its ROADMAP
+    item: a missing name without an item fails, and so does a listed
+    name that the port now has."""
+    import types
+    import firedrake_tpu as J
+    public = set(J.__all__) | {
+        n for n in dir(J) if not n.startswith("_")
+        and not (isinstance(getattr(J, n), types.ModuleType)
+                 and n != "fml")}
+    public.discard("os")
+    missing = {n for n in public if not hasattr(T, n)}
+    listed = [n for names in NOT_YET_PORTED.values() for n in names]
+    assert len(listed) == len(set(listed))
+    assert missing == set(listed), (
+        f"missing without an item: {sorted(missing - set(listed))}; "
+        f"listed but ported: {sorted(set(listed) - missing)}")
+
+
+@pytest.mark.parametrize("call, item", [
+    (lambda V, u: u.sub(0), 14),
+    (lambda V, u: u.split(), 14),
+    (lambda V, u: u.subfunctions, 14),
+    (lambda V, u: u.at((0.5, 0.5)), 18),
+    (lambda V, u: u((0.5, 0.5)), 18),
+    (lambda V, u: u.vector(), 18),
+    (lambda V, u: u.riesz_representation(), 17),
+    (lambda V, u: V * V, 14),
+    (lambda V, u: T.FunctionSpace(V.mesh(), "RT", 1), 14),
+    (lambda V, u: T.FunctionSpace(V.mesh(), "N1curl", 1), 14),
+    (lambda V, u: T.FunctionSpace(V.mesh(), "HDiv Trace", 0), 14),
+    (lambda V, u: V.mesh().refine_marked_elements(np.ones(8)), 18),
+    (lambda V, u: T.adapt(V.mesh(), np.ones(8)), 18),
+])
+def test_unported_methods_name_their_item(call, item):
+    V = T.FunctionSpace(T.UnitSquareMesh(2, 2), "CG", 1)
+    u = T.Function(V)
+    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+        call(V, u)
+    # restriction still works through Function.__call__
+    assert type(u("+")).__name__ == "Restricted"

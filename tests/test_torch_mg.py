@@ -1,6 +1,8 @@
 """Geometric multigrid in the port against the JAX package: hierarchies
 (bit for bit), grid transfers, the stationary smoothers, the vertex-star
-patch smoother and whole CG + GMG solves on UnitSquareMesh(4) + 2 levels.
+patch smoother and whole CG + GMG solves on UnitSquareMesh(4) + 2 levels
+and, with patch levels over gather-route operators, on
+MeshHierarchy(UnitDiskMesh(1), 2).
 
 Device results are held to 1e-14 (transfers: the same slices and sums),
 1e-12 (smoothers and patch solves, relative to the largest entry) and
@@ -214,6 +216,36 @@ def test_gmg_solve_matches(tree):
     assert st.converged and bool(sj.converged)
     assert abs(st.ksp_iterations - int(sj.ksp_iterations)) <= slack
     _close(ut, uj, 1e-10)
+
+
+def _disk_patch_solve(fd):
+    """CG + GMG with Chebyshev/vertex-star patch levels, P2 on the
+    unstructured MeshHierarchy(UnitDiskMesh(1), 2): the level operators
+    are gather-route Matrix objects, whose entries the patch PC reads."""
+    mesh = fd.MeshHierarchy(fd.UnitDiskMesh(1), 2).meshes[-1]
+    V = fd.FunctionSpace(mesh, "CG", 2)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    x, y = fd.SpatialCoordinate(mesh)
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(
+            fd.inner(fd.grad(u), fd.grad(v)) * fd.dx,
+            fd.inner(1 + x * y, v) * fd.dx, uh,
+            bcs=fd.DirichletBC(V, 0, "on_boundary")),
+        solver_parameters={"ksp_type": "cg", "ksp_rtol": 1e-10,
+                           "pc_type": "mg",
+                           "mg_levels_ksp_type": "chebyshev",
+                           "mg_levels_pc_type": "patch"})
+    solver.solve()
+    return solver, np.asarray(uh.dat)
+
+
+def test_gmg_patch_on_unstructured_hierarchy():
+    sj, uj = _disk_patch_solve(J)
+    st, ut = _disk_patch_solve(T)
+    assert int(sj.ksp_iterations) == 6
+    assert st.converged and st.ksp_iterations == 6
+    _close(ut, uj, 1e-12)
 
 
 def test_unported_hierarchies_and_levels_raise():
