@@ -7,8 +7,9 @@
                                           # CPU only (the counts the card
                                           # must match)
     python3 chip_smoke.py --cpu-study [label ...]
-                                          # the gather-route solves' and
-                                          # the P1 nonlinear cases' CPU
+                                          # the gather-route solves', the
+                                          # P1 nonlinear cases' and
+                                          # poisson_mixed_rt1_256's CPU
                                           # convergence study (bounds)
 
 Phases of the card run (each prints its own lines and its seconds; any
@@ -88,7 +89,29 @@ failure raises and the exit code is non-zero):
              summed per assembly (CUDA events); gates: Newton steps equal
              to the rehearsal, GMRES iterations within 2%, energies
              decreasing and within 1e-8 of the rehearsal's.
-7. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
+7. dg_mixed — dg_advection_512: demos/DG_advection.py at
+             UnitSquareMesh(512) (DG1, 1,572,864 dofs, 785,408 interior
+             and 2,048 exterior facets), SSPRK3 with VertexBasedLimiter
+             after every stage, dt = 0.2/512, 4 steps (12 stages).  Per
+             stage (CUDA events; the first stage apart, it holds the
+             assembler builds): the RHS assembly split into its cell
+             integral (the torch lowerer) and its facet integrals (the
+             vmapped facet kernels), the DG1 mass matrix (K1, REF
+             variant), CG + Jacobi iterations and ms, the limiter; K1
+             launches by variant and lowerer_evals counted over the stages
+             alone; one VTKFile write of q (seconds, bytes).  Gates:
+             |mass - mass0| <= 1e-10, -1e-8 <= q <= 1 + 1e-8 after every
+             stage, q within 1e-10 of the same run on the CPU in this
+             process (--cpu-rehearsal dg_advection_512 runs it alone),
+             K1 held to its plain version on the mass form's inputs.
+             poisson_mixed_rt1_256: demos/poisson_mixed.py at
+             UnitSquareMesh(256), RT1 x DG0 (328,192 dofs): the block
+             assembly on the card (all in the lowerer, RT1's dof signs on
+             the card; K1 must not run), preonly + lu (host splu) timed
+             apart, the BlockMatrix matvec beside its byte bound; gate:
+             the L2 errors of u_h and sigma_h below MIXED_ERR (twice the
+             --cpu-study extrapolation).
+8. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
              -lap u = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on the
              boundary, P2 on MeshHierarchy(UnitCubeMesh(8), 4) (12,582,912
              tets, 16,974,593 dofs), CG + GMG (Chebyshev(2) + Jacobi) with
@@ -1615,7 +1638,10 @@ def cpu_study(labels):
     those named) on the CPU at their study levels: iterations, errors and
     residuals, and (gather) their rates per level."""
     import firedrake_tpu_torch as fd
-    labels = labels or list(GATHER) + ["newton_p1_1m", "krylov_p1_1m"]
+    labels = labels or list(GATHER) + ["newton_p1_1m", "krylov_p1_1m",
+                                       "poisson_mixed_rt1_256"]
+    if "poisson_mixed_rt1_256" in labels:
+        mixed_cpu_study()
     for label in labels:
         if label in ("newton_p1_1m", "krylov_p1_1m"):
             for level in NONLINEAR_STUDY:
@@ -1646,11 +1672,21 @@ def cpu_rehearsal(labels):
     """The GMG solves (all, or those named) on the CPU with the plain
     kernel versions; prints each iteration count."""
     import firedrake_tpu_torch as fd
-    labels = labels or list(GMG) + list(GATHER) + list(NONLINEAR_LABELS)
+    labels = labels or list(GMG) + list(GATHER) + list(NONLINEAR_LABELS) \
+        + ["dg_advection_512"]
     nonlinear_cpu([lb for lb in labels if lb in NONLINEAR_LABELS])
     fd.set_device("cpu")
     for label in labels:
         if label in NONLINEAR_LABELS:
+            continue
+        if label == "dg_advection_512":
+            t0 = time.perf_counter()
+            its, q, dmass = dg_cpu(fd, DG_N)
+            print(f"cpu_rehearsal {label}: dofs {q.numel()} cg_iterations "
+                  f"{its} q in [{float(q.min())!r}, {float(q.max())!r}] "
+                  f"|dmass| {abs(dmass):.3e} seconds "
+                  f"{time.perf_counter() - t0:.1f} host_max_rss_gib "
+                  f"{_max_rss_gib():.2f}", flush=True)
             continue
         if label in GATHER:
             t0 = time.perf_counter()
@@ -1678,6 +1714,374 @@ def cpu_rehearsal(labels):
               f"host_max_rss_gib {_max_rss_gib():.2f}", flush=True)
 
 
+# ------------------------------------------- DG advection and mixed Poisson
+# dg_advection_512: demos/DG_advection.py at UnitSquareMesh(512) (DG1,
+# 1,572,864 dofs; 785,408 interior and 2,048 exterior facets), SSPRK3 with
+# the limiter after every stage, dt = 0.2/512, DG_STEPS steps.
+DG_N, DG_STEPS = 512, 4
+DG_SP = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": 1e-11}
+# poisson_mixed_rt1_256: demos/poisson_mixed.py at UnitSquareMesh(256), RT1
+# x DG0 (197,120 + 131,072 dofs), preonly + lu.  Bounds on the L2 errors
+# of u_h and sigma_h: twice the errors extrapolated from the last level of
+# the CPU study (python3 chip_smoke.py --cpu-study poisson_mixed_rt1_256:
+# at n = 16, 32, 64 u 3.269008e-2, 1.635810e-2, 8.180686e-3 and sigma
+# 1.258816e-1, 6.295296e-2, 3.147800e-2, ratios 1.9996 and 1.9999 at the
+# last level) to n = 256 at the last ratio.
+MIXED_N, MIXED_STUDY = 256, (16, 32, 64)
+MIXED_ERR = dict(u=4.092e-3, sigma=1.574e-2)
+LU = {"ksp_type": "preonly", "pc_type": "lu"}
+
+
+def _dg_problem(fd, n):
+    """The demo's problem: the step 1 on 0.2 <= x <= 0.4 advected by
+    (1, 0), upwind fluxes on dS and ds."""
+    mesh = fd.UnitSquareMesh(n, n)
+    V = fd.FunctionSpace(mesh, "DG", 1)
+    X = fd.SpatialCoordinate(mesh)
+    vel = fd.as_vector([1.0 + 0 * X[0], 0.0 * X[1]])
+    q = fd.Function(V, name="q").interpolate(
+        fd.conditional(fd.ge(X[0], 0.2), 1.0, 0.0)
+        * fd.conditional(fd.ge(0.4, X[0]), 1.0, 0.0))
+    nrm = fd.FacetNormal(mesh)
+    un = 0.5 * (fd.dot(vel, nrm) + abs(fd.dot(vel, nrm)))
+    p, qt = fd.TestFunction(V), fd.TrialFunction(V)
+    L = (0.2 / n) * (fd.inner(q * vel, fd.grad(p)) * fd.dx
+                     - fd.inner(fd.jump(p), fd.jump(un * q)) * fd.dS
+                     - fd.inner(p, un * q) * fd.ds)
+    return dict(mesh=mesh, V=V, q=q, a=fd.inner(qt, p) * fd.dx, L=L,
+                dq=fd.Function(V), limiter=fd.VertexBasedLimiter(V))
+
+
+def _dg_stages(fd, p, steps, around=None, after=None):
+    """The demo's SSPRK3 loop, each stage one solve of the DG1 mass system
+    and the limiter: `around(k, what)` is the context of stage k's solve
+    ("solve") and limiter ("limiter"); `after(k)` runs after stage k,
+    outside both."""
+    q, dq, lim = p["q"], p["dq"], p["limiter"]
+    around = around or (lambda k, what: contextlib.nullcontext())
+    combine = (lambda qs, q, dq: q + dq,
+               lambda qs, q, dq: 0.75 * qs + 0.25 * (q + dq),
+               lambda qs, q, dq: (qs + 2.0 * (q + dq)) / 3.0)
+    its = []
+    for step in range(steps):
+        qs = q.dat.clone()
+        for s in range(3):
+            k = 3 * step + s
+            with around(k, "solve"):
+                solver = fd.LinearVariationalSolver(
+                    fd.LinearVariationalProblem(p["a"], p["L"], dq),
+                    solver_parameters=DG_SP)
+                solver.solve()
+                q.dat = combine[s](qs, q.dat, dq.dat)
+            with around(k, "limiter"):
+                lim.apply(q)
+            its.append(solver.ksp_iterations)
+            if not solver.converged:
+                raise AssertionError(f"dg_advection: stage {k} did not "
+                                     "converge")
+            if after is not None:
+                after(k)
+    return its
+
+
+class _DGTimes:
+    """CUDA events per stage: the RHS assembly (rank 1), with its cell
+    integral (the torch lowerer) and its facet integrals (the vmapped
+    facet kernels) apart; the mass matrix assembly (K1); the CG solve;
+    the limiter.  Only the blocks opened by `stage` are timed."""
+
+    KEYS = ("rhs", "rhs_cell", "rhs_facet", "mass", "cg", "limiter")
+
+    def __init__(self):
+        self.stages = []
+        self.open = False
+
+    def _events(self, key, fn):
+        if not self.open:
+            return fn()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        self.stages[-1][key].append((s, e))
+        return out
+
+    def __enter__(self):
+        import firedrake_tpu_torch.solving as S
+        from firedrake_tpu_torch.assemble import FormAssembler as FA
+        self.S, self.FA = S, FA
+        self.orig = run0, lv0, ksp0 = FA._run, FA._local_values, S._run_ksp
+
+        def run(asm, *a, **kw):
+            return self._events("rhs" if asm.rank == 1 else "mass",
+                                lambda: run0(asm, *a, **kw))
+
+        def local_values(asm, ci, *a, **kw):
+            if asm.rank != 1:
+                return lv0(asm, ci, *a, **kw)
+            return self._events(
+                "rhs_cell" if ci.integral_type == "cell" else "rhs_facet",
+                lambda: lv0(asm, ci, *a, **kw))
+
+        def run_ksp(*a, **kw):
+            return self._events("cg", lambda: ksp0(*a, **kw))
+
+        FA._run, FA._local_values, S._run_ksp = run, local_values, run_ksp
+        return self
+
+    @contextlib.contextmanager
+    def stage(self, k, what):
+        """Stage k's solve ("solve", which opens the stage's record) or
+        its limiter ("limiter", timed as a whole)."""
+        if what == "solve":
+            self.stages.append({key: [] for key in self.KEYS})
+        self.open = what == "solve"
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        try:
+            yield
+        finally:
+            e.record()
+            self.open = False
+            if what == "limiter":
+                self.stages[-1]["limiter"].append((s, e))
+
+    def __exit__(self, *exc):
+        self.FA._run, self.FA._local_values, self.S._run_ksp = self.orig
+        torch.cuda.synchronize()
+        self.ms = [{key: sum(s.elapsed_time(e) for s, e in st[key])
+                    for key in self.KEYS} for st in self.stages]
+
+
+def dg_advection_run(fd):
+    """dg_advection_512 on the card: per stage the RHS assembly split into
+    the lowerer's cell integral and the facet kernels, the mass matrix
+    (K1), CG + Jacobi and the limiter; then one VTKFile write of q, the
+    gates (mass, bounds after every stage) and q against the port's own
+    CPU rehearsal at the same size, run in this process."""
+    import os
+    import shutil
+    from firedrake_tpu_torch.assemble import get_assembler
+    label = "dg_advection_512"
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _dg_problem(fd, DG_N))
+    mesh = p["mesh"]
+    mass0 = fd.assemble(p["q"] * fd.dx)
+    counts, times, wall, bounds = _Counts(), _DGTimes(), [], []
+
+    @contextlib.contextmanager
+    def around(k, what):
+        with counts, times.stage(k, what):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            wall.append((k, what, time.perf_counter() - t))
+
+    def after(k):
+        bounds.append((float(p["q"].dat.min()), float(p["q"].dat.max())))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with times:
+            its = _dg_stages(fd, p, DG_STEPS, around, after)
+    peak = torch.cuda.max_memory_allocated()
+    stage_s = {}
+    for k, what, s in wall:
+        stage_s[k] = stage_s.get(k, 0.0) + s
+    for k, ms in enumerate(times.ms):
+        other = ms["rhs"] - ms["rhs_cell"] - ms["rhs_facet"]
+        first = " (first: assembler builds)" if k == 0 else ""
+        print(f"{label} stage {k}{first}: wall_s {stage_s[k]:.4f} rhs_ms {ms['rhs']:.3f} "
+              f"(lowerer cell {ms['rhs_cell']:.3f} facet kernels "
+              f"{ms['rhs_facet']:.3f} gathers+accumulation {other:.3f}) "
+              f"mass_k1_ms {ms['mass']:.3f} cg_iterations {its[k]} cg_ms "
+              f"{ms['cg']:.3f} limiter_ms {ms['limiter']:.3f} q in "
+              f"[{bounds[k][0]!r}, {bounds[k][1]!r}]")
+    rest = times.ms[1:]
+    mean = {key: sum(m[key] for m in rest) / len(rest) for key in
+            _DGTimes.KEYS}
+    print(f"{label}: stages 1-{len(rest)} mean rhs_ms {mean['rhs']:.3f} "
+          f"(lowerer cell {mean['rhs_cell']:.3f} facet kernels "
+          f"{mean['rhs_facet']:.3f}) mass_k1_ms {mean['mass']:.3f} cg_ms "
+          f"{mean['cg']:.3f} limiter_ms {mean['limiter']:.3f} wall_s "
+          f"{sum(stage_s[k] for k in range(1, len(stage_s))) / len(rest):.4f}")
+    mass = fd.assemble(p["q"] * fd.dx)
+    # one VTK write of q, outside every timed block, into the build
+    # directory of the checkout (removed after its size is read)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "firedrake_tpu_torch", "_build", "vtk_" + label)
+    vtk = fd.VTKFile(os.path.join(out_dir, "q.pvd"))
+    _, vtk_s = _sync_time(lambda: vtk.write(p["q"]))
+    vtk_bytes = os.path.getsize(os.path.join(out_dir, "q_0.vtu"))
+    shutil.rmtree(out_dir)
+    q_card = p["q"].dat.cpu()
+    print(f"{label}: dofs {p['V'].dim} cells {mesh.num_cells} interior "
+          f"facets {len(mesh.topology.interior_facets)} setup_s "
+          f"{setup_s:.3f} mass0 {mass0!r} mass {mass!r} |dmass| "
+          f"{abs(mass - mass0):.3e} cg_iterations {its} k1_launches "
+          f"{counts.k1} k1_by_variant {counts.k1_by_variant} "
+          f"lowerer_evals {counts.lowerer} device_peak {peak} vtk_write_s "
+          f"{vtk_s:.3f} vtk_bytes {vtk_bytes}")
+    _route_k1_checks(get_assembler(p["a"]), label)
+    del p
+    _release(label)
+    # the port's own CPU rehearsal at the same size
+    fd.set_device("cpu")
+    try:
+        (cpu_its, q_cpu, _), cpu_s = _sync_time(lambda: dg_cpu(fd, DG_N))
+    finally:
+        fd.set_device(torch.device("cuda"))
+    diff = float((q_card - q_cpu).abs().max())
+    print(f"{label}: max|q_card - q_cpu| {diff:.3e} (CPU rehearsal "
+          f"{cpu_s:.1f} s, cg_iterations {cpu_its})")
+    if not q_card.numel() == 3 * mesh.num_cells:
+        raise AssertionError(f"{label}: wrong size")
+    if not abs(mass - mass0) <= 1e-10:
+        raise AssertionError(f"{label}: mass {mass0} -> {mass}")
+    if not all(-1e-8 <= lo and hi <= 1 + 1e-8 for lo, hi in bounds):
+        raise AssertionError(f"{label}: q left [0, 1]: {bounds}")
+    if not diff <= 1e-10:
+        raise AssertionError(f"{label}: card and CPU differ by {diff}")
+    if counts.k1 <= 0 or counts.k1_by_variant["ref"] != counts.k1 \
+            or counts.lowerer <= 0:
+        raise AssertionError(f"{label}: K1 (mass) or the lowerer (RHS) "
+                             "did not run")
+    return counts
+
+
+def dg_cpu(fd, n):
+    """The DG stages on the set device without timing: (CG iterations per
+    stage, q on the host, the mass change)."""
+    p = _dg_problem(fd, n)
+    mass0 = fd.assemble(p["q"] * fd.dx)
+    its = _dg_stages(fd, p, DG_STEPS)
+    return its, p["q"].dat.cpu(), fd.assemble(p["q"] * fd.dx) - mass0
+
+
+def _mixed_problem(fd, n):
+    """demos/poisson_mixed.py at UnitSquareMesh(n): sigma = grad u, div
+    sigma = -f, u = sin(pi x) sin(pi y)."""
+    mesh = fd.UnitSquareMesh(n, n)
+    W = fd.FunctionSpace(mesh, "RT", 1) * fd.FunctionSpace(mesh, "DG", 0)
+    sigma, u = fd.TrialFunctions(W)
+    tau, v = fd.TestFunctions(W)
+    X = fd.SpatialCoordinate(mesh)
+    f = fd.Function(W.subspaces[1]).interpolate(
+        2 * fd.pi ** 2 * fd.sin(fd.pi * X[0]) * fd.sin(fd.pi * X[1]))
+    a = (fd.dot(sigma, tau) + fd.div(tau) * u + fd.div(sigma) * v) * fd.dx
+    u_ex = fd.sin(fd.pi * X[0]) * fd.sin(fd.pi * X[1])
+    s_ex = fd.as_vector([fd.pi * fd.cos(fd.pi * X[0]) * fd.sin(fd.pi * X[1]),
+                         fd.pi * fd.sin(fd.pi * X[0]) * fd.cos(fd.pi * X[1])])
+    return dict(W=W, a=a, L=-fd.inner(f, v) * fd.dx, w=fd.Function(W),
+                u_ex=u_ex, s_ex=s_ex)
+
+
+def _mixed_errors(fd, p):
+    sigma_h, u_h = p["w"].subfunctions
+    return fd.errornorm(p["u_ex"], u_h), fd.errornorm(p["s_ex"], sigma_h)
+
+
+def mixed_run(fd):
+    """poisson_mixed_rt1_256 on the card: the four-block assembly (three
+    blocks, all in the lowerer, RT1's dof signs applied on the card) cold
+    and warm, the host LU of the BlockMatrix timed apart, the BlockMatrix
+    matvec beside its byte bound, and the L2 errors of u_h and sigma_h
+    against the bounds of the CPU study."""
+    import firedrake_tpu_torch.solving as S
+    label = "poisson_mixed_rt1_256"
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _mixed_problem(fd, MIXED_N))
+    lu_s = []
+    direct = S.direct_solve
+
+    def timed_lu(A, b):
+        x, s = _sync_time(lambda: direct(A, b))
+        lu_s.append(s)
+        return x
+
+    with _Counts() as counts:
+        A, cold_s = _sync_time(lambda: fd.assemble(p["a"]))
+        warm_ms = _cuda_ms(lambda: fd.assemble(p["a"]), reps=3, warm=1)
+        _, rhs_s = _sync_time(lambda: fd.assemble(p["L"]))
+        S.direct_solve = timed_lu
+        try:
+            _, solve_s = _sync_time(lambda: fd.solve(p["a"] == p["L"], p["w"],
+                                                     solver_parameters=LU))
+        finally:
+            S.direct_solve = direct
+    peak = torch.cuda.max_memory_allocated()
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(A.shape[1]),
+                        device=fd.get_device())
+    y = A.matvec(x)
+    ref = A.to_scipy() @ x.cpu().numpy()
+    mv_err = float(np.abs(y.cpu().numpy() - ref).max())
+    mv_ms = _cuda_ms(lambda: A.matvec(x), reps=50, warm=5)
+    nnz = sum(B.nnz for B in A.blocks.values())
+    nbytes = nnz * (8 + 4) + sum((B.shape[0] + 1) * 8
+                                 for B in A.blocks.values()) \
+        + (A.shape[0] + A.shape[1]) * 8
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    eu, es = _mixed_errors(fd, p)
+    W = p["W"]
+    print(f"{label}: dofs {W.subspaces[0].dim} + {W.subspaces[1].dim} = "
+          f"{W.dim} blocks {sorted(A.blocks)} nnz {nnz} setup_s "
+          f"{setup_s:.3f} assembly_cold_s {cold_s:.3f} assembly_warm_ms "
+          f"{warm_ms:.3f} rhs_s {rhs_s:.4f} solve_s {solve_s:.3f} (host "
+          f"splu {' '.join(f'{s:.3f}' for s in lu_s)} s) device_peak "
+          f"{peak} k1_launches {counts.k1} lowerer_evals {counts.lowerer}")
+    print(f"  BlockMatrix matvec (call time of 50) {mv_ms:.4f} ms bound "
+          f"{bound_ms:.4f} ms ({nbytes} bytes) max|Ax - A_host x| "
+          f"{mv_err:.3e}; L2 errors u_h {eu:.4e} (bound {MIXED_ERR['u']}) "
+          f"sigma_h {es:.4e} (bound {MIXED_ERR['sigma']})")
+    if not p["w"].dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if not mv_err <= F64_TOL * float(np.abs(ref).max()):
+        raise AssertionError(f"{label}: BlockMatrix matvec disagrees")
+    if not (eu < MIXED_ERR["u"] and es < MIXED_ERR["sigma"]):
+        raise AssertionError(f"{label}: errors {eu}, {es} above bounds")
+    if counts.k1 or counts.lowerer <= 0 or len(lu_s) != 1:
+        raise AssertionError(f"{label}: K1 ran ({counts.k1}) on a form "
+                             "outside its family, or the lowerer or the "
+                             "LU did not run")
+    del p, A
+    _release(label)
+    return counts, dict(ms=mv_ms, bound_ms=bound_ms, nnz=nnz)
+
+
+def dg_mixed_phase():
+    """dg_advection_512, then poisson_mixed_rt1_256."""
+    t0 = phase("dg_mixed")
+    import firedrake_tpu_torch as fd
+    fd.set_device(torch.device("cuda"))
+    used = {"dg_advection_512": dg_advection_run(fd)}
+    used["poisson_mixed_rt1_256"], mv = mixed_run(fd)
+    phase_done("dg_mixed", t0)
+    return used, mv
+
+
+def mixed_cpu_study():
+    """poisson_mixed_rt1_256 on the CPU at the study's sizes: the L2
+    errors of u_h and sigma_h and their ratios per level."""
+    import firedrake_tpu_torch as fd
+    fd.set_device("cpu")
+    prev = None
+    for n in MIXED_STUDY:
+        t0 = time.perf_counter()
+        p = _mixed_problem(fd, n)
+        fd.solve(p["a"] == p["L"], p["w"], solver_parameters=LU)
+        eu, es = _mixed_errors(fd, p)
+        rates = ("" if prev is None else
+                 f" u_ratio {prev[0] / eu:.4f} sigma_ratio "
+                 f"{prev[1] / es:.4f}")
+        print(f"cpu_study poisson_mixed_rt1_256 n {n}: dofs {p['W'].dim} "
+              f"u_l2_err {eu:.6e} sigma_l2_err {es:.6e}{rates} seconds "
+              f"{time.perf_counter() - t0:.1f}", flush=True)
+        prev = (eu, es)
+
+
 def main():
     t0 = time.perf_counter()
     device_phase()
@@ -1687,6 +2091,8 @@ def main():
     gathered, matvec = gather_phase()
     used.update(gathered)
     used.update(nonlinear_phase())
+    dg_mixed, block_mv = dg_mixed_phase()
+    used.update(dg_mixed)
     used["gmg_p2_tet_16m"], k1_action = north_star_phase()
     for label, c in used.items():
         print(f"launches {label}: k1 {c.k1} k2 {c.k2} k2_large "
@@ -1742,7 +2148,9 @@ def main():
          "bound_by": k2_large["bound_by"],
          "library_ms": k2_large["library_ms"]}],
         # the CSR matrix's SpMV at 1,050,625 rows (torch ops, no kernel)
-        "gather_matvec_ms": matvec}))
+        "gather_matvec_ms": matvec,
+        # poisson_mixed_rt1_256's BlockMatrix matvec (torch ops, no kernel)
+        "block_matvec_ms": block_mv}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,14 +16,19 @@ through the batched-inverse kernel, ops/batched_inverse.py), an LU
 coarse solve and matrix-free levels (assembly/matfree.py); the Krylov
 layer (CG, GMRES, FGMRES, BiCGStab, MINRES, Richardson, Chebyshev),
 Newton with line search (assembled or matrix-free Jacobian), EquationBC,
-nullspaces, LinearSolver and L2 projection.
+nullspaces, LinearSolver and L2 projection; DG advection (par_loop,
+VertexBasedLimiter, fml) and VTK output; mixed spaces (MixedFunctionSpace,
+block assembly into a BlockMatrix, mixed.py) with the H(div)/H(curl)
+elements RT, BDM, BDFM, RTCF, RTCE and N1curl (Piola maps, dof signs).
 """
 from .language import *            # noqa: F401,F403  (UFL surface)
 from .mesh.utility import *        # noqa: F401,F403
 from .mesh.topology import MeshTopology
 from .functionspace import (FunctionSpace, VectorFunctionSpace,
                             TensorFunctionSpace, RestrictedFunctionSpace)
-from .function import Function, Cofunction, Constant
+from .mixed import MixedFunctionSpace
+from .function import Function, Cofunction, Constant, MixedFunction
+from .elements.finite_element import BrokenElement
 from .bcs import DirichletBC, EquationBC, homogenize
 from .assemble import assemble, get_assembler, FormAssembler
 from .assembly.sparsity import Sparsity
@@ -40,6 +45,10 @@ from .solvers.snes import AuxiliaryOperatorSNES
 from .mg import MeshHierarchy, HierarchyBase, prolong, restrict, inject
 from .mg.mesh import (ExtrudedMeshHierarchy, SemiCoarsenedExtrudedHierarchy,
                       NonNestedHierarchy)
+from .io import VTKFile, File
+from .parloops import par_loop, READ, WRITE, RW, INC, MIN, MAX
+from . import fml
+from .slope_limiter import VertexBasedLimiter
 from .device import set_device, get_device
 from math import pi
 

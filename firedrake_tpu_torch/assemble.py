@@ -17,10 +17,16 @@ and the PyOP2 parloop machinery.  Two routes, as in the JAX package:
   (compiler/cell_eval.py), facet integrals by the per-facet kernels
   vmapped over the facets (compiler/kernels.py).
 
+H(div)/H(curl) spaces take the gather route: their dof signs (or, for
+multi-moment tet faces, per-cell transforms) turn gathered canonical
+coefficient values into cell-local ones and the local tensors back into
+canonical rows and columns, on the device before accumulation.  Forms on
+mixed spaces are assembled block by block (``MixedFormAssembler``) into a
+``BlockMatrix`` (mixed.py) or one concatenated vector.
+
 Still raising NotImplementedError, each naming its ROADMAP.md queue 1
-item: mixed spaces and H(div)/H(curl) spaces with dof signs or
-transforms and the sum-factorised Q_k plan (item 14), extruded meshes and
-prism facets (item 15), complex scalars (item 17), vertex-only meshes
+item: the sum-factorised Q_k plan (item 14b), extruded meshes and prism
+facets (item 15), complex scalars (item 17), vertex-only meshes
 (item 18).
 """
 from __future__ import annotations
@@ -31,14 +37,17 @@ import numpy as np
 import torch
 
 from .language.measure import Form
-from .language.core import Argument, ScalarValue
+from .language.core import ScalarValue
 from .compiler.kernels import CompiledIntegral
 from .compiler.precision import (kernel_dtype, trace_ctx, castf,
                                  castf_map, widen)
 from .compiler.cell_eval import run_cell_kernel
+from .compiler.lowering import einsum
 from .assembly.sparsity import Sparsity
 from .assembly.matrix import Matrix
 from .function import Cofunction
+from .mixed import (BlockMatrix, extract_block, form_is_mixed,
+                    split_mixed_terminals)
 from .bcs import as_bcs
 from .device import as_tensor, get_device
 
@@ -116,12 +125,67 @@ def _spectral_applies(ci, test, trial):
     return flag == "1" or max(s.element.degree for s in spaces) >= 2
 
 
-def _check_space(space, what):
-    if getattr(space, "has_dof_signs", False) or \
-            getattr(space, "has_dof_transforms", False):
-        raise NotImplementedError(
-            f"{what} on a space with dof signs or transforms (H(div), "
-            "H(curl)) is not ported yet: ROADMAP.md queue 1, item 14")
+def _local_dofs(space, cell_sets, cell_last):
+    """The map from a space's canonical (global) dof values to its
+    cell-local ones, over the cells of each set side by side: None for
+    spaces without one; ("s", signs) with signs (n, nd), or (nd, C)
+    cell-last; ("t", B) with B (n, nd, nd), block diagonal over the sets.
+    The host tables are the space's own (built once, on first use)."""
+    if space is None:
+        return None
+    if getattr(space, "has_dof_signs", False):
+        sg = space.cell_dof_signs
+        tab = np.hstack([sg[c] for c in cell_sets])
+        kind = "s"
+        if cell_last:
+            tab = tab.T
+    elif getattr(space, "has_dof_transforms", False):
+        Tc = space.cell_dof_transforms
+        blocks = [Tc[c] for c in cell_sets]
+        n, nd = blocks[0].shape[:2]
+        tab = np.zeros((n, nd * len(blocks), nd * len(blocks)))
+        for k, B in enumerate(blocks):
+            tab[:, k * nd:(k + 1) * nd, k * nd:(k + 1) * nd] = B
+        kind = "t"
+    else:
+        return None
+    return kind, torch.as_tensor(np.ascontiguousarray(tab),
+                                 dtype=torch.float64, device=get_device())
+
+
+def _coeff_local(w, m, cell_last):
+    """Gathered canonical coefficient values -> cell-local values
+    (w: (nd, C) cell-last, else (n, nd))."""
+    if m is None:
+        return w
+    kind, t = m
+    t = t.to(w.dtype)
+    if kind == "s":
+        return w * t
+    return einsum("cij,jc->ic" if cell_last else "cij,cj->ci", t, w)
+
+
+def _canonical(loc, mr, mc, cell_last):
+    """Local tensors -> canonical rows (test map ``mr``) and columns
+    (trial map ``mc``): A_can = B_r^T A_loc B_c, the signs being their
+    own inverse.  loc: (ni, nj, C) cell-last, else (n, ni, nj)."""
+    if mr is not None:
+        kind, t = mr
+        t = t.to(loc.dtype)
+        if kind == "s":
+            loc = loc * (t[:, None, :] if cell_last else t[:, :, None])
+        else:
+            loc = einsum("cip,ijc->pjc" if cell_last else "cip,cij->cpj",
+                         t, loc)
+    if mc is not None:
+        kind, t = mc
+        t = t.to(loc.dtype)
+        if kind == "s":
+            loc = loc * (t[None] if cell_last else t[:, None, :])
+        else:
+            loc = einsum("pjc,cjq->pqc" if cell_last else "cpj,cjq->cpq",
+                         loc, t)
+    return loc
 
 
 class _Tables:
@@ -339,15 +403,10 @@ class FormAssembler:
         mesh = self.mesh
         topo = mesh.topology
         g = mesh.geometric_dimension
-        for a in (self.test, self.trial):
-            if a is not None:
-                _check_space(a.space, "assembly")
-        for c in ci.coefficients:
-            _check_space(c.space, "assembly of a coefficient")
         if _spectral_applies(ci, self.test, self.trial):
             raise NotImplementedError(
                 "the sum-factorised Q_k plan (compiler/spectral.py) is not "
-                "ported yet: ROADMAP.md queue 1, item 14")
+                "ported yet: ROADMAP.md queue 1, item 14b")
         cmap3 = mesh.coordinates.function_space().cell_dof_map.reshape(
             topo.num_cells, -1, g)
         dev = get_device()
@@ -363,10 +422,20 @@ class FormAssembler:
 
         def arg_maps(cells_list):
             """(rows, cols): each argument's cell dof maps, side by side
-            over the cells of each list."""
+            over the cells of each list; with them the arguments' maps to
+            cell-local dofs (signs, transforms) over the same cells."""
+            cl = st["cell_last"]
+            st["local_rows"], st["local_cols"] = [
+                None if a is None else _local_dofs(a.space, cells_list, cl)
+                for a in (self.test, self.trial)]
             return [None if a is None else np.hstack(
                 [a.space.cell_dof_map[c] for c in cells_list])
                 for a in (self.test, self.trial)]
+
+        def coeff_local(cells, key="coeff_local"):
+            st[key] = {c.count: m for c in ci.coefficients
+                       if (m := _local_dofs(c.space, [cells],
+                                            st["cell_last"])) is not None}
 
         st = {"cell_last": ci.integral_type == "cell"}
         if ci.integral_type == "cell":
@@ -377,6 +446,7 @@ class FormAssembler:
             # coefficient values, the inputs of K1 and the lowerer
             st["coords_map"] = idx(cmap3[cells].transpose(1, 2, 0))
             st["coeff_maps"] = maps(cells, T=True)
+            coeff_local(cells)
             st["rows"], st["cols"] = arg_maps([cells])
             st["n"] = len(cells)
         elif ci.integral_type == "exterior_facet":
@@ -387,6 +457,7 @@ class FormAssembler:
             st["coords_map"] = idx(cmap3[cells])
             st["lf"] = idx(topo.facet_local_id[facets, 0])
             st["coeff_maps"] = maps(cells)
+            coeff_local(cells)
             st["rows"], st["cols"] = arg_maps([cells])
             st["n"] = len(facets)
         else:
@@ -418,6 +489,8 @@ class FormAssembler:
             st["o_rel"] = idx(o_rel)
             st["coeff_maps_p"] = maps(cp)
             st["coeff_maps_m"] = maps(cm)
+            coeff_local(cp, "coeff_local_p")
+            coeff_local(cm, "coeff_local_m")
             # doubled slots: the '+' cell's dofs, then the '-' cell's
             st["rows"], st["cols"] = arg_maps([cp, cm])
             st["n"] = len(facets)
@@ -427,20 +500,25 @@ class FormAssembler:
         """Element tensors of one integral: (ni, nj, C) for cell
         integrals (cell-last), (n, ni, nj) for facet integrals."""
         prec = self._prec
+        cl = st["cell_last"]
+
+        def gathered(c, sfx=""):
+            w = coeff_dats[c.count][st["coeff_maps" + sfx][c.count]]
+            return _coeff_local(w, st["coeff_local" + sfx].get(c.count), cl)
+
         if ci.integral_type == "cell":
             ce = coords_dat[st["coords_map"]]           # (ndofc, g, C)
-            ws = tuple(coeff_dats[c.count][st["coeff_maps"][c.count]]
-                       for c in ci.coefficients)        # (nslot, C)
+            ws = tuple(gathered(c) for c in ci.coefficients)  # (nslot, C)
             with trace_ctx(prec):
-                return run_cell_kernel(
+                loc = run_cell_kernel(
                     ci, ce, ws, consts,
                     chunk=_kernel_chunk(ci, st["n"], ce.element_size()))
+            return _canonical(loc, st["local_rows"], st["local_cols"], cl)
         kern = ci.kernel()
         nco = len(ci.coefficients)
         if ci.integral_type == "exterior_facet":
             args = (coords_dat[st["coords_map"]], st["lf"]) + tuple(
-                coeff_dats[c.count][st["coeff_maps"][c.count]]
-                for c in ci.coefficients)
+                gathered(c) for c in ci.coefficients)
 
             def fn(c, lf, *w):
                 return kern(c, lf, w, consts)
@@ -448,14 +526,15 @@ class FormAssembler:
             args = (coords_dat[st["coords_map_p"]],
                     coords_dat[st["coords_map_m"]], st["lf_p"],
                     st["lf_m"], st["o_rel"]) + tuple(
-                coeff_dats[c.count][st[f"coeff_maps_{s}"][c.count]]
-                for s in "pm" for c in ci.coefficients)
+                gathered(c, "_" + s) for s in "pm"
+                for c in ci.coefficients)
 
             def fn(cp, cm, lp, lm, o, *w):
                 return kern(cp, cm, lp, lm, o, w[:nco], w[nco:], consts)
         with trace_ctx(prec):
-            return _vmapped(fn, args, _kernel_chunk(
+            loc = _vmapped(fn, args, _kernel_chunk(
                 ci, st["n"], args[0].element_size()))
+        return _canonical(loc, st["local_rows"], st["local_cols"], cl)
 
     def _run(self, coords_dat, coeff_dats, const_vals):
         """The gather route: rank 0 -> 0-d tensor, rank 1 -> vector,
@@ -487,6 +566,9 @@ class FormAssembler:
         if not flats:
             return total.new_zeros(nseg)
         return self._acc(flats[0] if len(flats) == 1 else torch.cat(flats))
+
+    def diagonal_space(self):
+        return self.test.space
 
     def assemble_diagonal(self):
         """diag(A) of a rank-2 form: on the stencil route without
@@ -552,10 +634,7 @@ def build_key():
 def get_assembler(form: Form, bcs=None, mat_type="aij",
                   zero_bc_nodes=False) -> FormAssembler:
     bcs = as_bcs(bcs)
-    if any(isinstance(t, Argument) and t.part is not None
-           for it in form.integrals() for t in it.integrand.traverse()):
-        raise NotImplementedError("mixed-space assembly is not ported yet: "
-                                  "ROADMAP.md queue 1, item 14")
+    form = split_mixed_terminals(form)
     # constants key the cache alongside coefficients: signature()
     # renumbers Constant terminals structurally, and the assembler binds
     # its form's Constant objects (values read at call time by count)
@@ -564,8 +643,8 @@ def get_assembler(form: Form, bcs=None, mat_type="aij",
            tuple(id(c) for c in form.coefficients()),
            tuple(c.count for c in form.constants()))
     if key not in _assembler_cache:
-        _assembler_cache[key] = FormAssembler(form, bcs, mat_type,
-                                              zero_bc_nodes)
+        cls = MixedFormAssembler if form_is_mixed(form) else FormAssembler
+        _assembler_cache[key] = cls(form, bcs, mat_type, zero_bc_nodes)
     else:
         _assembler_cache[key].bcs = bcs
     return _assembler_cache[key]
@@ -585,8 +664,83 @@ def assemble(form, tensor=None, bcs=None, mat_type="aij",
     assembler = get_assembler(form, bcs, mat_type, zero_bc_nodes)
     if diagonal:
         d = assembler.assemble_diagonal()
-        test = [a for a in form.arguments() if a.number == 0][0]
-        out = Cofunction(test.space)
+        out = tensor if tensor is not None else Cofunction(
+            assembler.diagonal_space())
         out.dat = d
         return out
     return assembler.assemble(tensor=tensor)
+
+
+class MixedFormAssembler:
+    """Block-wise assembly over mixed spaces: each block is extracted
+    symbolically (mixed.extract_block) and assembled by a FormAssembler,
+    rank-2 blocks on the gather route (a BlockMatrix holds CSR blocks).
+    The JAX package's MixedFormAssembler (assemble.py:911), with the
+    diagonal of a mixed operator, and ``tensor`` filled in place, which
+    the JAX package does not support (ROADMAP.md queue 3)."""
+
+    def __init__(self, form: Form, bcs=(), mat_type="aij",
+                 zero_bc_nodes=False):
+        self.form = form
+        self.bcs = as_bcs(bcs)
+        self.zero_bc_nodes = zero_bc_nodes
+        args = form.arguments()
+        self.rank = len({a.number for a in args})
+        tests = [a for a in args if a.number == 0]
+        trials = [a for a in args if a.number == 1]
+        self.W_test = tests[0].space.parent if tests else None
+        self.W_trial = trials[0].space.parent if trials else None
+        self.mesh = form.mesh()
+        self.block_assemblers = {}
+        if self.rank == 2:
+            for i in range(self.W_test.num_sub_spaces):
+                for j in range(self.W_trial.num_sub_spaces):
+                    bf = extract_block(form, i, j)
+                    if not bf.empty():
+                        self.block_assemblers[(i, j)] = FormAssembler(
+                            bf, use_stencil=False)
+        elif self.rank == 1:
+            for i in range(self.W_test.num_sub_spaces):
+                bf = extract_block(form, i, None)
+                if not bf.empty():
+                    self.block_assemblers[(i,)] = FormAssembler(bf)
+        else:
+            raise ValueError("0-forms cannot contain arguments")
+
+    def diagonal_space(self):
+        return self.W_test
+
+    def assemble_diagonal(self):
+        """diag(A) of a mixed bilinear form: the diagonal blocks'
+        diagonals, zero for a field without one, bcs applied as to the
+        assembled operator."""
+        if self.rank != 2:
+            raise ValueError("assemble_diagonal needs a bilinear form")
+        return self.assemble().diagonal(missing=0.0)
+
+    def assemble(self, tensor=None):
+        if self.rank == 2:
+            blocks = {k: a.assemble() for k, a in
+                      self.block_assemblers.items()}
+            mat = BlockMatrix(self.W_test, self.W_trial, blocks)
+            if self.bcs:
+                rows = np.unique(np.concatenate(
+                    [bc.dof_indices for bc in self.bcs]))
+                mat = mat.with_dirichlet(rows)
+            mat.bcs = self.bcs
+            if tensor is not None:
+                tensor.blocks, tensor.bcs = mat.blocks, mat.bcs
+                return tensor
+            return mat
+        outs = []
+        for i, Vi in enumerate(self.W_test.subspaces):
+            a = self.block_assemblers.get((i,))
+            outs.append(torch.zeros(Vi.dim, dtype=torch.float64,
+                                    device=get_device()) if a is None
+                        else a.assemble().dat)
+        out = torch.cat(outs)
+        for bc in self.bcs:
+            out = bc.zero(out) if self.zero_bc_nodes else bc.apply(out)
+        f = tensor if tensor is not None else Cofunction(self.W_test)
+        f.dat = out
+        return f

@@ -166,19 +166,32 @@ class Matrix:
     def with_dirichlet(self, bc_rows, symmetric=True):
         """Zero the bc rows (and columns), 1 on their diagonal; returns a
         new Matrix (reference: firedrake/assemble.py:1243-1268)."""
+        return self.with_zeroed(bc_rows, bc_rows if symmetric else (),
+                                unit_diagonal=True)
+
+    def with_zeroed(self, rows, cols, unit_diagonal):
+        """A new Matrix with the given rows and columns zeroed and, with
+        ``unit_diagonal``, 1 on the diagonal of those rows (a block of a
+        mixed operator zeroes its field's bc rows and the other field's
+        bc columns; only diagonal blocks take the 1)."""
         t = self._tables
-        idx = torch.as_tensor(np.asarray(bc_rows, dtype=np.int64),
-                              device=self.data.device)
-        mask = torch.zeros(self.sparsity.nrows, dtype=torch.bool,
-                           device=self.data.device)
-        mask[idx] = True
-        keep = ~mask[t["rows"]]
-        if symmetric:
-            keep &= ~mask[t["cols"]]
+        dev = self.data.device
+
+        def mask(idx, n):
+            m = torch.zeros(n, dtype=torch.bool, device=dev)
+            m[torch.as_tensor(np.asarray(idx, dtype=np.int64),
+                              device=dev)] = True
+            return m
+
+        keep = ~mask(rows, self.sparsity.nrows)[t["rows"]]
+        if len(cols):
+            keep &= ~mask(cols, self.sparsity.ncols)[t["cols"]]
         data = torch.where(keep, self.data, torch.zeros_like(self.data))
-        dpos = t["diag"][idx]
-        dpos = dpos[dpos >= 0]
-        data[dpos] = 1.0
+        if unit_diagonal and len(rows):
+            dpos = t["diag"][torch.as_tensor(np.asarray(rows,
+                                                        dtype=np.int64),
+                                             device=dev)]
+            data[dpos[dpos >= 0]] = 1.0
         return Matrix(self.sparsity, data, self.row_space, self.col_space,
                       self.bcs)
 

@@ -40,8 +40,22 @@ class DirichletBC:
         return self._nodes
 
     @property
+    def _offset(self) -> int:
+        """Dof offset when the space is a mixed-space component
+        (W.sub(i)); bc indices are then global in the concatenated
+        vector."""
+        return int(getattr(self.function_space_obj, "offset", 0))
+
+    @property
+    def _total_dim(self) -> int:
+        V = self.function_space_obj
+        parent = getattr(V, "parent", None)
+        return parent.dim if parent is not None else V.dim
+
+    @property
     def dof_indices(self) -> np.ndarray:
-        """Flat dof indices (expanded over components)."""
+        """Flat dof indices (expanded over components, offset for a
+        mixed-space component)."""
         V = self.function_space_obj
         bs = V.block_size
         n = self.nodes.astype(np.int64)
@@ -51,30 +65,35 @@ class DirichletBC:
             idx = n * bs + self.sub_component
         else:
             idx = (n[:, None] * bs + np.arange(bs)[None, :]).reshape(-1)
-        return idx.astype(np.int32)
+        return (idx + self._offset).astype(np.int32)
 
     def value_vector(self) -> np.ndarray:
-        """Host dof vector with g on the bc dofs, 0 elsewhere."""
+        """Host dof vector over the full (possibly mixed) system with g
+        on the bc dofs, 0 elsewhere."""
         from .function import Function
         V = self.function_space_obj
-        out = np.zeros(V.dim)
+        out = np.zeros(self._total_dim)
         idx = self.dof_indices
+        lidx = idx - self._offset     # indices local to this (sub)space
         g = self.g
+        v = (np.asarray(g.values()).reshape(-1)
+             if isinstance(g, ConstantBase) else None)
         if isinstance(g, (int, float)):
             out[idx] = float(g)
-        elif isinstance(g, ConstantBase):
-            v = np.asarray(g.values()).reshape(-1)
-            if v.size == 1:
-                out[idx] = float(v[0])
-            else:
-                # per-component constant on a vector space
-                out[idx] = np.tile(v, V.num_nodes)[idx]
+        elif v is not None and v.size == 1:
+            out[idx] = float(v[0])
+        elif v is not None and getattr(V.scalar_element, "mapping",
+                                       "identity") == "identity":
+            # per-component constant on an identity-mapped vector space
+            # (Piola-mapped spaces interpolate below: their dofs are
+            # moments, not components)
+            out[idx] = np.tile(v, V.num_nodes)[lidx]
         elif isinstance(g, Function):
-            out[idx] = to_numpy(g.dat)[idx]
+            out[idx] = to_numpy(g.dat)[lidx]
         elif isinstance(g, Expr):
-            f = Function(V)
+            f = Function(getattr(V, "_V", V))
             f.interpolate(g)
-            out[idx] = to_numpy(f.dat)[idx]
+            out[idx] = to_numpy(f.dat)[lidx]
         elif g in ("x", None):
             pass
         else:

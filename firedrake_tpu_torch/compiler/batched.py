@@ -339,6 +339,34 @@ class BatchedLowerer(Lowerer):
             return einsum("q...st,qsac,qtbc->q...abc", T, Jinv, Jinv)
         raise NotImplementedError("batched derivatives beyond order 2")
 
+    def _pullback(self, T, elem, d, side, T1=None):
+        """The cell-last form of Lowerer._pullback: the identity map
+        contracts derivative axes with Jinv; contravariant (H(div)) is
+        J v_ref / detJ and covariant (H(curl)) J^{-T} v_ref, with a
+        trailing Jinv contraction for the (affine) gradient."""
+        mapping = getattr(elem, "mapping", "identity")
+        if mapping == "identity":
+            return self._to_phys(T, d, side)
+        if d >= 1 and self.ctx.coord_elem.degree > 1:
+            raise NotImplementedError(
+                f"derivatives of {mapping}-mapped elements on curved "
+                "meshes")
+        g = self.ctx.geom(side or "+")
+        J, Jinv, detJ = g["J"], g["Jinv"], g["detJ"]   # (nq, g, t, C) ..
+        if mapping == "contravariant":
+            if d == 0:
+                return einsum("qikc,qjk->qjic", J, T) / detJ[:, None, None]
+            if d == 1:
+                P = einsum("qikc,qjks,qsgc->qjigc", J, T, Jinv)
+                return P / detJ[:, None, None, None]
+        if mapping == "covariant":
+            if d == 0:
+                return einsum("qkic,qjk->qjic", Jinv, T)
+            if d == 1:
+                return einsum("qkic,qjks,qsgc->qjigc", Jinv, T, Jinv)
+        raise NotImplementedError(
+            f"{mapping} pullback with derivative order {d}")
+
     def _terminal_deriv(self, base, d, side, out_shape):
         ctx = self.ctx
         if isinstance(base, SpatialCoordinate):
@@ -354,11 +382,9 @@ class BatchedLowerer(Lowerer):
                     1, 1, nq, gd, gd, 1)
             return literal(0.0, (1, 1, nq) + out_shape + (1,), ctx.device)
         if isinstance(base, Argument):
-            elem = base.space.element
-            if getattr(elem, "mapping", "identity") != "identity":
-                raise NotImplementedError(elem.mapping)
             T = self.arg_table(base, d, side)
-            P = self._to_phys(T, d, side)              # (nq,nslot,...,C)
+            # (nq, nslot, ..., C)
+            P = self._pullback(T, base.space.element, d, side)
             P = torch.movedim(P, 1, 0)                 # (nslot, nq, ..., C)
             if base.number == 0:
                 return P[:, None]
@@ -366,10 +392,8 @@ class BatchedLowerer(Lowerer):
         if isinstance(base, Coefficient):
             dat = self.coeff_dats[base.count]          # (nslot, C)
             elem = base.space.element
-            if getattr(elem, "mapping", "identity") != "identity":
-                raise NotImplementedError(elem.mapping)
             T = ctx.ref_table(elem, d, side or "+")
-            P = self._to_phys(T, d, side)
+            P = self._pullback(T, elem, d, side)
             v = einsum("jc,qj...c->q...c", dat, P)
             return v[None, None]
         raise NotImplementedError(

@@ -274,7 +274,7 @@ class _FacetContext(BaseContext):
         if hasattr(element, "tabulate_facet"):
             raise NotImplementedError(
                 "facet-only elements (HDiv trace) are not ported yet: "
-                "ROADMAP.md queue 1, item 14")
+                "ROADMAP.md queue 1, item 14b")
         return _tables_at(element, pts, order)
 
     def _plus_tables(self, element, order):
@@ -731,10 +731,36 @@ class Lowerer:
             f"grad of {type(base).__name__} terminal")
 
     def _pullback(self, T, elem, d, side, T1=None):
-        """Apply the element's reference->physical mapping.  Only the
-        identity (Lagrange) pullback is ported; Piola-mapped elements
-        come with the mixed/H(div) slice."""
+        """Apply the element's reference->physical mapping.
+
+        identity: contract derivative axes with Jinv (Lagrange pullback).
+        contravariant (H(div)): v = J v_ref / detJ; affine grad adds a
+        trailing Jinv contraction.  covariant (H(curl)): v = J^{-T} v_ref.
+        (Cells are positively oriented at mesh build, so |detJ| == detJ.)
+        Cell, point and facet contexts alike: on a facet, J is the
+        adjacent cell's (the side's).
+        """
         mapping = getattr(elem, "mapping", "identity")
         if mapping == "identity":
             return self._to_phys(T, d, side, T1)
-        raise NotImplementedError(f"{mapping} pullback")
+        if d >= 1 and self.ctx.coord_elem.degree > 1:
+            # the Piola derivatives below assume an affine J; a curved J
+            # would need its own derivative terms
+            raise NotImplementedError(
+                f"derivatives of {mapping}-mapped elements on curved "
+                "meshes")
+        g = self.ctx.geom(side or "+")
+        J, Jinv, detJ = g["J"], g["Jinv"], g["detJ"]
+        if mapping == "contravariant":
+            if d == 0:
+                return einsum("qik,qjk->qji", J, T) / detJ[:, None, None]
+            if d == 1:
+                P = einsum("qik,qjks,qsg->qjig", J, T, Jinv)
+                return P / detJ[:, None, None, None]
+        if mapping == "covariant":
+            if d == 0:
+                return einsum("qki,qjk->qji", Jinv, T)
+            if d == 1:
+                return einsum("qki,qjks,qsg->qjig", Jinv, T, Jinv)
+        raise NotImplementedError(
+            f"{mapping} pullback with derivative order {d}")

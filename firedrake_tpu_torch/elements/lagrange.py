@@ -661,9 +661,28 @@ def make_scalar_element(cell_name: str, family: str, degree: int,
         return Real(cell_name, degree)
     if family == "Bubble":
         return Bubble(cell_name, degree)
-    if family in ("RT", "BDM", "BDFM", "RTCF", "RTCE", "N1curl",
-                  "HDiv Trace", "HDivT", "DGT", "TraceElement"):
+    if family == "RT":
+        from .hdiv import RaviartThomas
+        return RaviartThomas(cell_name, degree)
+    if family == "BDM":
+        from .hdiv import BrezziDouglasMarini
+        return BrezziDouglasMarini(cell_name, degree)
+    if family == "BDFM":
+        from .hdiv import BrezziDouglasFortinMarini
+        return BrezziDouglasFortinMarini(cell_name, degree)
+    if family == "RTCF":
+        from .hdiv import RaviartThomasCubeFace
+        return RaviartThomasCubeFace(cell_name, degree)
+    if family == "RTCE":
+        from .hdiv import NedelecCubeEdge
+        return NedelecCubeEdge(cell_name, degree)
+    if family == "N1curl":
+        from .hdiv import NedelecFirstKind2D, NedelecFirstKindTet
+        if by_name(cell_name).dim == 3:
+            return NedelecFirstKindTet(cell_name, degree)
+        return NedelecFirstKind2D(cell_name, degree)
+    if family in ("HDiv Trace", "HDivT", "DGT", "TraceElement"):
         raise NotImplementedError(
-            f"the {family} family (H(div), H(curl) and trace elements) is "
-            "not ported yet: ROADMAP.md queue 1, item 14")
+            f"the {family} family (trace elements) is not ported yet: "
+            "ROADMAP.md queue 1, item 14b")
     raise NotImplementedError(f"element family {family!r}")

@@ -15,7 +15,21 @@ from .device import as_tensor, get_device
 
 
 class Function(Coefficient):
-    """A field in a FunctionSpace; usable directly in forms."""
+    """A field in a FunctionSpace; usable directly in forms.  On a
+    MixedFunctionSpace, Function(W) and Cofunction(W) make a
+    MixedFunction."""
+
+    def __new__(cls, V, *args, **kwargs):
+        from .mixed import MixedFunctionSpace
+        if cls in (Function, Cofunction) and isinstance(
+                V, MixedFunctionSpace):
+            obj = super().__new__(MixedFunction)
+            # Python calls __init__ only when isinstance(obj, cls);
+            # MixedFunction is not a Cofunction subclass, so init here
+            if not isinstance(obj, cls):
+                obj.__init__(V, *args, **kwargs)
+            return obj
+        return super().__new__(cls)
 
     def __init__(self, V: FunctionSpace, val=None, name: str | None = None,
                  dtype=None):
@@ -26,8 +40,6 @@ class Function(Coefficient):
             self.dat = as_tensor(other.dat).clone()
             self.name = name or f"{other.name}_copy"
             return
-        if type(V).__name__ == "MixedFunctionSpace":
-            raise NotImplementedError("mixed spaces are not ported yet")
         super().__init__(V)
         self.name = name or f"f_{self.count}"
         if val is not None:
@@ -81,17 +93,22 @@ class Function(Coefficient):
         from .projection import project
         return project(expr, self, **kwargs)
 
-    # ----------------------------------------------- not yet ported
-    def sub(self, i):
-        _unported("Function.sub", 14)
-
+    # ------------------------------------------- components (UFL split)
     def split(self):
-        _unported("Function.split", 14)
+        """A Function on a plain space is its own only component."""
+        return (self,)
 
     @property
     def subfunctions(self):
-        _unported("Function.subfunctions", 14)
+        return (self,)
 
+    def sub(self, i):
+        if i != 0:
+            raise IndexError(f"component {i} of a Function on a plain "
+                             "space")
+        return self
+
+    # ----------------------------------------------- not yet ported
     def at(self, *args, **kwargs):
         _unported("Function.at (point evaluation)", 18)
 
@@ -118,6 +135,85 @@ class Cofunction(Function):
     """Dual-space container (assembled 1-forms). Reference:
     firedrake/cofunction.py:22."""
     pass
+
+
+class MixedFunction(Function):
+    """Function on a MixedFunctionSpace: a tuple of per-field Functions
+    sharing one logical concatenated dof vector (reference: pyop2
+    MixedDat, firedrake Function.subfunctions).  ``dat`` concatenates the
+    parts' device tensors; assigning it splits the value into them."""
+
+    def __init__(self, W, val=None, name=None, dtype=None):
+        Coefficient.__init__(self, W)
+        self.name = name or f"w_{self.count}"
+        self.parts = tuple(Function(V, name=f"{self.name}[{i}]",
+                                    dtype=dtype)
+                           for i, V in enumerate(W.subspaces))
+        if val is not None:
+            self.dat = val
+
+    @property
+    def dat(self):
+        return torch.cat([p.dat for p in self.parts])
+
+    @dat.setter
+    def dat(self, value):
+        W = self.space
+        v = as_tensor(value).reshape(-1)
+        if v.numel() != W.dim:
+            raise ValueError(f"value of size {v.numel()} for a mixed space "
+                             f"of dimension {W.dim}")
+        for p, off in zip(self.parts, W.offsets):
+            p.dat = v[int(off):int(off) + p.space.dim]
+
+    def split(self):
+        return self.parts
+
+    @property
+    def subfunctions(self):
+        return self.parts
+
+    def sub(self, i):
+        return self.parts[i]
+
+    def __getitem__(self, idx):
+        """Flat value-component indexing, the ufl mixed-element
+        convention: subspace components concatenate, so w[2] on
+        RT1 x DG0 is the DG scalar and w[0], w[1] are the RT vector's
+        components (reference: ufl MixedElement extract_component)."""
+        single = idx[0] if (isinstance(idx, tuple)
+                            and len(idx) == 1) else idx
+        if isinstance(single, (int, np.integer)):
+            i = int(single)
+            for p in self.parts:
+                vs = p.space.value_shape
+                n = int(np.prod(vs)) if vs else 1
+                if i < n:
+                    return p[i] if vs else p
+                i -= n
+            raise IndexError(f"component {int(single)} out of range")
+        return super().__getitem__(idx)
+
+    def assign(self, other):
+        if isinstance(other, MixedFunction):
+            for p, q in zip(self.parts, other.parts):
+                p.dat = q.dat.clone()
+            return self
+        if isinstance(other, (int, float)):
+            for p in self.parts:
+                p.assign(other)
+            return self
+        raise NotImplementedError("mixed assign of expressions")
+
+    def copy(self, deepcopy=True):
+        out = MixedFunction(self.space, name=f"{self.name}_copy")
+        out.assign(self)
+        return out
+
+    def zero(self):
+        for p in self.parts:
+            p.zero()
+        return self
 
 
 class Constant(ConstantBase):

@@ -1,11 +1,13 @@
-"""Nodal interpolation onto Lagrange spaces on the same mesh (reference:
-firedrake/interpolation.py:209 SameMeshInterpolator via TSFC dual
-evaluation).  For the Lagrange family the dual basis is point evaluation
-at element nodes, so interpolation = evaluate the expression at each
-cell's node points and write the node values.
+"""Interpolation on the same mesh (reference: firedrake/interpolation.py:209
+SameMeshInterpolator via TSFC dual evaluation).  For the Lagrange family
+the dual basis is point evaluation at element nodes, so interpolation =
+evaluate the expression at each cell's node points and write the node
+values.  Moment spaces (RT, BDM, N1curl) contract the Piola pullback of
+the expression with their quadrature-form dual basis.  Coefficients on
+H(div)/H(curl) spaces are read through their dof signs or transforms.
 
-Not ported yet: moment (Piola-mapped) targets, cross-mesh interpolation
-and interpolation matrices."""
+Not ported yet: cross-mesh interpolation and interpolation matrices
+(ROADMAP.md queue 1, item 18)."""
 from __future__ import annotations
 
 import numpy as np
@@ -24,12 +26,127 @@ _interp_cache: dict = {}
 CELL_CHUNK = 1 << 18
 
 
+def _localize(w, st, c, cells=slice(None)):
+    """Gathered canonical values (ncell, nd) of coefficient c over
+    ``cells`` -> its cell-local ones (dof signs, or matrix entity
+    transforms)."""
+    sg = st["signs"].get(c.count)
+    if sg is not None:
+        return w * sg[cells]
+    B = st["transforms"].get(c.count)
+    if B is not None:
+        return torch.einsum("cij,cj->ci", B[cells], w)
+    return w
+
+
+def _coeff_statics(coeffs, dev):
+    """Device gather maps of the coefficients, and their sign or
+    transform tables where their spaces have them."""
+    return dict(
+        maps={c.count: torch.as_tensor(
+            c.space.cell_dof_map.astype(np.int64), device=dev)
+            for c in coeffs},
+        signs={c.count: torch.as_tensor(c.space.cell_dof_signs, device=dev)
+               for c in coeffs if getattr(c.space, "has_dof_signs", False)},
+        transforms={c.count: torch.as_tensor(c.space.cell_dof_transforms,
+                                             device=dev)
+                    for c in coeffs
+                    if getattr(c.space, "has_dof_transforms", False)})
+
+
+def _build_moment(expr: Expr, V):
+    """Dual-evaluation interpolation into Piola-mapped moment spaces
+    (RT/BDM/N1curl): dof_i = ell_i(Piola pullback of expr) per cell,
+    contracted from the element's quadrature-form dual basis (the JAX
+    package's interpolation.py _build_moment).  Each shared dof is taken
+    from the last cell that holds it, as the JAX scatter does on the
+    host."""
+    from .compiler.smallmat import det as _sdet, inv as _sinv
+    mesh = V.mesh_obj
+    gdim = mesh.geometric_dimension
+    elem = V.element
+    dpts, dwts = elem.dual_quadrature()   # (nd, nq, tdim), (nd, nq, vd)
+    nd, nq, tdim = dpts.shape
+    pts = dpts.reshape(nd * nq, tdim)
+    integrand = push_grad(expr)
+    coeffs = _expr_coeffs(integrand)
+    consts = _expr_constants(integrand)
+    if any(isinstance(t, Argument) for t in integrand.traverse()):
+        raise ValueError("cannot interpolate an expression with arguments")
+
+    def kern(coords_e, ws, cvs):
+        ctx = PointsContext(mesh, pts, coords_e)
+        low = Lowerer(ctx, None, None,
+                      {c.count: w for c, w in zip(coeffs, ws)},
+                      {c.count: v for c, v in zip(consts, cvs)})
+        v = low.eval(integrand, None)
+        return torch.broadcast_to(v[0, 0], (len(pts),) + integrand.shape)
+
+    coords_space = mesh.coordinates.function_space()
+    cmap3 = coords_space.cell_dof_map.reshape(mesh.num_cells, -1, gdim)
+    target_map = np.asarray(V.cell_dof_map, dtype=np.int64)
+    src = np.empty(V.dim, dtype=np.int64)
+    src[target_map.reshape(-1)] = np.arange(target_map.size)
+    mapping = getattr(elem, "mapping", "identity")
+    cache = {}
+
+    def statics():
+        dev = get_device()
+        if cache.get("device") != dev:
+            cache.clear()
+            cache.update(_coeff_statics(coeffs, dev))
+            cache.update(
+                device=dev,
+                cmap3=torch.as_tensor(cmap3.astype(np.int64), device=dev),
+                dwts=torch.as_tensor(np.asarray(dwts, dtype=np.float64),
+                                     device=dev),
+                src=torch.as_tensor(src, device=dev))
+            # canonical <- local maps of the target space
+            if getattr(V, "has_dof_signs", False):
+                cache["tgt_signs"] = torch.as_tensor(V.cell_dof_signs,
+                                                     device=dev)
+            elif getattr(V, "has_dof_transforms", False):
+                cache["tgt_Binv"] = torch.as_tensor(
+                    np.linalg.inv(V.cell_dof_transforms), device=dev)
+        return cache
+
+    def run(coords_dat, coeff_dats, const_vals):
+        st = statics()
+        ce = coords_dat[st["cmap3"]]               # (ncell, nvert, gdim)
+        ws = tuple(_localize(coeff_dats[c.count][st["maps"][c.count]],
+                             st, c) for c in coeffs)
+        cvs = tuple(const_vals[c.count] for c in consts)
+        vals = torch.func.vmap(lambda c, *w: kern(c, w, cvs))(ce, *ws)
+        # vals: (ncell, nd*nq, vd) physical values; pull back to the
+        # reference cell (affine cells: constant J = [v_i - v_0])
+        J = torch.stack([ce[:, i + 1] - ce[:, 0] for i in range(tdim)],
+                        dim=-1)                    # (ncell, gdim, tdim)
+        if mapping == "contravariant":
+            # u_ref = detJ * Jinv @ u_phys
+            uref = _sdet(J)[:, None, None] * torch.einsum(
+                "cij,cqj->cqi", _sinv(J), vals)
+        elif mapping == "covariant":
+            # u_ref = J^T @ u_phys
+            uref = torch.einsum("cji,cqj->cqi", J, vals)
+        else:
+            uref = vals
+        uref = uref.reshape(uref.shape[0], nd, nq, -1)
+        dofs = torch.einsum("nqv,cnqv->cn", st["dwts"].to(uref.dtype),
+                            uref)
+        if "tgt_signs" in st:
+            dofs = dofs * st["tgt_signs"]          # signs^-1 == signs
+        elif "tgt_Binv" in st:
+            dofs = torch.einsum("cij,cj->ci", st["tgt_Binv"], dofs)
+        return dofs.reshape(-1)[st["src"]]
+
+    return run, coeffs, consts
+
+
 def _build(expr: Expr, V):
     """(run, coeffs, consts): run(coords, coeff_dats, const_vals) -> dat."""
     mesh = V.mesh_obj
     if hasattr(V.element, "dual_quadrature"):
-        raise NotImplementedError("interpolation into moment spaces is "
-                                  "not ported yet")
+        return _build_moment(expr, V)
     gdim = mesh.geometric_dimension
     scalar = V.scalar_element
     pts = scalar.nodes                       # (npts, tdim)
@@ -38,10 +155,6 @@ def _build(expr: Expr, V):
     consts = _expr_constants(integrand)
     if any(isinstance(t, Argument) for t in integrand.traverse()):
         raise ValueError("cannot interpolate an expression with arguments")
-    if any(getattr(c.space, "has_dof_signs", False)
-           or getattr(c.space, "has_dof_transforms", False) for c in coeffs):
-        raise NotImplementedError("interpolating Piola-mapped "
-                                  "coefficients is not ported yet")
 
     def kern(coords_e, ws, cvs):
         ctx = PointsContext(mesh, pts, coords_e)
@@ -64,12 +177,10 @@ def _build(expr: Expr, V):
     def statics():
         dev = get_device()
         if cache.get("device") != dev:
+            cache.update(_coeff_statics(coeffs, dev))
             cache.update(
                 device=dev,
                 cmap3=torch.as_tensor(cmap3.astype(np.int64), device=dev),
-                maps={c.count: torch.as_tensor(
-                    c.space.cell_dof_map.astype(np.int64), device=dev)
-                    for c in coeffs},
                 src=torch.as_tensor(src, device=dev))
         return cache
 
@@ -81,8 +192,9 @@ def _build(expr: Expr, V):
         for c0 in range(0, mesh.num_cells, CELL_CHUNK):
             cells = slice(c0, c0 + CELL_CHUNK)
             ce = coords_dat[st["cmap3"][cells]]      # (chunk, nvert, gdim)
-            ws = tuple(coeff_dats[c.count][st["maps"][c.count][cells]]
-                       for c in coeffs)
+            ws = tuple(_localize(
+                coeff_dats[c.count][st["maps"][c.count][cells]], st, c,
+                cells) for c in coeffs)
             v = kb(ce, *ws)
             if vals is None:
                 vals = v.new_empty((mesh.num_cells,) + v.shape[1:])

@@ -48,9 +48,11 @@ def split(u):
     """Split a mixed function/argument into components (UFL split); a
     function or argument on a plain space is its own only component."""
     V = u.function_space()
-    if type(V).__name__ == "MixedFunctionSpace":
-        raise NotImplementedError("split of a mixed space is not ported "
-                                  "yet: ROADMAP.md queue 1, item 14")
+    from ..mixed import MixedFunctionSpace, mixed_arguments
+    if isinstance(V, MixedFunctionSpace):
+        if isinstance(u, Argument):
+            return mixed_arguments(V, u.number)
+        return u.parts
     return (u,)
 
 

@@ -26,7 +26,7 @@ __all__ = ["MeshHierarchy", "HierarchyBase", "NonNestedHierarchy",
 
 _NOT_PORTED = {
     "tensor": "quadrilateral and hexahedral hierarchies are not ported "
-              "yet: ROADMAP.md queue 1, item 14 (tensor-product elements)",
+              "yet: ROADMAP.md queue 1, item 14b (tensor-product elements)",
     "extruded": "extruded and semi-coarsened hierarchies are not ported "
                 "yet: ROADMAP.md queue 1, item 15 (extrusion)",
     "non-nested": "non-nested hierarchies are not ported yet: ROADMAP.md "

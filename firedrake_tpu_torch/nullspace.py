@@ -6,6 +6,7 @@ the right-hand side."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .device import as_tensor, to_numpy
 
@@ -50,6 +51,24 @@ class MixedVectorSpaceBasis:
     """Per-field bases over a mixed space (reference: nullspace.py:206)."""
 
     def __init__(self, W, bases):
-        raise NotImplementedError(
-            "MixedVectorSpaceBasis needs mixed spaces, which are not "
-            "ported yet: ROADMAP.md queue 1, item 14")
+        self.W = W
+        self.bases = bases
+
+    def orthogonalize(self, b):
+        """b with each field's segment orthogonalized against its basis
+        (None entries are full spaces)."""
+        outs = []
+        for i, V in enumerate(self.W.subspaces):
+            off = int(self.W.offsets[i])
+            seg = b[off:off + V.dim]
+            basis = self.bases[i]
+            if isinstance(basis, VectorSpaceBasis):
+                seg = basis.orthogonalize(seg)
+            outs.append(seg)
+        return torch.cat(outs)
+
+    project_out = orthogonalize
+
+    def is_trivial(self):
+        return not any(isinstance(b, VectorSpaceBasis) and not
+                       b.is_trivial() for b in self.bases)

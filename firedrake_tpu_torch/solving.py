@@ -15,7 +15,10 @@ solvers/composition.py; preonly + lu is a host sparse LU.  Nonlinear
 problems by Newton (newtonls; line searches basic, none, bt, l2) with an
 assembled or matrix-free Jacobian, Dirichlet conditions and EquationBCs
 (whose Newton steps are a host sparse LU, as in the JAX package), and
-snes_type python (solvers/snes.py).  Hybridization, SCPC, fieldsplit,
+snes_type python (solvers/snes.py).  On mixed spaces the operator is a
+BlockMatrix (mixed.py): preonly + lu factors its host CSR copy; a Krylov
+method with jacobi or none runs its matvec on the device.
+Hybridization, SCPC, fieldsplit,
 nonlinear multigrid, nonlinear patch preconditioning, deflation and
 distributed solves raise NotImplementedError naming their ROADMAP.md
 item.
@@ -144,7 +147,8 @@ class LinearVariationalProblem:
 
 #: pc_type values of the JAX package's solver that are not ported yet, and
 #: their ROADMAP.md queue 1 items
-_UNPORTED = {"hybridization": 14, "scpc": 14, "ilu": 16, "fieldsplit": 16}
+_UNPORTED = {"hybridization": "14b", "scpc": "14b", "ilu": 16,
+             "fieldsplit": 16}
 
 
 def direct_solve(A, b):

@@ -1,8 +1,9 @@
 """K1 and K2 on the card: each CUDA kernel (K1's action variant and
 K2's large variant included) against its plain PyTorch version, the
 launch counts, and the matrix-free operator, the gather route's matrix
-and vectors, Newton (assembled and matrix-free Jacobians) and the Krylov
-methods on the card against the CPU.  Marked `cuda`; skips where torch
+and vectors, Newton (assembled and matrix-free Jacobians), the Krylov
+methods, the slope limiter and an RT1 x DG0 block assembly on the card
+against the CPU.  Marked `cuda`; skips where torch
 has no CUDA device.  Run on a machine with an NVIDIA GPU with
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 (--noconftest: tests/conftest.py configures jax, which these tests do not
@@ -300,3 +301,61 @@ def test_krylov_on_card_matches_cpu(on_cuda, method):
     assert out[0][0] == out[1][0]
     assert float((out[1][1] - out[0][1]).abs().max()) \
         <= 1e-10 * float(out[0][1].abs().max())
+
+
+def _limited_on(dev):
+    T.set_device(dev)
+    mesh = T.UnitSquareMesh(20, 20)
+    V = T.FunctionSpace(mesh, "DG", 1)
+    f = T.Function(V, val=np.random.default_rng(6).standard_normal(V.dim))
+    T.VertexBasedLimiter(V).apply(f)
+    return f.dat
+
+
+def test_limiter_on_card_matches_cpu(on_cuda):
+    """VertexBasedLimiter's three passes (cell means, the vertex max/min
+    by scatter_reduce, the per-cell scaling) on the card: bit for bit
+    with the CPU (min/max and the scaling do not depend on order)."""
+    dc = _limited_on("cpu")
+    dg = _limited_on("cuda")
+    assert dg.is_cuda
+    assert float((dg.cpu() - dc).abs().max()) <= 1e-15
+
+
+def _mixed_on(dev):
+    T.set_device(dev)
+    mesh = T.UnitSquareMesh(12, 12)
+    W = T.FunctionSpace(mesh, "RT", 1) * T.FunctionSpace(mesh, "DG", 0)
+    sigma, u = T.TrialFunctions(W)
+    tau, v = T.TestFunctions(W)
+    X = T.SpatialCoordinate(mesh)
+    A = T.assemble((T.dot(sigma, tau) + T.div(tau) * u + T.div(sigma) * v)
+                   * T.dx)
+    b = T.assemble(T.sin(X[0]) * v * T.dx
+                   + T.dot(T.as_vector([X[1], 1.0]), tau) * T.dx)
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(W.dim),
+                        device=dev)
+    w = T.Function(W)
+    T.solve((T.dot(sigma, tau) + T.div(tau) * u + T.div(sigma) * v) * T.dx
+            == T.sin(X[0]) * v * T.dx, w,
+            solver_parameters={"ksp_type": "gmres", "pc_type": "jacobi",
+                               "ksp_rtol": 1e-10})
+    return A, b.dat, A.matvec(x), w.dat
+
+
+def test_rt_dg0_block_assembly_on_card_matches_cpu(on_cuda):
+    """RT1 x DG0 on the card: the three blocks (Piola maps and dof signs
+    applied on the card, the torch lowerer), the right-hand side, the
+    BlockMatrix matvec and a GMRES + Jacobi solve against the CPU."""
+    Ac, bc, yc, wc = _mixed_on("cpu")
+    Ag, bg, yg, wg = _mixed_on("cuda")
+    assert sorted(Ag.blocks) == sorted(Ac.blocks)
+    for k in Ac.blocks:
+        assert Ag.blocks[k].data.is_cuda
+        ref = float(Ac.blocks[k].data.abs().max())
+        assert float((Ag.blocks[k].data.cpu() - Ac.blocks[k].data).abs()
+                     .max()) <= 1e-12 * ref
+    for g, c in ((bg, bc), (yg, yc), (wg, wc)):
+        assert g.is_cuda
+        assert float((g.cpu() - c).abs().max()) \
+            <= 1e-10 * float(c.abs().max())

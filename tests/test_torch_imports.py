@@ -54,14 +54,10 @@ def test_device_defaults_to_cuda():
 #: every public name of the JAX package that the port does not have yet,
 #: with the ROADMAP.md queue 1 item that brings it
 NOT_YET_PORTED = {
-    # item 13: DG advection, par_loop, fml and VTKFile
-    13: ["VertexBasedLimiter", "par_loop", "READ", "WRITE", "RW", "INC",
-         "MIN", "MAX", "fml", "VTKFile", "File"],
-    # item 14: mixed spaces, H(div), Slate
-    14: ["MixedFunctionSpace", "MixedFunction", "Tensor", "AssembledVector",
-         "assemble_slate", "DiagonalTensor", "Reciprocal", "Factorization",
-         "FiniteElement", "TensorProductElement", "HDiv", "EnrichedElement",
-         "BrokenElement"],
+    # item 14b: Slate, hybridization, tensor-product and trace elements
+    "14b": ["Tensor", "AssembledVector", "assemble_slate", "DiagonalTensor",
+            "Reciprocal", "Factorization", "FiniteElement",
+            "TensorProductElement", "HDiv", "EnrichedElement"],
     # item 16: the PC zoo, nonlinear multigrid, deflation, eigensolvers
     16: ["PCBase", "AssembledPC", "AuxiliaryOperatorPC", "MassInvPC",
          "PCDPC", "Deflation", "DeflatedSNES", "LinearEigenproblem",
@@ -106,18 +102,35 @@ def test_import_swap_names_have_items():
         f"listed but ported: {sorted(set(listed) - missing)}")
 
 
+def _hybridized(V):
+    W = V * V
+    s, q = T.TrialFunctions(W)
+    t, v = T.TestFunctions(W)
+    T.solve((s * t + q * v) * T.dx == v * T.dx, T.Function(W),
+            solver_parameters={"pc_type": "hybridization"})
+
+
+def _spectral_gather():
+    Q = T.FunctionSpace(T.UnitSquareMesh(2, 2, quadrilateral=True), "CG", 2)
+    T.FormAssembler(T.TrialFunction(Q) * T.TestFunction(Q) * T.dx,
+                    use_stencil=False)
+
+
 @pytest.mark.parametrize("call, item", [
-    (lambda V, u: u.sub(0), 14),
-    (lambda V, u: u.split(), 14),
-    (lambda V, u: u.subfunctions, 14),
+    (lambda V, u: _hybridized(V), "14b"),
+    (lambda V, u: T.solve(T.TrialFunction(V) * T.TestFunction(V) * T.dx
+                          == T.TestFunction(V) * T.dx, T.Function(V),
+                          solver_parameters={"pc_type": "scpc"}), "14b"),
+    (lambda V, u: T.FunctionSpace(V.mesh(), "DGT", 0), "14b"),
     (lambda V, u: u.at((0.5, 0.5)), 18),
     (lambda V, u: u((0.5, 0.5)), 18),
     (lambda V, u: u.vector(), 18),
     (lambda V, u: u.riesz_representation(), 17),
-    (lambda V, u: V * V, 14),
-    (lambda V, u: T.FunctionSpace(V.mesh(), "RT", 1), 14),
-    (lambda V, u: T.FunctionSpace(V.mesh(), "N1curl", 1), 14),
-    (lambda V, u: T.FunctionSpace(V.mesh(), "HDiv Trace", 0), 14),
+    (lambda V, u: T.MeshHierarchy(
+        T.UnitSquareMesh(2, 2, quadrilateral=True), 1), "14b"),
+    (lambda V, u: _spectral_gather(), "14b"),
+    (lambda V, u: T.FunctionSpace(V.mesh(), "HDiv Trace", 0), "14b"),
+    (lambda V, u: T.FunctionSpace(V.mesh(), "HDivT", 1), "14b"),
     (lambda V, u: V.mesh().refine_marked_elements(np.ones(8)), 18),
     (lambda V, u: T.adapt(V.mesh(), np.ones(8)), 18),
 ])

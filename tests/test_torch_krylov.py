@@ -153,8 +153,11 @@ def test_nullspace_matches_jax():
     basis = T.VectorSpaceBasis(vecs=[T.Function(ut.function_space()).assign(
         1.0)])
     _close(basis.orthogonalize(ut.dat), ut.dat, 1e-10)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.MixedVectorSpaceBasis(None, [basis])
+    # the same basis as one field of a mixed space
+    V = ut.function_space()
+    mixed = T.MixedVectorSpaceBasis(V * V, [None, basis])
+    x = torch.cat([ut.dat, ut.dat])
+    _close(mixed.orthogonalize(x), x, 1e-10)
 
 
 def _projections(fd):
