@@ -8,9 +8,13 @@
                                           # must match)
     python3 chip_smoke.py --cpu-study [label ...]
                                           # the gather-route solves', the
-                                          # P1 nonlinear cases' and
-                                          # poisson_mixed_rt1_256's CPU
+                                          # P1 nonlinear cases',
+                                          # poisson_mixed_rt1_256's and
+                                          # the slate cases' CPU
                                           # convergence study (bounds)
+    python3 chip_smoke.py --only slate    # device, build and the named
+                                          # phases alone (slate, dg_mixed,
+                                          # gather, nonlinear)
 
 Phases of the card run (each prints its own lines and its seconds; any
 failure raises and the exit code is non-zero):
@@ -111,7 +115,28 @@ failure raises and the exit code is non-zero):
              apart, the BlockMatrix matvec beside its byte bound; gate:
              the L2 errors of u_h and sigma_h below MIXED_ERR (twice the
              --cpu-study extrapolation).
-8. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
+8. slate  — hybridized_rt2_256: demos/hybridized_poisson.py at
+             UnitSquareMesh(256) (RT2 x DG1, 1,049,600 dofs; 131,072
+             packed 11 x 11 broken mixed blocks; HDiv Trace 1, 394,240
+             dofs), solved with the demo's preonly + lu trace solve (host
+             splu), then with CG + Jacobi at rtol 1e-12 on the card; per
+             solve the CUDA-event times of the local tensors (lowerer,
+             facet kernels), K2, the Slate contractions, global assembly,
+             the trace solve and back-substitution, the first solve apart
+             from the second.  Gates: the L2 error of u_h below
+             SLATE_ERR, CG iterations within 1% of the CPU rehearsal, the
+             CG solution within 1e-8 of the LU one, the card within 1e-10
+             of the same LU solve on the CPU in this process, K2 and the
+             lowerer launched.  scpc_p5_128: P5 Poisson on
+             UnitSquareMesh(128), pc_type scpc (410,881 dofs, 214,273
+             after condensation), CG + Jacobi at rtol 1e-12 on the
+             condensed system on the card, the same stage times; gates:
+             the nodal error below SLATE_ERR, CG iterations within 1% of
+             the rehearsal, K2 launched.  On each path's own blocks (the
+             packed local A; the interior blocks A_II) K2 is held to its
+             plain version (max |delta| <= 1e-13 max|inv|) and timed as
+             in phase 3.
+9. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
              -lap u = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on the
              boundary, P2 on MeshHierarchy(UnitCubeMesh(8), 4) (12,582,912
              tets, 16,974,593 dofs), CG + GMG (Chebyshev(2) + Jacobi) with
@@ -188,7 +213,10 @@ CPU_REHEARSAL_ITS = {"gmg_p1_1m": 10, "gmg_star_p2_1m": 6,
                      "burgers_p2_256": dict(
                          newton=[2, 2], gmres=[[55, 64], [56, 64]],
                          energy=[0.49999999997637545, 0.49997733541826966,
-                                 0.4999546803647855])}
+                                 0.4999546803647855]),
+                     # the slate phase: CG iterations on the trace and on
+                     # the condensed system (within 1%)
+                     "hybridized_rt2_256": 1434, "scpc_p5_128": 1422}
 
 
 def phase(name):
@@ -680,7 +708,8 @@ def _release(label):
 
 class _StageTimes:
     """Seconds spent in named stages during one solve: each named module
-    function (or class attribute) is wrapped, synchronised on both sides;
+    function (or class attribute, or dict entry) is wrapped, synchronised
+    on both sides;
     `secs` sums each stage, `calls` lists its calls' seconds in order,
     over every block the object is entered for.  The default stages are
     the GMG set-up's."""
@@ -705,14 +734,19 @@ class _StageTimes:
     def __enter__(self):
         import importlib
         self.saved = []
+        # every module first: one that imports a name from another at its
+        # own import would otherwise bind a wrapper, and keep it
+        mods = {mod: importlib.import_module(mod)
+                for _, mod, _ in self.stages}
         for name, mod, path in self.stages:
-            owner = importlib.import_module(mod)
+            owner = mods[mod]
             *outer, attr = path.split(".")
             for o in outer:
                 owner = getattr(owner, o)
-            fn = getattr(owner, attr)
+            fn = owner[attr] if isinstance(owner, dict) else \
+                getattr(owner, attr)
             self.saved.append((owner, attr, fn))
-            setattr(owner, attr, self._timed(name, fn))
+            _put(owner, attr, self._timed(name, fn))
         return self
 
     def _timed(self, name, fn):
@@ -724,8 +758,16 @@ class _StageTimes:
         return run
 
     def __exit__(self, *exc):
-        for m, attr, fn in self.saved:
-            setattr(m, attr, fn)
+        for owner, attr, fn in self.saved:
+            _put(owner, attr, fn)
+
+
+def _put(owner, attr, value):
+    """Bind `value` as `attr` of a module, class or dict."""
+    if isinstance(owner, dict):
+        owner[attr] = value
+    else:
+        setattr(owner, attr, value)
 
 
 def _max_rss_gib():
@@ -1639,9 +1681,12 @@ def cpu_study(labels):
     residuals, and (gather) their rates per level."""
     import firedrake_tpu_torch as fd
     labels = labels or list(GATHER) + ["newton_p1_1m", "krylov_p1_1m",
-                                       "poisson_mixed_rt1_256"]
+                                       "poisson_mixed_rt1_256"] \
+        + list(SLATE_LABELS)
     if "poisson_mixed_rt1_256" in labels:
         mixed_cpu_study()
+    slate_cpu([lb for lb in SLATE_LABELS if lb in labels], "cpu_study",
+              SLATE_STUDY)
     for label in labels:
         if label in ("newton_p1_1m", "krylov_p1_1m"):
             for level in NONLINEAR_STUDY:
@@ -1673,11 +1718,12 @@ def cpu_rehearsal(labels):
     kernel versions; prints each iteration count."""
     import firedrake_tpu_torch as fd
     labels = labels or list(GMG) + list(GATHER) + list(NONLINEAR_LABELS) \
-        + ["dg_advection_512"]
+        + ["dg_advection_512"] + list(SLATE_LABELS)
     nonlinear_cpu([lb for lb in labels if lb in NONLINEAR_LABELS])
+    slate_cpu([lb for lb in labels if lb in SLATE_LABELS], "cpu_rehearsal")
     fd.set_device("cpu")
     for label in labels:
-        if label in NONLINEAR_LABELS:
+        if label in NONLINEAR_LABELS or label in SLATE_LABELS:
             continue
         if label == "dg_advection_512":
             t0 = time.perf_counter()
@@ -2082,6 +2128,395 @@ def mixed_cpu_study():
         prev = (eu, es)
 
 
+# ------------------------------------------------------------ the slate phase
+# hybridized_rt2_256: demos/hybridized_poisson.py at UnitSquareMesh(256)
+# (RT2 x DG1, 656,384 + 393,216 dofs; broken RT2 1,048,576 dofs, HDiv
+# Trace 1 394,240), its own forms, solved twice: with the demo's preonly +
+# lu trace solve (host splu), then with CG + Jacobi at rtol 1e-12 on the
+# device.  scpc_p5_128: P5 Poisson on UnitSquareMesh(128), sin sin data,
+# u = 0 on the boundary (410,881 dofs, 196,608 interior ones condensed),
+# CG + Jacobi at rtol 1e-12 on the condensed system on the device.
+HYB_N, SCPC_N, SCPC_DEG = 256, 128, 5
+HYB_LU = {"ksp_type": "preonly", "pc_type": "hybridization",
+          "hybridization": {"ksp_type": "preonly"}}
+HYB_CG = {"ksp_type": "preonly", "pc_type": "hybridization",
+          "hybridization": {"ksp_type": "cg", "pc_type": "jacobi",
+                            "ksp_rtol": 1e-12}}
+SCPC_SP = {"ksp_type": "preonly", "pc_type": "scpc",
+           "condensed_field": {"ksp_type": "cg", "pc_type": "jacobi",
+                               "ksp_rtol": 1e-12}}
+SLATE_STUDY = {"hybridized_rt2_256": (16, 32, 64),
+               "scpc_p5_128": (8, 16, 32)}
+# Bounds.  Hybridized, the L2 error of u_h: twice the error extrapolated
+# from the last level of the CPU study (python3 chip_smoke.py --cpu-study
+# hybridized_rt2_256: 3.446788e-3, 8.638285e-4, 2.160906e-4 at n = 16,
+# 32, 64, ratio 3.9975) to n = 256 at the last ratio, 1.3523e-5 (the CPU
+# rehearsal's: 1.350827e-5).  SCPC, the nodal error: the study's
+# 8.594386e-8, 1.388339e-9, 2.196397e-11 at n = 8, 16, 32 (ratio 63.21)
+# extrapolate to 5.5e-15 at 128, below what CG at rtol 1e-12 resolves:
+# the error stops at that solve's floor, 1.599720e-12 at n = 64 and
+# 1.559863e-12 at 128 on the CPU, 6.35e-12 on the card at the same 1422
+# iterations (other summation order).  The bound sits above the floor.
+SLATE_ERR = {"hybridized_rt2_256": 2.7046e-5, "scpc_p5_128": 1e-11}
+K2_PATH_RTOL = 1e-13
+
+
+def _hybrid_problem(fd, n):
+    """demos/hybridized_poisson.py at UnitSquareMesh(n), its own forms."""
+    mesh = fd.UnitSquareMesh(n, n)
+    W = fd.MixedFunctionSpace([fd.FunctionSpace(mesh, "RT", 2),
+                               fd.FunctionSpace(mesh, "DG", 1)])
+    sigma, u = fd.TrialFunctions(W)
+    tau, v = fd.TestFunctions(W)
+    X = fd.SpatialCoordinate(mesh)
+    s = fd.sin(fd.pi * X[0]) * fd.sin(fd.pi * X[1])
+    f = fd.Function(W.subspaces[1]).interpolate(2 * fd.pi ** 2 * s)
+    a = (fd.dot(sigma, tau) - u * fd.div(tau) - fd.div(sigma) * v) * fd.dx
+    return dict(W=W, a=a, L=-fd.inner(f, v) * fd.dx, u_ex=s)
+
+
+def _hybrid_solve(fd, p, params):
+    w = fd.Function(p["W"])
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(p["a"], p["L"], w),
+        solver_parameters=params)
+    solver.solve()
+    return w, solver
+
+
+def _scpc_problem(fd, n):
+    """-lap u = 2 pi^2 sin(pi x) sin(pi y), u = 0 on the boundary, P5 on
+    UnitSquareMesh(n), pc_type scpc (tests/regression/test_scpc.py)."""
+    mesh = fd.UnitSquareMesh(n, n)
+    V = fd.FunctionSpace(mesh, "CG", SCPC_DEG)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    X = fd.SpatialCoordinate(mesh)
+    s = fd.sin(fd.pi * X[0]) * fd.sin(fd.pi * X[1])
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(
+            fd.inner(fd.grad(u), fd.grad(v)) * fd.dx,
+            2 * fd.pi ** 2 * s * v * fd.dx, uh,
+            bcs=fd.DirichletBC(V, 0.0, "on_boundary")),
+        solver_parameters=SCPC_SP)
+    return dict(V=V, uh=uh, solver=solver,
+                exact=fd.Function(V).interpolate(s))
+
+
+def _slate_error(fd, label, p):
+    if label == "hybridized_rt2_256":
+        return fd.errornorm(p["u_ex"], p["w"].subfunctions[1])
+    return float((p["uh"].dat - p["exact"].dat).abs().max())
+
+
+class _EventStages(_StageTimes):
+    """CUDA-event times of named stages over the blocks it is entered for.
+    Each named function is wrapped; calls nest, and a stage's exclusive
+    time leaves out the wrapped calls made inside it.  A stage may wrap
+    several functions.  The positional arguments of each stage's first
+    call are kept in `first_args`; `keep` maps a stage to a test of the
+    arguments, and then its first call that passes is kept."""
+
+    def __init__(self, stages, keep=None):
+        super().__init__(stages)
+        self.top, self.stack, self.first_args = [], [], {}
+        self.keep = keep or {}
+
+    def _timed(self, name, fn):
+        def run(*a, **kw):
+            if name not in self.first_args and \
+                    self.keep.get(name, lambda _: True)(a):
+                self.first_args[name] = a
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            rec = [name, s, e, []]
+            (self.stack[-1][3] if self.stack else self.top).append(rec)
+            self.stack.append(rec)
+            s.record()
+            try:
+                return fn(*a, **kw)
+            finally:
+                e.record()
+                self.stack.pop()
+        return run
+
+    def ms(self):
+        """{stage: [exclusive ms, inclusive ms, calls]}."""
+        torch.cuda.synchronize()
+        out = {name: [0.0, 0.0, 0] for name, _, _ in self.stages}
+
+        def walk(recs):
+            for name, s, e, kids in recs:
+                incl = s.elapsed_time(e)
+                kid = sum(ks.elapsed_time(ke) for _, ks, ke, _ in kids)
+                out[name][0] += incl - kid
+                out[name][1] += incl
+                out[name][2] += 1
+                walk(kids)
+        walk(self.top)
+        return out
+
+
+_TP = "firedrake_tpu_torch."
+SLATE_STAGES = {
+    "hybridized_rt2_256": (
+        ("local", _TP + "slate", "_local_form_tensor"),
+        ("cell_kernels", _TP + "compiler.cell_eval", "run_cell_kernel"),
+        ("k2", _TP + "ops.batched_inverse", "batched_inv"),
+        ("contractions", _TP + "slate", "_eval_local_impl"),
+        ("assembly", _TP + "slate", "assemble_slate"),
+        ("assembly", _TP + "solvers.hybridization", "assemble_slate"),
+        ("solve", _TP + "solving", "direct_solve"),
+        ("solve", _TP + "solvers.krylov", "KSP_METHODS.cg"),
+        ("back_substitution", _TP + "solvers.hybridization",
+         "_back_substitute")),
+    "scpc_p5_128": (
+        ("local", _TP + "slate", "_local_form_tensor"),
+        ("cell_kernels", _TP + "compiler.cell_eval", "run_cell_kernel"),
+        ("k2", _TP + "ops.batched_inverse", "batched_inv"),
+        ("contractions", _TP + "solvers.scpc", "_condense"),
+        ("assembly", _TP + "solvers.scpc", "_assemble_condensed"),
+        ("solve", _TP + "solvers.krylov", "KSP_METHODS.cg"),
+        ("back_substitution", _TP + "solvers.scpc", "_back_substitute"))}
+
+
+def _slate_stages(label):
+    """The label's stages, keeping the arguments of the first cell
+    integral that K1 evaluates (the path's own cell-last inputs)."""
+    def in_family(args):
+        from firedrake_tpu_torch.compiler import cell_eval as K
+        return K.family_spec(args[0]) is not None
+    return _EventStages(SLATE_STAGES[label], keep={"cell_kernels": in_family})
+
+
+def _slate_k1_check(label, st, k1):
+    """K1 against its plain version and the lowerer, in float64 and
+    float32, on the inputs Slate gave it in the run `st` timed; `k1` is
+    that run's count of K1 launches."""
+    from firedrake_tpu_torch.compiler import cell_eval as K
+    args = st.first_args.get("cell_kernels")
+    if k1 and args is None:
+        raise AssertionError(f"{label}: K1 launched outside Slate's cell "
+                             "integrals")
+    if args is not None:
+        ci, ce, ws, cv = args[:4]
+        _k1_compare(K, label, 0, K.family_spec(ci), ci, ce, ws, cv, False)
+
+
+def _stage_line(label, run, total_s, st):
+    ms = st.ms()
+    parts = " ".join(f"{k} {v[0]:.3f}" for k, v in ms.items())
+    other = 1e3 * total_s - sum(v[0] for v in ms.values())
+    print(f"{label} {run}: total_ms {1e3 * total_s:.3f} exclusive_ms "
+          f"{parts} other {other:.3f}; back_substitution inclusive_ms "
+          f"{ms['back_substitution'][1]:.3f}; calls "
+          + " ".join(f"{k} {v[2]}" for k, v in ms.items()))
+    return ms
+
+
+def _k2_path_row(label, A):
+    """K2 on a path's own blocks: held to its plain version (max |delta|
+    <= K2_PATH_RTOL max|inv|) and timed as the kernels phase times it."""
+    from firedrake_tpu_torch.ops import batched_inverse as BI
+    A = A.contiguous()
+    out, plain = BI.batched_inv(A), BI.batched_inv_plain(A)
+    torch.cuda.synchronize()
+    ref = float(plain.abs().max())
+    err = float((out - plain).abs().max())
+    bitwise = torch.equal(out + 0.0, plain + 0.0)
+    tm = _pair_ms(lambda: BI.batched_inv(A), lambda: BI.batched_inv_plain(A),
+                  reps=20, plain_reps=3)
+    runs = tm.pop("runs")
+    lib1 = _cuda_ms(lambda: torch.linalg.inv(A), 3, 1)
+    lib2 = _cuda_ms(lambda: torch.linalg.inv(A), 3, 1)
+    nb, n = A.shape[0], A.shape[-1]
+    bytes_ms = 1e3 * 2 * A.numel() * A.element_size() / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2 * n ** 3 * nb / PEAK_FLOPS
+    row = dict(path=label, shape=list(A.shape), dtype=str(A.dtype)[6:],
+               **tm, library_ms=(lib1 + lib2) / 2,
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               max_abs_err=err, max_abs_inv=ref, bit_for_bit=bitwise)
+    print(f"K2 on {label}'s blocks {tuple(A.shape)}: err_vs_plain "
+          f"{err:.3e} max|inv| {ref:.3e} tol {K2_PATH_RTOL * ref:.3e} "
+          f"bit_for_bit {bitwise}; device {tm['ms']:.4f} ms call "
+          f"{tm['call_ms']:.4f} ms plain {tm['plain_ms']:.4f} ms "
+          f"torch.linalg.inv {row['library_ms']:.4f} ms bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}) share "
+          f"{row['bound_ms'] / tm['ms']:.3f} (runs device/device/call/call/"
+          "plain/plain/lib/lib "
+          + "/".join(f"{x:.4f}" for x in runs + (lib1, lib2)) + ")")
+    if not err <= K2_PATH_RTOL * ref:
+        raise AssertionError(f"K2 on {label}'s blocks disagrees with its "
+                             "plain version")
+    return row
+
+
+def hybridized_run(fd):
+    """hybridized_rt2_256 on the card: the demo's preonly + lu solve, then
+    CG + Jacobi on the trace system, each timed by stage with CUDA events;
+    K2 held to its plain version on the path's own blocks; the LU solve
+    repeated on the CPU in this process."""
+    label = "hybridized_rt2_256"
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _hybrid_problem(fd, HYB_N))
+    W = p["W"]
+    counts = _Counts()
+    runs = {}
+    for run, params in (("first_solve_lu", HYB_LU),
+                        ("second_solve_cg", HYB_CG)):
+        with counts, _slate_stages(label) as st:
+            k1, k2 = counts.k1, counts.k2
+            (w, solver), secs = _sync_time(
+                lambda: _hybrid_solve(fd, p, params))
+        ms = _stage_line(label, run, secs, st)
+        runs[run] = dict(w=w, solver=solver, secs=secs, ms=ms, st=st,
+                         k1=counts.k1 - k1, k2=st.first_args["k2"][0])
+        print(f"{label} {run}: iterations {solver.ksp_iterations} "
+              f"converged {solver.converged} k1_launches {counts.k1 - k1} "
+              f"k2_launches {counts.k2 - k2} (all runs so far: k1 "
+              f"{counts.k1} lowerer_evals {counts.lowerer})")
+    peak = torch.cuda.max_memory_allocated()
+    lu, cg = runs["first_solve_lu"], runs["second_solve_cg"]
+    p["w"] = lu["w"]
+    err = _slate_error(fd, label, p)
+    ref = float(lu["w"].dat.abs().max())
+    cg_diff = float((cg["w"].dat - lu["w"].dat).abs().max()) / ref
+    # the same LU solve on the CPU, in this process
+    fd.set_device("cpu")
+    t0 = time.perf_counter()
+    try:
+        w_cpu, _ = _hybrid_solve(fd, _hybrid_problem(fd, HYB_N), HYB_LU)
+    finally:
+        fd.set_device(torch.device("cuda"))
+    cpu_s = time.perf_counter() - t0
+    cpu_diff = float((lu["w"].dat.cpu() - w_cpu.dat).abs().max()) / float(
+        w_cpu.dat.abs().max())
+    its, want = cg["solver"].ksp_iterations, CPU_REHEARSAL_ITS[label]
+    print(f"{label}: dofs {W.subspaces[0].dim} + {W.subspaces[1].dim} = "
+          f"{W.dim} setup_s {setup_s:.3f} first_solve_s {lu['secs']:.3f} "
+          f"second_solve_s {cg['secs']:.3f} cg_iterations {its} (CPU "
+          f"rehearsal {want}) l2_err_u {err:.4e} (bound "
+          f"{SLATE_ERR[label]}) cg_vs_lu {cg_diff:.3e} card_vs_cpu "
+          f"{cpu_diff:.3e} (cpu solve_s {cpu_s:.1f}) device_peak {peak} "
+          f"k1_launches {counts.k1} k2_launches {counts.k2} lowerer_evals "
+          f"{counts.lowerer}")
+    if not lu["w"].dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if not (cg["solver"].converged and abs(its - want) <= 0.01 * want):
+        raise AssertionError(f"{label}: {its} CG iterations, the CPU "
+                             f"rehearsal took {want}")
+    if not err < SLATE_ERR[label]:
+        raise AssertionError(f"{label}: L2 error {err}")
+    if not (cg_diff <= 1e-8 and cpu_diff <= 1e-10):
+        raise AssertionError(f"{label}: CG {cg_diff} from LU, card "
+                             f"{cpu_diff} from the CPU")
+    if counts.k2 <= 0 or counts.lowerer <= 0:
+        raise AssertionError(f"{label}: K2 or the lowerer did not run")
+    _slate_k1_check(label, lu["st"], lu["k1"])
+    row = _k2_path_row(label, lu["k2"])
+    del p, runs, lu, cg, w_cpu
+    _release(label)
+    return counts, row
+
+
+def scpc_run(fd):
+    """scpc_p5_128 on the card: condensation, CG + Jacobi on the condensed
+    system and back-substitution, timed by stage with CUDA events; K2
+    held to its plain version on the interior blocks; the same solve
+    repeated on the CPU in this process."""
+    label = "scpc_p5_128"
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _scpc_problem(fd, SCPC_N))
+    with _Counts() as counts, _slate_stages(label) as st:
+        _, secs = _sync_time(p["solver"].solve)
+    _stage_line(label, "solve", secs, st)
+    solver = p["solver"]
+    its, want = solver.ksp_iterations, CPU_REHEARSAL_ITS[label]
+    err = _slate_error(fd, label, p)
+    V = p["V"]
+    fd.set_device("cpu")
+    t0 = time.perf_counter()
+    try:
+        q = _scpc_problem(fd, SCPC_N)
+        q["solver"].solve()
+    finally:
+        fd.set_device(torch.device("cuda"))
+    cpu_s = time.perf_counter() - t0
+    cpu_its = q["solver"].ksp_iterations
+    cpu_diff = float((p["uh"].dat.cpu() - q["uh"].dat).abs().max()) / float(
+        q["uh"].dat.abs().max())
+    print(f"{label}: dofs {V.dim} setup_s {setup_s:.3f} solve_s "
+          f"{secs:.3f} cg_iterations {its} (CPU rehearsal {want}, this "
+          f"process's CPU solve {cpu_its}) converged {solver.converged} "
+          f"max_nodal_err {err:.4e} (bound {SLATE_ERR[label]}) card_vs_cpu "
+          f"{cpu_diff:.3e} (cpu solve_s {cpu_s:.1f}) device_peak "
+          f"{torch.cuda.max_memory_allocated()} k1_launches {counts.k1} "
+          f"k2_launches {counts.k2} lowerer_evals {counts.lowerer}")
+    if not p["uh"].dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if not (solver.converged and abs(its - want) <= 0.01 * want):
+        raise AssertionError(f"{label}: {its} CG iterations, the CPU "
+                             f"rehearsal took {want}")
+    if not err < SLATE_ERR[label]:
+        raise AssertionError(f"{label}: nodal error {err}")
+    if not cpu_diff <= 1e-10:
+        raise AssertionError(f"{label}: card {cpu_diff} from the CPU")
+    if counts.k2 <= 0:
+        raise AssertionError(f"{label}: K2 did not run")
+    _slate_k1_check(label, st, counts.k1)
+    row = _k2_path_row(label, st.first_args["k2"][0])
+    del p, q, st
+    _release(label)
+    return counts, row
+
+
+def slate_phase():
+    """hybridized_rt2_256, then scpc_p5_128."""
+    t0 = phase("slate")
+    import firedrake_tpu_torch as fd
+    fd.set_device(torch.device("cuda"))
+    used, rows = {}, {}
+    for label, run in (("hybridized_rt2_256", hybridized_run),
+                       ("scpc_p5_128", scpc_run)):
+        used[label], rows[label] = run(fd)
+    phase_done("slate", t0)
+    return used, rows
+
+
+def slate_cpu(labels, tag, sizes=None):
+    """The slate phase's cases on the CPU: at the card's size (the CG
+    iterations the card must match) or, with `sizes`, at each of them
+    with the error ratios per level."""
+    import firedrake_tpu_torch as fd
+    fd.set_device("cpu")
+    for label in labels:
+        prev = None
+        full = HYB_N if label == "hybridized_rt2_256" else SCPC_N
+        for n in (sizes or {}).get(label, (full,)):
+            t0 = time.perf_counter()
+            if label == "hybridized_rt2_256":
+                p = _hybrid_problem(fd, n)
+                p["w"], solver = _hybrid_solve(fd, p, HYB_CG)
+                dofs = p["W"].dim
+            else:
+                p = _scpc_problem(fd, n)
+                solver = p["solver"]
+                solver.solve()
+                dofs = p["V"].dim
+            err = _slate_error(fd, label, p)
+            rate = "" if prev is None else f" ratio {prev / err:.4f}"
+            print(f"{tag} {label} n {n}: dofs {dofs} cg_iterations "
+                  f"{solver.ksp_iterations} converged {solver.converged} "
+                  f"err {err:.6e}{rate} seconds "
+                  f"{time.perf_counter() - t0:.1f} host_max_rss_gib "
+                  f"{_max_rss_gib():.2f}", flush=True)
+            prev = err
+
+
+SLATE_LABELS = ("hybridized_rt2_256", "scpc_p5_128")
+
+
 def main():
     t0 = time.perf_counter()
     device_phase()
@@ -2093,6 +2528,8 @@ def main():
     used.update(nonlinear_phase())
     dg_mixed, block_mv = dg_mixed_phase()
     used.update(dg_mixed)
+    slate_used, k2_paths = slate_phase()
+    used.update(slate_used)
     used["gmg_p2_tet_16m"], k1_action = north_star_phase()
     for label, c in used.items():
         print(f"launches {label}: k1 {c.k1} k2 {c.k2} k2_large "
@@ -2130,7 +2567,10 @@ def main():
          "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"],
          "library_ms": k2["library_ms"],
-         "torch_ms": k2["library_ms"]},
+         "torch_ms": k2["library_ms"],
+         # on the slate phase's own blocks: hybridized_rt2_256's packed
+         # broken mixed matrices, scpc_p5_128's interior blocks
+         "paths": k2_paths},
         # the large variant (33 <= n <= 128), same source; no solve path
         # of this script has patches that large
         {"name": "batched_inv_large",
@@ -2156,8 +2596,22 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def only(names):
+    """The device and build phases, then the named phases alone (for
+    trying one phase on the card); prints no result line."""
+    device_phase()
+    build_phase()
+    phases = {"slate": slate_phase, "dg_mixed": dg_mixed_phase,
+              "gather": gather_phase, "nonlinear": nonlinear_phase}
+    for name in names:
+        phases[name]()
+    print("only: done")
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--cpu-rehearsal"]:
+    if sys.argv[1:2] == ["--only"]:
+        only(sys.argv[2:])
+    elif sys.argv[1:2] == ["--cpu-rehearsal"]:
         cpu_rehearsal(sys.argv[2:])
     elif sys.argv[1:2] == ["--cpu-study"]:
         cpu_study(sys.argv[2:])

@@ -19,7 +19,10 @@ Newton with line search (assembled or matrix-free Jacobian), EquationBC,
 nullspaces, LinearSolver and L2 projection; DG advection (par_loop,
 VertexBasedLimiter, fml) and VTK output; mixed spaces (MixedFunctionSpace,
 block assembly into a BlockMatrix, mixed.py) with the H(div)/H(curl)
-elements RT, BDM, BDFM, RTCF, RTCE and N1curl (Piola maps, dof signs).
+elements RT, BDM, BDFM, RTCF, RTCE and N1curl (Piola maps, dof signs);
+Slate (slate.py: element-local tensors, inverses and solves through the
+batched-inverse kernel), the HDiv trace and broken elements, and the
+hybridization and static-condensation (SCPC) solver options.
 """
 from .language import *            # noqa: F401,F403  (UFL surface)
 from .mesh.utility import *        # noqa: F401,F403
@@ -39,6 +42,8 @@ from .solving import (solve, LinearVariationalProblem,
                       LinearVariationalSolver, NonlinearVariationalProblem,
                       NonlinearVariationalSolver, LinearSolver)
 from .projection import project, Projector
+from .slate import (Tensor, AssembledVector, assemble_slate,
+                    DiagonalTensor, Reciprocal, Factorization)
 from .adapt import refine_marked, adapt
 from .nullspace import VectorSpaceBasis, MixedVectorSpaceBasis
 from .solvers.snes import AuxiliaryOperatorSNES

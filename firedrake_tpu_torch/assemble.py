@@ -107,6 +107,37 @@ def _orientation_index(pos):
     return lookup[pos @ weights]
 
 
+def interior_facets(mesh, subdomain_id):
+    """The interior facets of dS(subdomain_id): all, or the marked ones;
+    UNMARKED (-1, the reference's label for untagged facets) selects
+    0."""
+    facets = mesh.topology.interior_facets
+    if subdomain_id in ("everywhere", None):
+        return facets
+    sd = subdomain_id
+    if isinstance(sd, (int, np.integer)):
+        sd = (int(sd),)
+    sd = tuple(0 if s == -1 else s for s in sd)
+    return facets[np.isin(mesh.facet_markers[facets], np.asarray(sd))]
+
+
+def facet_pairs(mesh, facets):
+    """(plus cells, minus cells, their local facet ids, the relative
+    orientation of the minus side) of interior facets: the orientation
+    is the index of the permutation taking each minus-cell facet vertex
+    to its position in the plus cell's vertex list."""
+    topo = mesh.topology
+    cp = topo.facet_cells[facets, 0]
+    cm = topo.facet_cells[facets, 1]
+    lfp = topo.facet_local_id[facets, 0]
+    lfm = topo.facet_local_id[facets, 1]
+    vp = topo.cell_vertices[cp[:, None], mesh.cell.facets[lfp]]
+    vm = topo.cell_vertices[cm[:, None], mesh.cell.facets[lfm]]
+    o_rel = _orientation_index(
+        np.argmax(vm[:, :, None] == vp[:, None, :], axis=2))
+    return cp, cm, lfp, lfm, o_rel
+
+
 def _spectral_applies(ci, test, trial):
     """Whether the JAX package would evaluate this integral with its
     sum-factorised plan (compiler/spectral.py build_spectral_plan): cell
@@ -193,13 +224,15 @@ class _Tables:
     padding slot len(flat) reading 0, split into a dense base table of NB
     columns and a spill table over the rows that have more contributions
     (the JAX package's _build_acc_table).  Deterministic: every entry is
-    summed in the same order on every run and device."""
+    summed in the same order on every run and device.  An entry of
+    ``flat`` may be a block (flat of shape (n, ...)): Slate sums element
+    tensors into their cells this way."""
 
     def __init__(self, tbl, tblx, rows_x):
         self.tbl, self.tblx, self.rows_x = tbl, tblx, rows_x
 
     def __call__(self, flat):
-        flat = torch.cat([flat, flat.new_zeros(1)])
+        flat = torch.cat([flat, flat.new_zeros((1,) + flat.shape[1:])])
         total = widen(flat[self.tbl[0]])
         for col in self.tbl[1:]:
             total = total + widen(flat[col])
@@ -461,28 +494,10 @@ class FormAssembler:
             st["rows"], st["cols"] = arg_maps([cells])
             st["n"] = len(facets)
         else:
-            facets = topo.interior_facets
-            if ci.subdomain_id not in ("everywhere", None):
-                # dS(id): marked interior facets; UNMARKED (-1, the
-                # reference's label for untagged facets) selects 0
-                sd = ci.subdomain_id
-                if isinstance(sd, (int, np.integer)):
-                    sd = (int(sd),)
-                sd = tuple(0 if s == -1 else s for s in sd)
-                facets = facets[np.isin(mesh.facet_markers[facets],
-                                        np.asarray(sd))]
+            facets = interior_facets(mesh, ci.subdomain_id)
             if len(facets) == 0:
                 return None
-            cp = topo.facet_cells[facets, 0]
-            cm = topo.facet_cells[facets, 1]
-            lfp = topo.facet_local_id[facets, 0]
-            lfm = topo.facet_local_id[facets, 1]
-            # relative orientation of the minus side: position of each
-            # minus-cell facet vertex in the plus cell's vertex list
-            vp = topo.cell_vertices[cp[:, None], mesh.cell.facets[lfp]]
-            vm = topo.cell_vertices[cm[:, None], mesh.cell.facets[lfm]]
-            o_rel = _orientation_index(
-                np.argmax(vm[:, :, None] == vp[:, None, :], axis=2))
+            cp, cm, lfp, lfm, o_rel = facet_pairs(mesh, facets)
             st["coords_map_p"] = idx(cmap3[cp])
             st["coords_map_m"] = idx(cmap3[cm])
             st["lf_p"], st["lf_m"] = idx(lfp), idx(lfm)

@@ -270,16 +270,18 @@ class _FacetContext(BaseContext):
         self.fpts = _facet_points(self.cell, self.qf_pts)  # (nlf, nq, t)
         self.fdim = self.facet_cell.dim
 
-    def _tables(self, element, pts, order):
+    @staticmethod
+    def _tables(element, lf, pts, order):
+        """Tables at facet-embedded points of local facet ``lf``: facet-
+        only elements (HDiv trace) tabulate through their own
+        ``tabulate_facet``, which knows the facet the points lie on."""
         if hasattr(element, "tabulate_facet"):
-            raise NotImplementedError(
-                "facet-only elements (HDiv trace) are not ported yet: "
-                "ROADMAP.md queue 1, item 14b")
+            return element.tabulate_facet(lf, pts, order)
         return _tables_at(element, pts, order)
 
     def _plus_tables(self, element, order):
         """{d: (nlf, nq, ...)} tables at each local facet's points."""
-        per = [self._tables(element, self.fpts[lf], order)
+        per = [self._tables(element, lf, self.fpts[lf], order)
                for lf in range(len(self.fpts))]
         return {d: self.const(np.stack([p[d] for p in per]))
                 for d in per[0]}
@@ -367,7 +369,7 @@ class InteriorFacetContext(_FacetContext):
                 # by the minus cell's local facet and the relative
                 # orientation of its vertices
                 nlf, nori = self.mpts.shape[:2]
-                per = [[self._tables(element, self.mpts[lf, o], order)
+                per = [[self._tables(element, lf, self.mpts[lf, o], order)
                         for o in range(nori)] for lf in range(nlf)]
                 tabs = {d: self.const(np.stack([np.stack(
                     [per[lf][o][d] for o in range(nori)])

@@ -682,7 +682,6 @@ def make_scalar_element(cell_name: str, family: str, degree: int,
             return NedelecFirstKindTet(cell_name, degree)
         return NedelecFirstKind2D(cell_name, degree)
     if family in ("HDiv Trace", "HDivT", "DGT", "TraceElement"):
-        raise NotImplementedError(
-            f"the {family} family (trace elements) is not ported yet: "
-            "ROADMAP.md queue 1, item 14b")
+        from .trace import HDivTrace
+        return HDivTrace(cell_name, degree)
     raise NotImplementedError(f"element family {family!r}")

@@ -24,14 +24,28 @@ def load_reference_state(mapping, cell_node_maps=None):
                     a Function its dof vector (placed on the set device),
                     a Constant its value.
     cell_node_maps  optional {FunctionSpace: reference cell_node_map},
-                    each required to equal the port's map exactly.
+                    each required to equal the port's map exactly; a
+                    MixedFunctionSpace takes the list of its subspaces'
+                    maps.
+
+    Trace, broken and mixed spaces (the hybridized W = RT x DG, its broken
+    counterpart) carry over as any other: a MixedFunction takes the
+    concatenated dof vector of its parts, in the order of its subspaces.
     """
+    from .mixed import MixedFunctionSpace
     for V, ref in (cell_node_maps or {}).items():
-        ours = np.asarray(V.cell_node_map)
-        ref = np.asarray(ref)
-        if ours.shape != ref.shape or not np.array_equal(ours, ref):
-            raise ValueError(f"dof numbering of {V!r} differs from the "
-                             "reference")
+        pairs = (zip(V.subspaces, ref) if isinstance(V, MixedFunctionSpace)
+                 else [(V, ref)])
+        if isinstance(V, MixedFunctionSpace) \
+                and len(ref) != V.num_sub_spaces:
+            raise ValueError(f"{len(ref)} maps for the {V.num_sub_spaces} "
+                             f"subspaces of {V!r}")
+        for Vi, r in pairs:
+            ours = np.asarray(Vi.cell_node_map)
+            r = np.asarray(r)
+            if ours.shape != r.shape or not np.array_equal(ours, r):
+                raise ValueError(f"dof numbering of {Vi!r} differs from "
+                                 "the reference")
     for obj, value in mapping.items():
         value = np.asarray(value)
         if isinstance(obj, Mesh):

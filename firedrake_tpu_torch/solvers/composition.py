@@ -136,6 +136,9 @@ def build_ksp(ctx: OpCtx, params: dict, prefix: str = ""):
     def solve(b, x0=None):
         return meth(op, b, x0=x0, pc=pc, **kw).x
 
+    # the whole KSP result (iterations, convergence), for the condensed
+    # solves of solvers/scpc.py and solvers/hybridization.py
+    solve._full = lambda b, x0=None: meth(op, b, x0=x0, pc=pc, **kw)
     return solve
 
 

@@ -18,10 +18,12 @@ assembled or matrix-free Jacobian, Dirichlet conditions and EquationBCs
 snes_type python (solvers/snes.py).  On mixed spaces the operator is a
 BlockMatrix (mixed.py): preonly + lu factors its host CSR copy; a Krylov
 method with jacobi or none runs its matvec on the device.
-Hybridization, SCPC, fieldsplit,
-nonlinear multigrid, nonlinear patch preconditioning, deflation and
-distributed solves raise NotImplementedError naming their ROADMAP.md
-item.
+``pc_type`` hybridization (solvers/hybridization.py) and scpc
+(solvers/scpc.py) condense per cell through Slate (slate.py) and solve
+the trace or interface system by host LU or a Krylov method on the
+device.  Fieldsplit, nonlinear multigrid, nonlinear patch
+preconditioning, deflation and distributed solves raise
+NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -147,8 +149,7 @@ class LinearVariationalProblem:
 
 #: pc_type values of the JAX package's solver that are not ported yet, and
 #: their ROADMAP.md queue 1 items
-_UNPORTED = {"hybridization": "14b", "scpc": "14b", "ilu": 16,
-             "fieldsplit": 16}
+_UNPORTED = {"ilu": 16, "fieldsplit": 16}
 
 
 def direct_solve(A, b):
@@ -174,6 +175,23 @@ class LinearVariationalSolver:
         p = self.problem
         params = self.params
         mat_type = params.get("mat_type", "aij")
+        python_type = params.get("pc_python_type", "")
+        if (params.get("pc_type") == "hybridization"
+                or python_type.endswith("HybridizationPC")):
+            if params.get("distributed"):
+                raise NotImplementedError(
+                    "distributed hybridization (parallel/dhybrid.py) is "
+                    "not ported yet: ROADMAP.md queue 1, item 20")
+            from .solvers.hybridization import solve_hybridization
+            self.ksp_iterations, self.converged = solve_hybridization(
+                p, params, appctx=self.appctx)
+            return
+        if (params.get("pc_type") == "scpc"
+                or python_type.endswith("SCPC")):
+            from .solvers.scpc import solve_scpc
+            self.ksp_iterations, self.converged = solve_scpc(
+                p, params, appctx=self.appctx)
+            return
         if params.get("pc_type") in _UNPORTED:
             raise NotImplementedError(
                 f"pc_type {params['pc_type']!r} is not ported yet: "

@@ -2,8 +2,9 @@
 K2's large variant included) against its plain PyTorch version, the
 launch counts, and the matrix-free operator, the gather route's matrix
 and vectors, Newton (assembled and matrix-free Jacobians), the Krylov
-methods, the slope limiter and an RT1 x DG0 block assembly on the card
-against the CPU.  Marked `cuda`; skips where torch
+methods, the slope limiter, an RT1 x DG0 block assembly and a hybridized
+and an SCPC solve (K2 on the Slate path) on the card against the CPU.
+Marked `cuda`; skips where torch
 has no CUDA device.  Run on a machine with an NVIDIA GPU with
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 (--noconftest: tests/conftest.py configures jax, which these tests do not
@@ -356,6 +357,55 @@ def test_rt_dg0_block_assembly_on_card_matches_cpu(on_cuda):
         assert float((Ag.blocks[k].data.cpu() - Ac.blocks[k].data).abs()
                      .max()) <= 1e-12 * ref
     for g, c in ((bg, bc), (yg, yc), (wg, wc)):
+        assert g.is_cuda
+        assert float((g.cpu() - c).abs().max()) \
+            <= 1e-10 * float(c.abs().max())
+
+
+def _slate_solves_on(device):
+    """A hybridized RT2 x DG1 solve on UnitSquareMesh(8) (the packed
+    local blocks are 11 x 11: K2 runs) and an SCPC P5 solve on
+    UnitSquareMesh(4) (6 interior dofs per cell: K2 runs), on `device`;
+    returns both solutions and K2's launches in each."""
+    T.set_device(device)
+    import math
+    mesh = T.UnitSquareMesh(8, 8)
+    W = T.FunctionSpace(mesh, "RT", 2) * T.FunctionSpace(mesh, "DG", 1)
+    sigma, u = T.TrialFunctions(W)
+    tau, v = T.TestFunctions(W)
+    X = T.SpatialCoordinate(mesh)
+    f = T.Function(W.subspaces[1]).interpolate(
+        2 * math.pi ** 2 * T.sin(math.pi * X[0]) * T.sin(math.pi * X[1]))
+    w = T.Function(W)
+    n0 = BI.kernel_launches
+    T.solve((T.dot(sigma, tau) - u * T.div(tau) - T.div(sigma) * v) * T.dx
+            == -T.inner(f, v) * T.dx, w,
+            solver_parameters={"ksp_type": "preonly",
+                               "pc_type": "hybridization",
+                               "hybridization": {"ksp_type": "preonly"}})
+    n1 = BI.kernel_launches
+    V = T.FunctionSpace(T.UnitSquareMesh(4, 4), "CG", 5)
+    p, q = T.TrialFunction(V), T.TestFunction(V)
+    Y = T.SpatialCoordinate(V.mesh())
+    uh = T.Function(V)
+    T.solve(T.inner(T.grad(p), T.grad(q)) * T.dx
+            == T.sin(math.pi * Y[0]) * T.sin(math.pi * Y[1]) * q * T.dx, uh,
+            bcs=[T.DirichletBC(V, 0.0, "on_boundary")],
+            solver_parameters={"ksp_type": "preonly", "pc_type": "scpc",
+                               "condensed_field": {"ksp_type": "cg",
+                                                   "pc_type": "jacobi",
+                                                   "ksp_rtol": 1e-13}})
+    return w.dat, uh.dat, n1 - n0, BI.kernel_launches - n1
+
+
+def test_hybridized_and_scpc_solves_on_card_match_cpu(on_cuda):
+    """Slate on the card: the hybridized solve launches K2 four times
+    (A^-1 for S and for E, the Solve for each field), SCPC once (the
+    interior blocks); both solutions within 1e-10 of the CPU's."""
+    wc, uc, _, _ = _slate_solves_on("cpu")
+    wg, ug, k2_hyb, k2_scpc = _slate_solves_on("cuda")
+    assert (k2_hyb, k2_scpc) == (4, 1)
+    for g, c in ((wg, wc), (ug, uc)):
         assert g.is_cuda
         assert float((g.cpu() - c).abs().max()) \
             <= 1e-10 * float(c.abs().max())

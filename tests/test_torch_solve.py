@@ -107,8 +107,8 @@ def test_unported_solver_options_raise():
     a, L = u * v * T.dx, v * T.dx
     for params, item in (({"ksp_type": "cg", "pc_type": "bjacobi"}, 16),
                          ({"ksp_type": "cg", "pc_type": "fieldsplit"}, 16),
-                         ({"ksp_type": "cg", "pc_type": "hybridization"},
-                          14)):
+                         ({"ksp_type": "cg", "pc_type": "hybridization",
+                           "distributed": 2}, 20)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             T.solve(a == L, T.Function(V), solver_parameters=params)
     w = T.Function(V)
