@@ -10,11 +10,13 @@
                                           # the gather-route solves', the
                                           # P1 nonlinear cases',
                                           # poisson_mixed_rt1_256's and
-                                          # the slate cases' CPU
-                                          # convergence study (bounds)
+                                          # the slate cases' and the
+                                          # extruded GMG and spectral
+                                          # cases' CPU convergence study
+                                          # (bounds)
     python3 chip_smoke.py --only slate    # device, build and the named
                                           # phases alone (slate, dg_mixed,
-                                          # gather, nonlinear)
+                                          # gather, nonlinear, extruded)
 
 Phases of the card run (each prints its own lines and its seconds; any
 failure raises and the exit code is non-zero):
@@ -136,7 +138,35 @@ failure raises and the exit code is non-zero):
              packed local A; the interior blocks A_II) K2 is held to its
              plain version (max |delta| <= 1e-13 max|inv|) and timed as
              in phase 3.
-9. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
+9. extruded — shallow_water_ext_128: demos/extruded_shallow_water.py on
+             UnitSquareMesh(128) extruded to 16 layers (524,288 prisms;
+             W = HDiv(BDM1 x DG0) 1,581,056 dofs, X = DG0 524,288) at the
+             demo's Courant number (dt = 0.1 h), 8 Strang steps (24 CG
+             solves) and the P1 x P1 projection (the column plan): per
+             step the CUDA-event times of assembly, the column plan, the
+             lowerer and CG, the host wall time and the assembler
+             cache's new entries; gates: the demo's energy assertion, the
+             drift below twice the CPU rehearsal's, each CG count within
+             one of it, no cache miss after the first step, and the same
+             run at the Firedrake demo's size (base 32, 4 layers) on the
+             card and on the CPU in this process within 1e-10 (energies,
+             p).  gmg_ext_hex_1m: -lap u = f, u = x(1-x)y(1-y)z(1-z), Q1
+             on ExtrudedMeshHierarchy(MeshHierarchy(UnitSquareMesh(16,
+             16, quadrilateral=True), 3), base_layer=8) (1,048,576 hexes,
+             1,081,665 dofs; every level a ColumnMatrix), CG + GMG: the
+             hierarchy's host seconds apart, relative residual <= 1e-10,
+             nodal error and iterations against the CPU rehearsal, the
+             finest ColumnMatrix's matvec beside its byte bound.
+             spectral_q4_periodic_256: Q4 Helmholtz on
+             PeriodicUnitSquareMesh(256, quadrilateral=True) (1,048,576
+             dofs; the gather route, the sum-factorised plan chosen
+             without a switch), CG + Jacobi: stage times, nodal error and
+             iterations against the CPU study and rehearsal; the plan's
+             local tensors within 1e-11 max|A| of the direct lowerer on
+             the first 4,096 cells, both timed.  K1 and K2 launch 0 times
+             on these paths.  Every case runs and prints; the phase fails
+             after the last if any case failed.
+10. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
              -lap u = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on the
              boundary, P2 on MeshHierarchy(UnitCubeMesh(8), 4) (12,582,912
              tets, 16,974,593 dofs), CG + GMG (Chebyshev(2) + Jacobi) with
@@ -216,7 +246,9 @@ CPU_REHEARSAL_ITS = {"gmg_p1_1m": 10, "gmg_star_p2_1m": 6,
                                  0.4999546803647855]),
                      # the slate phase: CG iterations on the trace and on
                      # the condensed system (within 1%)
-                     "hybridized_rt2_256": 1434, "scpc_p5_128": 1422}
+                     "hybridized_rt2_256": 1434, "scpc_p5_128": 1422,
+                     # the extruded phase (within one)
+                     "gmg_ext_hex_1m": 11, "spectral_q4_periodic_256": 10}
 
 
 def phase(name):
@@ -1682,9 +1714,11 @@ def cpu_study(labels):
     import firedrake_tpu_torch as fd
     labels = labels or list(GATHER) + ["newton_p1_1m", "krylov_p1_1m",
                                        "poisson_mixed_rt1_256"] \
-        + list(SLATE_LABELS)
+        + list(SLATE_LABELS) + list(EXTRUDED_STUDY)
     if "poisson_mixed_rt1_256" in labels:
         mixed_cpu_study()
+    extruded_cpu([lb for lb in EXTRUDED_STUDY if lb in labels],
+                 "cpu_study", study=True)
     slate_cpu([lb for lb in SLATE_LABELS if lb in labels], "cpu_study",
               SLATE_STUDY)
     for label in labels:
@@ -1718,12 +1752,15 @@ def cpu_rehearsal(labels):
     kernel versions; prints each iteration count."""
     import firedrake_tpu_torch as fd
     labels = labels or list(GMG) + list(GATHER) + list(NONLINEAR_LABELS) \
-        + ["dg_advection_512"] + list(SLATE_LABELS)
+        + ["dg_advection_512"] + list(SLATE_LABELS) + list(EXTRUDED_LABELS)
     nonlinear_cpu([lb for lb in labels if lb in NONLINEAR_LABELS])
     slate_cpu([lb for lb in labels if lb in SLATE_LABELS], "cpu_rehearsal")
+    extruded_cpu([lb for lb in labels if lb in EXTRUDED_LABELS],
+                 "cpu_rehearsal")
     fd.set_device("cpu")
     for label in labels:
-        if label in NONLINEAR_LABELS or label in SLATE_LABELS:
+        if label in NONLINEAR_LABELS or label in SLATE_LABELS \
+                or label in EXTRUDED_LABELS:
             continue
         if label == "dg_advection_512":
             t0 = time.perf_counter()
@@ -2517,6 +2554,475 @@ def slate_cpu(labels, tag, sizes=None):
 SLATE_LABELS = ("hybridized_rt2_256", "scpc_p5_128")
 
 
+# ---------------------------------------------------- extruded meshes, Q_k
+# shallow_water_ext_128: demos/extruded_shallow_water.py on
+# UnitSquareMesh(SW_N) extruded to SW_LAYERS layers (524,288 prisms; W =
+# HDiv(BDM1 x DG0), 1,581,056 dofs; X = DG0, 524,288), the demo's Courant
+# number dt/h = 0.1 (dt = 7.8125e-4), SW_STEPS Strang steps (three CG
+# solves each), then the P1 x P1 projection.  SW_SMALL is the Firedrake
+# demo's size (base 2^5, 4 layers), run on the card and on the CPU in
+# this process.
+SW_N, SW_LAYERS, SW_STEPS = 128, 16, 8
+SW_SMALL = (32, 4)
+SW_SP = {"ksp_type": "cg", "ksp_rtol": 1e-11}
+# gmg_ext_hex_1m: -lap u = f, u = x(1-x) y(1-y) z(1-z)
+# (tests/extrusion/test_extruded_hierarchy.py), Q1 on
+# ExtrudedMeshHierarchy(MeshHierarchy(UnitSquareMesh(16, 16,
+# quadrilateral=True), EXT_LEVELS), height=1, base_layer=8): 1,048,576
+# hexes and 1,081,665 dofs on the finest level, every level a
+# ColumnMatrix; CG + GMG with the default smoother (Chebyshev(2) +
+# Jacobi), as gmg_p1_1m.
+EXT_N0, EXT_LEVELS, EXT_LAYER0 = 16, 3, 8
+EXT_SP = {"ksp_type": "cg", "ksp_rtol": 1e-10, "pc_type": "mg"}
+# spectral_q4_periodic_256: -lap u + u = f, u = sin(2 pi x) sin(2 pi y),
+# Q4 on PeriodicUnitSquareMesh(256, 256, quadrilateral=True) (65,536
+# cells, 1,048,576 dofs): not structured, so the gather route, where the
+# sum-factorised plan is chosen without a switch; CG + Jacobi.  Its local
+# tensors are held to the direct lowerer (FDTPU_SPECTRAL=0) on the first
+# SPEC_CMP_CELLS cells.  The load is one eigenfunction: CG reaches rtol
+# 1e-10 in 10 iterations at every study size; at rtol 1e-12 it stalled
+# on rounding at 256^2 and took 621 iterations on the CPU and 1632 on
+# the card (NVIDIA H100 80GB HBM3), so the count was no gate.
+SPEC_N, SPEC_DEG = 256, 4
+SPEC_SP = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": 1e-10}
+SPEC_CMP_CELLS = 4096
+# the CPU convergence study (python3 chip_smoke.py --cpu-study
+# gmg_ext_hex_1m spectral_q4_periodic_256): MeshHierarchy levels of the
+# GMG case, mesh sizes of the spectral case
+EXTRUDED_STUDY = {"gmg_ext_hex_1m": (1, 2), "spectral_q4_periodic_256":
+                  (16, 32, 64)}
+EXTRUDED_LABELS = ("shallow_water_ext_128", "gmg_ext_hex_1m",
+                   "spectral_q4_periodic_256")
+SPECTRAL_RTOL = 1e-11
+# The bounds on the nodal errors (PERF.md).  gmg_ext_hex_1m: Q1 is
+# nodally exact on this separable problem, so the error is the solve's
+# round-off at every size: 8.116121e-14 and 9.790259e-14 at levels 1 and
+# 2 of the CPU study, 2.006728e-14 in the CPU rehearsal at full size
+# (the 8-core host of an H100 machine); the bound is twice the study's
+# last level.  spectral_q4_periodic_256: the study's 7.297630e-9,
+# 1.173366e-10, 1.888822e-12 at n = 16, 32, 64 (ratio 62.1) extrapolate
+# to 4.9e-16 at 256, below the solve's floor; the bound is twice the CPU
+# rehearsal's error at full size, 1.676659e-12 (the same host).
+EXTRUDED_ERR = {"gmg_ext_hex_1m": 1.96e-13,
+                "spectral_q4_periodic_256": 3.35e-12}
+# shallow_water_ext_128 on the CPU of the 8-core host of an H100 machine
+# (python3 chip_smoke.py --cpu-rehearsal shallow_water_ext_128): the
+# energy drift and the CG iterations of each solve, in order
+SW_REHEARSAL = dict(drift=2.3196735765562682e-07,
+                    cg=[33, 1, 33] * SW_STEPS + [16])
+
+
+class _KspIts:
+    """The iteration count of every Krylov solve made through
+    solving._run_ksp while entered (on any device)."""
+
+    def __enter__(self):
+        from firedrake_tpu_torch import solving
+        self.mod, self.fn, self.its = solving, solving._run_ksp, []
+
+        def run(*a, **kw):
+            res = self.fn(*a, **kw)
+            self.its.append(int(res.iterations))
+            return res
+        solving._run_ksp = run
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._run_ksp = self.fn
+
+
+def _sw_run(fd, n, layers, steps, around=None):
+    """demos/extruded_shallow_water.py on UnitSquareMesh(n) x `layers`
+    layers with dt = 0.1 / n: its spaces, forms and loop (`steps` Strang
+    steps of three `solve` calls each, then the P1 x P1 projection).
+    `around(k)` is a context entered around step k (k = steps: the
+    projection)."""
+    around = around or (lambda k: contextlib.nullcontext())
+    m = fd.UnitSquareMesh(n, n)
+    mesh = fd.ExtrudedMesh(m, layers, layer_height=1.0 / layers)
+    horiz = fd.FiniteElement("BDM", "triangle", 1)
+    vert = fd.FiniteElement("DG", "interval", 0)
+    W = fd.FunctionSpace(mesh, fd.HDiv(fd.TensorProductElement(horiz, vert)))
+    X = fd.FunctionSpace(mesh, "DG", 0, vfamily="DG", vdegree=0)
+    Xplot = fd.FunctionSpace(mesh, "CG", 1, vfamily="Lagrange", vdegree=1)
+    u_0, u_h, u_1 = fd.Function(W), fd.Function(W), fd.Function(W)
+    p_0, p_1 = fd.Function(X), fd.Function(X)
+    p_plot = fd.Function(Xplot)
+    x, y, z = fd.SpatialCoordinate(mesh)
+    p_0.interpolate(fd.sin(4 * np.pi * x) * fd.sin(2 * np.pi * y))
+    dt = 0.1 / n
+    dot, div, dx = fd.dot, fd.div, fd.dx
+    E0 = fd.assemble(0.5 * (dot(u_0, u_0) + p_0 * p_0) * dx)
+    for k in range(steps):
+        with around(k):
+            u, w = fd.TrialFunction(W), fd.TestFunction(W)
+            fd.solve(dot(w, u) * dx == dot(w, u_0) * dx
+                     + 0.5 * dt * div(w) * p_0 * dx, u_h,
+                     solver_parameters=SW_SP)
+            p, phi = fd.TrialFunction(X), fd.TestFunction(X)
+            fd.solve(phi * p * dx == phi * p_0 * dx
+                     - dt * phi * div(u_h) * dx, p_1,
+                     solver_parameters=SW_SP)
+            u, w = fd.TrialFunction(W), fd.TestFunction(W)
+            fd.solve(dot(w, u) * dx == dot(w, u_h) * dx
+                     + 0.5 * dt * div(w) * p_1 * dx, u_1,
+                     solver_parameters=SW_SP)
+            u_0.assign(u_1)
+            p_0.assign(p_1)
+    with around(steps):
+        p_trial, p_test = fd.TrialFunction(Xplot), fd.TestFunction(Xplot)
+        fd.solve(p_trial * p_test * dx == p_0 * p_test * dx, p_plot,
+                 solver_parameters=SW_SP)
+    E1 = fd.assemble(0.5 * (dot(u_0, u_0) + p_0 * p_0) * dx)
+    return dict(mesh=mesh, W=W, X=X, Xplot=Xplot, E0=E0, E1=E1, p_0=p_0,
+                p_plot=p_plot, drift=abs(E1 - E0) / E0)
+
+
+SW_STAGES = (
+    ("assembly", _TP + "assemble", "FormAssembler.assemble"),
+    ("column_plan", _TP + "assemble", "FormAssembler._run_column"),
+    # the name the assembler calls (bound at its import)
+    ("lowerer", _TP + "assemble", "run_cell_kernel"),
+    ("solve", _TP + "solving", "_run_ksp"))
+
+
+def shallow_water_run(fd):
+    """shallow_water_ext_128 on the card: per step the CUDA-event times of
+    assembly (the lowerer and the column plan apart) and the CG solves,
+    the host wall time and the assembler cache's new entries; the gates;
+    then SW_SMALL on the card and on the CPU in this process."""
+    from firedrake_tpu_torch.assemble import _assembler_cache
+    label = "shallow_water_ext_128"
+    torch.cuda.reset_peak_memory_stats()
+    counts, rows = _Counts(), []
+
+    @contextlib.contextmanager
+    def around(k):
+        st = _EventStages(SW_STAGES)
+        n0 = len(_assembler_cache)
+        with counts, st:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        rows.append((k, wall, st.ms(), len(_assembler_cache) - n0))
+
+    t0 = time.perf_counter()
+    with _KspIts() as its, warnings.catch_warnings():
+        warnings.filterwarnings("error", "linear solve did not converge")
+        p = _sw_run(fd, SW_N, SW_LAYERS, SW_STEPS, around)
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    calls = 0
+    for k, wall, ms, new in rows:
+        what = "projection" if k == SW_STEPS else f"step {k}"
+        n_asm = ms["assembly"][2]
+        calls += n_asm
+        print(f"{label} {what}: wall_s {wall:.4f} exclusive_ms "
+              + " ".join(f"{s} {v[0]:.3f}" for s, v in ms.items())
+              + f" other_ms {1e3 * wall - sum(v[0] for v in ms.values()):.3f}"
+              f" assemble_calls {n_asm} new_assemblers {new} cache_hits "
+              f"{n_asm - new}")
+    rest = rows[1:SW_STEPS]
+    mean = {s: sum(r[2][s][0] for r in rest) / len(rest)
+            for s, _, _ in SW_STAGES}
+    print(f"{label}: steps 1-{SW_STEPS - 1} mean wall_s "
+          f"{sum(r[1] for r in rest) / len(rest):.4f} exclusive_ms "
+          + " ".join(f"{s} {v:.3f}" for s, v in mean.items()))
+    mesh, W, X = p["mesh"], p["W"], p["X"]
+    print(f"{label}: prisms {mesh.num_cells} W dofs {W.dim} X dofs {X.dim}"
+          f" Xplot dofs {p['Xplot'].dim} total_s {total_s:.3f} (setup, "
+          f"steps and projection; step 0 builds the assemblers) E0 "
+          f"{p['E0']!r} E1 {p['E1']!r} drift {p['drift']:.6e} "
+          f"cg_iterations {its.its} device_peak {peak} "
+          f"({peak / 2 ** 30:.3f} GiB) k1_launches {counts.k1} "
+          f"k2_launches {counts.k2} lowerer_evals {counts.lowerer} "
+          f"assemble_calls {calls} host_max_rss_gib {_max_rss_gib():.2f}")
+    if not p["p_plot"].dat.is_cuda or not p["p_0"].dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if not np.isfinite(p["p_plot"].dat.cpu().numpy()).all():
+        raise AssertionError(f"{label}: projection is not finite")
+    # the demo's own assertion, then the rehearsal's drift and counts
+    assert p["drift"] < 0.02, p["drift"]
+    want = SW_REHEARSAL
+    if want is None or not p["drift"] < 2 * want["drift"]:
+        raise AssertionError(f"{label}: drift {p['drift']}, the CPU "
+                             f"rehearsal {want}")
+    if len(its.its) != len(want["cg"]) or any(
+            abs(a - b) > 1 for a, b in zip(its.its, want["cg"])):
+        raise AssertionError(f"{label}: CG iterations {its.its}, the CPU "
+                             f"rehearsal {want['cg']}")
+    if any(r[3] for r in rows[1:SW_STEPS]):
+        raise AssertionError(f"{label}: the assembler cache missed after "
+                             "the first step")
+    if counts.k1 or counts.k2 or counts.lowerer <= 0:
+        raise AssertionError(f"{label}: K1/K2 launched or the lowerer "
+                             "did not run")
+    del p
+    _release(label)
+    # the Firedrake demo's size on the card and on the CPU
+    n, layers = SW_SMALL
+    card = _sw_run(fd, n, layers, SW_STEPS)
+    fd.set_device("cpu")
+    try:
+        cpu, cpu_s = _sync_time(lambda: _sw_run(fd, n, layers, SW_STEPS))
+    finally:
+        fd.set_device(torch.device("cuda"))
+    dE = max(abs(card[k] - cpu[k]) for k in ("E0", "E1"))
+    dp = float((card["p_0"].dat.cpu() - cpu["p_0"].dat).abs().max())
+    print(f"{label} small (base {n}, {layers} layers): card E1 "
+          f"{card['E1']!r} cpu E1 {cpu['E1']!r} max|dE| {dE:.3e} max|dp| "
+          f"{dp:.3e} (cpu run_s {cpu_s:.1f})")
+    if not (dE <= 1e-10 and dp <= 1e-10):
+        raise AssertionError(f"{label}: card and CPU differ at the demo's "
+                             "size")
+    del card, cpu
+    _release(label)
+    return counts
+
+
+def _ext_gmg_problem(fd, levels):
+    """gmg_ext_hex_1m's problem on an extruded hierarchy over `levels`
+    refinements of UnitSquareMesh(EXT_N0) quads."""
+    t0 = time.perf_counter()
+    bh = fd.MeshHierarchy(fd.UnitSquareMesh(EXT_N0, EXT_N0,
+                                            quadrilateral=True), levels)
+    h = fd.ExtrudedMeshHierarchy(bh, height=1.0, base_layer=EXT_LAYER0)
+    hier_s = time.perf_counter() - t0
+    m = h[-1]
+    V = fd.FunctionSpace(m, "CG", 1)
+    X = fd.SpatialCoordinate(m)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    ex = X[0] * (1 - X[0]) * X[1] * (1 - X[1]) * X[2] * (1 - X[2])
+    lap = -2 * (X[1] * (1 - X[1]) * X[2] * (1 - X[2])
+                + X[0] * (1 - X[0]) * X[2] * (1 - X[2])
+                + X[0] * (1 - X[0]) * X[1] * (1 - X[1]))
+    f = fd.Function(V).interpolate(-lap)
+    a = fd.inner(fd.grad(u), fd.grad(v)) * fd.dx
+    L = fd.inner(f, v) * fd.dx
+    bc = fd.DirichletBC(V, 0.0, "on_boundary")
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(a, L, uh, bcs=bc),
+        solver_parameters=EXT_SP)
+    return dict(hier=h, hier_s=hier_s, V=V, a=a, L=L, bc=bc, uh=uh,
+                solver=solver, exact=fd.Function(V).interpolate(ex))
+
+
+def ext_gmg_run(fd):
+    """gmg_ext_hex_1m on the card: host hierarchy build apart, the GMG
+    set-up and solve stages, the gates, and the finest ColumnMatrix's
+    matvec beside its byte bound."""
+    from firedrake_tpu_torch.assembly.columns import ColumnMatrix
+    label = "gmg_ext_hex_1m"
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _ext_gmg_problem(fd, EXT_LEVELS))
+    solver, uh = p["solver"], p["uh"]
+    with _Counts() as counts, _StageTimes() as st, \
+            warnings.catch_warnings():
+        warnings.filterwarnings("error", "linear solve did not converge")
+        _, solve_s = _sync_time(solver.solve)
+    peak = torch.cuda.max_memory_allocated()
+    its = solver.ksp_iterations
+    rel = _rel_residual(fd, p["a"], p["L"], p["bc"], uh)
+    err = float((uh.dat - p["exact"].dat).abs().max())
+    levels = [lv["A"] for lv in solver._gmg.levels]
+    A = levels[-1]
+    x = uh.dat.clone()
+    mv_ms = _cuda_ms(lambda: A.matvec(x), reps=20, warm=3)
+    mv_bytes = (A.data.numel() + 2 * x.numel()) * 8
+    mv_bound = 1e3 * mv_bytes / HBM_BYTES_PER_S
+    sec = st.secs
+    print(f"{label}: levels {len(levels)} hexes {p['V'].mesh().num_cells} "
+          f"dofs {p['V'].dim} hierarchy_s {p['hier_s']:.3f} "
+          f"problem_setup_s {setup_s:.3f} (hierarchy included) solve_s "
+          f"{solve_s:.3f} pc_setup_s {sec['pc_setup']:.3f} "
+          f"level_assembly_s {sec['level_assembly']:.3f} cg_s "
+          f"{sec['solve']:.4f} iterations {its} ms_per_iteration "
+          f"{1e3 * sec['solve'] / max(its, 1):.4f} rel_residual {rel:.3e} "
+          f"max_nodal_err {err:.4e} device_peak {peak} "
+          f"({peak / 2 ** 30:.3f} GiB) host_max_rss_gib "
+          f"{_max_rss_gib():.2f} k1_launches {counts.k1} k2_launches "
+          f"{counts.k2} lowerer_evals {counts.lowerer}")
+    print(f"{label}: finest ColumnMatrix {A!r} data_bytes "
+          f"{A.data.numel() * 8} matvec_ms {mv_ms:.4f} (call time of 20 "
+          f"back-to-back matvecs) byte_bound_ms {mv_bound:.4f} share "
+          f"{mv_bound / mv_ms:.3f}")
+    if not uh.dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if not all(isinstance(B, ColumnMatrix) for B in levels):
+        raise AssertionError(f"{label}: a level is not a ColumnMatrix")
+    if not (solver.converged and rel <= 1e-10):
+        raise AssertionError(f"{label}: relative residual {rel}")
+    bound = EXTRUDED_ERR[label]
+    if bound is None or not err < bound:
+        raise AssertionError(f"{label}: nodal error {err}, bound {bound}")
+    want = CPU_REHEARSAL_ITS.get(label)
+    if want is None or abs(its - want) > 1:
+        raise AssertionError(f"{label}: {its} iterations, the CPU "
+                             f"rehearsal took {want}")
+    if counts.k1 or counts.k2 or counts.lowerer <= 0:
+        raise AssertionError(f"{label}: K1/K2 launched or the lowerer "
+                             "did not run")
+    del p, solver, uh, levels, A, x
+    _release(label)
+    return counts
+
+
+def _spec_problem(fd, n):
+    mesh = fd.PeriodicUnitSquareMesh(n, n, quadrilateral=True)
+    V = fd.FunctionSpace(mesh, "CG", SPEC_DEG)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    X = fd.SpatialCoordinate(mesh)
+    ex = fd.sin(2 * fd.pi * X[0]) * fd.sin(2 * fd.pi * X[1])
+    a = (fd.inner(fd.grad(u), fd.grad(v)) + u * v) * fd.dx
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(
+            a, (1 + 8 * fd.pi ** 2) * ex * v * fd.dx, uh),
+        solver_parameters=SPEC_SP)
+    return dict(V=V, a=a, uh=uh, solver=solver,
+                exact=fd.Function(V).interpolate(ex))
+
+
+SPEC_STAGES = (
+    ("assembly", _TP + "assemble", "FormAssembler.assemble"),
+    ("spectral", _TP + "compiler.spectral", "SpectralPlan.local_tensors"),
+    ("lowerer", _TP + "assemble", "run_cell_kernel"),
+    ("solve", _TP + "solving", "_run_ksp"))
+
+
+def spectral_run(fd):
+    """spectral_q4_periodic_256 on the card: set-up (the sorted COO keys
+    of the Sparsity) apart, the solve's stages by CUDA events, the gates;
+    then the plan's local tensors against the direct lowerer's on the
+    path's own inputs (the first SPEC_CMP_CELLS cells), both timed."""
+    from firedrake_tpu_torch.assemble import get_assembler
+    label = "spectral_q4_periodic_256"
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _spec_problem(fd, SPEC_N))
+    solver = p["solver"]
+    with _Counts() as counts, _EventStages(SPEC_STAGES) as st, \
+            warnings.catch_warnings():
+        warnings.filterwarnings("error", "linear solve did not converge")
+        _, solve_s = _sync_time(solver.solve)
+    ms = st.ms()
+    peak = torch.cuda.max_memory_allocated()
+    its = solver.ksp_iterations
+    err = float((p["uh"].dat - p["exact"].dat).abs().max())
+    print(f"{label}: cells {p['V'].mesh().num_cells} dofs {p['V'].dim} "
+          f"setup_s {setup_s:.3f} solve_s {solve_s:.3f} (assembler build "
+          f"included) exclusive_ms "
+          + " ".join(f"{k} {v[0]:.3f}" for k, v in ms.items())
+          + f" iterations {its} max_nodal_err {err:.4e} device_peak "
+          f"{peak} ({peak / 2 ** 30:.3f} GiB) k1_launches {counts.k1} "
+          f"k2_launches {counts.k2} lowerer_evals {counts.lowerer}")
+    # the plan against the direct lowerer on the path's own inputs
+    asm = get_assembler(p["a"])
+    (ci,), (stt,) = asm._compiled, asm._statics
+    sp = stt["spectral"]
+    if ci.coefficients or ci.constants:
+        raise AssertionError(f"{label}: the operator is expected to have "
+                             "no coefficients or Constants")
+    coords = asm.mesh.device_coordinates()
+    ce = coords[stt["coords_map"]]
+    C = ce.shape[-1]
+    spec_ms = _cuda_ms(lambda: sp.local_tensors(ce, (), ()), reps=5, warm=1)
+    loc = sp.local_tensors(ce[..., :SPEC_CMP_CELLS], (), ())
+    direct = ci.cell_kernel_batched()
+    ce_c = ce[..., :SPEC_CMP_CELLS].contiguous()
+    ref = direct(ce_c, (), ())
+    direct_ms = _cuda_ms(lambda: direct(ce_c, (), ()), reps=5, warm=1)
+    scale = float(ref.abs().max())
+    diff = float((loc - ref).abs().max())
+    print(f"{label}: spectral local tensors vs the direct lowerer on "
+          f"{SPEC_CMP_CELLS} cells: max|delta| {diff:.3e} max|A| "
+          f"{scale:.3e} tol {SPECTRAL_RTOL * scale:.3e}; spectral_ms "
+          f"{spec_ms:.3f} on {C} cells ({spec_ms * SPEC_CMP_CELLS / C:.4f} "
+          f"per {SPEC_CMP_CELLS}) direct_ms {direct_ms:.3f} on "
+          f"{SPEC_CMP_CELLS} cells")
+    if not p["uh"].dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if asm._stencil is not None or sp is None:
+        raise AssertionError(f"{label}: the spectral plan was not chosen")
+    if not diff <= SPECTRAL_RTOL * scale:
+        raise AssertionError(f"{label}: spectral and direct differ")
+    bound = EXTRUDED_ERR[label]
+    if bound is None or not err < bound:
+        raise AssertionError(f"{label}: nodal error {err}, bound {bound}")
+    want = CPU_REHEARSAL_ITS.get(label)
+    if want is None or abs(its - want) > 1:
+        raise AssertionError(f"{label}: {its} iterations, the CPU "
+                             f"rehearsal took {want}")
+    if counts.k1 or counts.k2 or counts.lowerer <= 0:
+        raise AssertionError(f"{label}: K1/K2 launched or the plan did "
+                             "not run")
+    del p, solver, asm, ce, loc, ref, ce_c
+    _release(label)
+    return counts
+
+
+def extruded_phase():
+    """shallow_water_ext_128, gmg_ext_hex_1m, spectral_q4_periodic_256."""
+    t0 = phase("extruded")
+    import firedrake_tpu_torch as fd
+    fd.set_device(torch.device("cuda"))
+    used, failed = {}, []
+    for label, run in (("shallow_water_ext_128", shallow_water_run),
+                       ("gmg_ext_hex_1m", ext_gmg_run),
+                       ("spectral_q4_periodic_256", spectral_run)):
+        t1 = time.perf_counter()
+        try:
+            used[label] = run(fd)
+        except AssertionError as exc:
+            # the later cases still run and print; the phase fails below
+            failed.append(f"{label}: {exc}")
+            _release(label)
+        print(f"{label}: case_s {time.perf_counter() - t1:.1f}")
+    if failed:
+        raise AssertionError("extruded phase: " + "; ".join(failed))
+    phase_done("extruded", t0)
+    return used
+
+
+def extruded_cpu(labels, tag, study=False):
+    """The extruded phase's cases on the CPU: at the card's size (the
+    counts, drift and errors the card must match) or, with `study`, the
+    GMG and spectral cases at EXTRUDED_STUDY's sizes with the error
+    ratios per level."""
+    import firedrake_tpu_torch as fd
+    fd.set_device("cpu")
+    for label in labels:
+        t0 = time.perf_counter()
+        if label == "shallow_water_ext_128":
+            if study:
+                continue
+            with _KspIts() as its:
+                p = _sw_run(fd, SW_N, SW_LAYERS, SW_STEPS)
+            print(f"{tag} {label}: W dofs {p['W'].dim} E0 {p['E0']!r} E1 "
+                  f"{p['E1']!r} drift {p['drift']!r} cg_iterations "
+                  f"{its.its} seconds {time.perf_counter() - t0:.1f} "
+                  f"host_max_rss_gib {_max_rss_gib():.2f}", flush=True)
+            continue
+        sizes = (EXTRUDED_STUDY[label] if study else
+                 (EXT_LEVELS if label == "gmg_ext_hex_1m" else SPEC_N,))
+        prev = None
+        for s in sizes:
+            t0 = time.perf_counter()
+            p = (_ext_gmg_problem(fd, s) if label == "gmg_ext_hex_1m"
+                 else _spec_problem(fd, s))
+            p["solver"].solve()
+            err = float((p["uh"].dat - p["exact"].dat).abs().max())
+            rate = "" if prev is None else f" ratio {prev / err:.4f}"
+            print(f"{tag} {label} size {s}: dofs {p['V'].dim} iterations "
+                  f"{p['solver'].ksp_iterations} converged "
+                  f"{p['solver'].converged} max_nodal_err {err:.6e}{rate} "
+                  f"seconds {time.perf_counter() - t0:.1f} "
+                  f"host_max_rss_gib {_max_rss_gib():.2f}", flush=True)
+            prev = err
+
+
 def main():
     t0 = time.perf_counter()
     device_phase()
@@ -2530,6 +3036,7 @@ def main():
     used.update(dg_mixed)
     slate_used, k2_paths = slate_phase()
     used.update(slate_used)
+    used.update(extruded_phase())
     used["gmg_p2_tet_16m"], k1_action = north_star_phase()
     for label, c in used.items():
         print(f"launches {label}: k1 {c.k1} k2 {c.k2} k2_large "
@@ -2602,7 +3109,8 @@ def only(names):
     device_phase()
     build_phase()
     phases = {"slate": slate_phase, "dg_mixed": dg_mixed_phase,
-              "gather": gather_phase, "nonlinear": nonlinear_phase}
+              "gather": gather_phase, "nonlinear": nonlinear_phase,
+              "extruded": extruded_phase}
     for name in names:
         phases[name]()
     print("only: done")

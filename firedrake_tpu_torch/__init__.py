@@ -22,7 +22,13 @@ block assembly into a BlockMatrix, mixed.py) with the H(div)/H(curl)
 elements RT, BDM, BDFM, RTCF, RTCE and N1curl (Piola maps, dof signs);
 Slate (slate.py: element-local tensors, inverses and solves through the
 batched-inverse kernel), the HDiv trace and broken elements, and the
-hybridization and static-condensation (SCPC) solver options.
+hybridization and static-condensation (SCPC) solver options; extruded
+meshes (column-numbered Lagrange spaces assembled by the column plan into
+a ColumnMatrix, assembly/columns.py; prism facet integrals by facet
+class; HDiv(TensorProductElement(...)) prism elements, elements/
+tensor_product.py), sum-factorised Q_k on quads and hexes
+(compiler/spectral.py) and quad, hex, extruded and semi-coarsened
+hierarchies.
 """
 from .language import *            # noqa: F401,F403  (UFL surface)
 from .mesh.utility import *        # noqa: F401,F403
@@ -32,6 +38,8 @@ from .functionspace import (FunctionSpace, VectorFunctionSpace,
 from .mixed import MixedFunctionSpace
 from .function import Function, Cofunction, Constant, MixedFunction
 from .elements.finite_element import BrokenElement
+from .elements.tensor_product import (FiniteElement, EnrichedElement,
+                                      TensorProductElement, HDiv)
 from .bcs import DirichletBC, EquationBC, homogenize
 from .assemble import assemble, get_assembler, FormAssembler
 from .assembly.sparsity import Sparsity

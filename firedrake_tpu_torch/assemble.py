@@ -24,10 +24,18 @@ canonical rows and columns, on the device before accumulation.  Forms on
 mixed spaces are assembled block by block (``MixedFormAssembler``) into a
 ``BlockMatrix`` (mixed.py) or one concatenated vector.
 
+On extruded meshes a form whose arguments, coefficients and coordinates
+are column-numbered takes the column plan (assembly/columns.py: row
+gathers of whole dof columns, strided layer slices, a ``ColumnMatrix``);
+every other form there (H(div) prism spaces, ragged columns, facet
+integrals) takes the gather route, where a facet integral on prisms is
+compiled once per facet class (triangle and quad facets carry different
+rules).  On the gather route, cell integrals of scalar Lagrange Q_k
+(k >= 2) on quads and hexes take the sum-factorised plan
+(compiler/spectral.py).
+
 Still raising NotImplementedError, each naming its ROADMAP.md queue 1
-item: the sum-factorised Q_k plan (item 14b), extruded meshes and prism
-facets (item 15), complex scalars (item 17), vertex-only meshes
-(item 18).
+item: complex scalars (item 17), vertex-only meshes (item 18).
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from .mixed import (BlockMatrix, extract_block, form_is_mixed,
                     split_mixed_terminals)
 from .bcs import as_bcs
 from .device import as_tensor, get_device
+from .mesh.topology import orientation_index
 
 __all__ = ["assemble", "FormAssembler", "get_assembler"]
 
@@ -95,18 +104,6 @@ def _is_complex(form):
                for it in form.integrals() for t in it.integrand.traverse())
 
 
-def _orientation_index(pos):
-    """Index, in itertools.permutations order, of each row of ``pos``
-    (n, nfv), a permutation of range(nfv)."""
-    import itertools
-    nfv = pos.shape[1]
-    weights = nfv ** np.arange(nfv)
-    lookup = np.full(nfv ** nfv, -1, dtype=np.int32)
-    for i, p in enumerate(itertools.permutations(range(nfv))):
-        lookup[np.dot(p, weights)] = i
-    return lookup[pos @ weights]
-
-
 def interior_facets(mesh, subdomain_id):
     """The interior facets of dS(subdomain_id): all, or the marked ones;
     UNMARKED (-1, the reference's label for untagged facets) selects
@@ -121,39 +118,43 @@ def interior_facets(mesh, subdomain_id):
     return facets[np.isin(mesh.facet_markers[facets], np.asarray(sd))]
 
 
-def facet_pairs(mesh, facets):
+def facet_classes(mesh):
+    """The facet classes a facet integral is compiled for: [None] on
+    cells with one facet shape, the sorted class names on prisms
+    (triangle and quad facets)."""
+    if mesh.cell.facet_cell_name is not None:
+        return [None]
+    return sorted(set(mesh.cell.facet_types))
+
+
+def of_class(mesh, facets, ftype):
+    """The facets of class ``ftype`` (all for None)."""
+    if ftype is None:
+        return facets
+    ftypes = np.asarray(mesh.cell.facet_types)
+    return facets[ftypes[mesh.topology.facet_local_id[facets, 0]] == ftype]
+
+
+def facet_pairs(mesh, facets, ftype=None):
     """(plus cells, minus cells, their local facet ids, the relative
-    orientation of the minus side) of interior facets: the orientation
-    is the index of the permutation taking each minus-cell facet vertex
-    to its position in the plus cell's vertex list."""
+    orientation of the minus side) of interior facets (of one class,
+    ``ftype``, on prisms): the orientation is the index of the
+    permutation taking each minus-cell facet vertex to its position in
+    the plus cell's vertex list."""
+    from .elements.reference_cell import by_name
     topo = mesh.topology
     cp = topo.facet_cells[facets, 0]
     cm = topo.facet_cells[facets, 1]
     lfp = topo.facet_local_id[facets, 0]
     lfm = topo.facet_local_id[facets, 1]
-    vp = topo.cell_vertices[cp[:, None], mesh.cell.facets[lfp]]
-    vm = topo.cell_vertices[cm[:, None], mesh.cell.facets[lfm]]
-    o_rel = _orientation_index(
+    fv = mesh.cell.facets
+    if ftype is not None:
+        fv = fv[:, :by_name(ftype).num_vertices]   # triangles pad with -1
+    vp = topo.cell_vertices[cp[:, None], fv[lfp]]
+    vm = topo.cell_vertices[cm[:, None], fv[lfm]]
+    o_rel = orientation_index(
         np.argmax(vm[:, :, None] == vp[:, None, :], axis=2))
     return cp, cm, lfp, lfm, o_rel
-
-
-def _spectral_applies(ci, test, trial):
-    """Whether the JAX package would evaluate this integral with its
-    sum-factorised plan (compiler/spectral.py build_spectral_plan): cell
-    integrals on quads/hexes with scalar Lagrange arguments of degree >= 2
-    (any degree under FDTPU_SPECTRAL=1)."""
-    flag = os.environ.get("FDTPU_SPECTRAL")
-    if flag == "0" or ci.integral_type != "cell" or ci.qrule is not None \
-            or test is None \
-            or ci.mesh.cell.name not in ("quadrilateral", "hexahedron"):
-        return False
-    spaces = [a.space for a in (test, trial) if a is not None]
-    if not all(tuple(s.value_shape) == () and s.block_size == 1
-               and "Lagrange" in getattr(s.element, "family", "")
-               for s in spaces):
-        return False
-    return flag == "1" or max(s.element.degree for s in spaces) >= 2
 
 
 def _local_dofs(space, cell_sets, cell_last):
@@ -316,10 +317,6 @@ class FormAssembler:
         self.mesh = form.mesh()
         if self.mesh is None:
             raise ValueError("form has no mesh")
-        if getattr(self.mesh, "_extruded", False):
-            raise NotImplementedError(
-                "assembly on extruded meshes (the column plan) is not "
-                "ported yet: ROADMAP.md queue 1, item 15")
         if getattr(self.mesh, "is_vertex_only", False):
             raise NotImplementedError(
                 "vertex-only assembly is not ported yet: ROADMAP.md "
@@ -333,14 +330,21 @@ class FormAssembler:
             raise NotImplementedError("complex scalar assembly is not "
                                       "ported yet: ROADMAP.md queue 1, "
                                       "item 17")
-        self._compiled = [CompiledIntegral(it, self.test, self.trial,
-                                           self.mesh)
-                          for it in form.integrals()]
-        self._stencil = None
+        # a facet integral on prisms compiles once per facet class
+        self._compiled = [
+            CompiledIntegral(it, self.test, self.trial, self.mesh,
+                             ftype=ft)
+            for it in form.integrals()
+            for ft in (facet_classes(self.mesh)
+                       if it.integral_type != "cell" else [None])]
+        self._stencil = self._column = None
         if use_stencil and self.rank in (1, 2):
             from .assembly.stencil import build_stencil_plan
             self._stencil = build_stencil_plan(self)
-        if self._stencil is None:
+            if self._stencil is None:
+                from .assembly.columns import build_column_plan
+                self._column = build_column_plan(self)
+        if self._stencil is None and self._column is None:
             self._build_statics()
 
     def _inputs(self):
@@ -382,6 +386,32 @@ class FormAssembler:
                 loc = widen(loc)              # f64 accumulation
             out = acc(out, t, loc)
         return out
+
+    # -------------------------------------------------------- column route
+    def _run_column(self, coords_dat, coeff_dats, const_vals):
+        """Column row gathers + strided layer slices in, the lowerer per
+        integral, fixed-order row sums out (assembly/columns.py)."""
+        plan = self._column
+        prec = self._prec
+        if prec is not None:
+            coords_dat = castf(coords_dat, prec)
+            coeff_dats = castf_map(coeff_dats, prec)
+            const_vals = castf_map(const_vals, prec)
+        loc = None
+        for ci in self._compiled:
+            consts = tuple(const_vals[c.count] for c in ci.constants)
+            ce, ws = plan.gather_cell_inputs(coords_dat, coeff_dats, ci)
+            with trace_ctx(prec):
+                lt = run_cell_kernel(
+                    ci, ce, ws, consts,
+                    chunk=_kernel_chunk(ci, ce.shape[-1],
+                                        ce.element_size()))
+            loc = lt if loc is None else loc + lt
+        if prec is not None:
+            loc = widen(loc)                  # f64 accumulation
+        if self.rank == 2:
+            return plan.accumulate_rank2(loc)
+        return plan.accumulate_rank1(loc)
 
     # -------------------------------------------------------- gather route
     def _build_statics(self):
@@ -436,10 +466,6 @@ class FormAssembler:
         mesh = self.mesh
         topo = mesh.topology
         g = mesh.geometric_dimension
-        if _spectral_applies(ci, self.test, self.trial):
-            raise NotImplementedError(
-                "the sum-factorised Q_k plan (compiler/spectral.py) is not "
-                "ported yet: ROADMAP.md queue 1, item 14b")
         cmap3 = mesh.coordinates.function_space().cell_dof_map.reshape(
             topo.num_cells, -1, g)
         dev = get_device()
@@ -482,8 +508,12 @@ class FormAssembler:
             coeff_local(cells)
             st["rows"], st["cols"] = arg_maps([cells])
             st["n"] = len(cells)
+            # sum-factorised Q_k on quads and hexes (compiler/spectral.py)
+            from .compiler.spectral import build_spectral_plan
+            st["spectral"] = build_spectral_plan(ci, self.test, self.trial)
         elif ci.integral_type == "exterior_facet":
-            facets = mesh.boundary_facets(ci.subdomain_id)
+            facets = of_class(mesh, mesh.boundary_facets(ci.subdomain_id),
+                              ci.ftype)
             if len(facets) == 0:
                 return None
             cells = topo.facet_cells[facets, 0]
@@ -494,10 +524,11 @@ class FormAssembler:
             st["rows"], st["cols"] = arg_maps([cells])
             st["n"] = len(facets)
         else:
-            facets = interior_facets(mesh, ci.subdomain_id)
+            facets = of_class(mesh, interior_facets(mesh, ci.subdomain_id),
+                              ci.ftype)
             if len(facets) == 0:
                 return None
-            cp, cm, lfp, lfm, o_rel = facet_pairs(mesh, facets)
+            cp, cm, lfp, lfm, o_rel = facet_pairs(mesh, facets, ci.ftype)
             st["coords_map_p"] = idx(cmap3[cp])
             st["coords_map_m"] = idx(cmap3[cm])
             st["lf_p"], st["lf_m"] = idx(lfp), idx(lfm)
@@ -525,9 +556,13 @@ class FormAssembler:
             ce = coords_dat[st["coords_map"]]           # (ndofc, g, C)
             ws = tuple(gathered(c) for c in ci.coefficients)  # (nslot, C)
             with trace_ctx(prec):
-                loc = run_cell_kernel(
-                    ci, ce, ws, consts,
-                    chunk=_kernel_chunk(ci, st["n"], ce.element_size()))
+                if st["spectral"] is not None:
+                    loc = st["spectral"].local_tensors(ce, ws, consts)
+                else:
+                    loc = run_cell_kernel(
+                        ci, ce, ws, consts,
+                        chunk=_kernel_chunk(ci, st["n"],
+                                            ce.element_size()))
             return _canonical(loc, st["local_rows"], st["local_cols"], cl)
         kern = ci.kernel()
         nco = len(ci.coefficients)
@@ -596,7 +631,8 @@ class FormAssembler:
 
     def _evaluate(self, coords_dat, coeff_dats, const_vals):
         """The form's raw values on the route this assembler took."""
-        run = self._run if self._stencil is None else self._run_stencil
+        run = (self._run_stencil if self._stencil is not None else
+               self._run_column if self._column is not None else self._run)
         return run(coords_dat, coeff_dats, const_vals)
 
     # ------------------------------------------------------------- public
@@ -622,6 +658,10 @@ class FormAssembler:
             from .assembly.stencil import StencilMatrix
             mat = StencilMatrix(self._stencil, out, self.test.space,
                                 self.trial.space, self.bcs)
+        elif self._column is not None:
+            from .assembly.columns import ColumnMatrix
+            mat = ColumnMatrix(self._column, out, self.test.space,
+                               self.trial.space, self.bcs)
         else:
             mat = Matrix(self.sparsity, out, self.test.space,
                          self.trial.space, self.bcs)
@@ -639,10 +679,12 @@ def _bc_key(bcs):
 
 def build_key():
     """What a FormAssembler reads from its surroundings when it is built:
-    the kernel precision, the route switch, the gather accumulation and
+    the kernel precision, the route switches, the gather accumulation and
     the device.  Every cache of assemblers keys on it."""
     return (os.environ.get("FDTPU_PREC", ""),
             os.environ.get("FDTPU_NO_STENCIL", ""),
+            os.environ.get("FDTPU_NO_COLUMN", ""),
+            os.environ.get("FDTPU_SPECTRAL", ""),
             os.environ.get("FDTPU_GATHER_ACC", ""), str(get_device()))
 
 

@@ -22,13 +22,12 @@ from .lowering import (einsum, CellContext, ExteriorFacetContext,
 
 
 class CompiledIntegral:
-    def __init__(self, integral: Integral, test, trial, mesh):
+    def __init__(self, integral: Integral, test, trial, mesh, ftype=None):
         self.integral_type = integral.integral_type
-        if self.integral_type != "cell" \
-                and mesh.cell.facet_cell_name is None:
-            raise NotImplementedError(
-                "facet integrals on cells with two facet classes (prisms) "
-                "are not ported yet: ROADMAP.md queue 1, item 15")
+        # the facet class of a facet integral on cells with two (prisms:
+        # the assembler compiles a triangle-facet and a quad-facet
+        # integral, each with its own rule)
+        self.ftype = ftype
         self.subdomain_id = integral.subdomain_id
         self.test = test
         self.trial = trial
@@ -79,7 +78,8 @@ class CompiledIntegral:
     def exterior_facet_kernel(self):
         """fn(coords, local facet, coeffs, consts) -> (ni, nj)."""
         def fn(coords_e, lf, coeffs, consts):
-            ctx = ExteriorFacetContext(self.mesh, self.degree, coords_e, lf)
+            ctx = ExteriorFacetContext(self.mesh, self.degree, coords_e, lf,
+                                       ftype=self.ftype)
             return self._lower(ctx, dict(zip(
                 (c.count for c in self.coefficients), coeffs)), consts)
         return fn
@@ -91,7 +91,8 @@ class CompiledIntegral:
         def fn(coords_p, coords_m, lf_p, lf_m, o_rel, coeffs_p, coeffs_m,
                consts):
             ctx = InteriorFacetContext(self.mesh, self.degree, coords_p,
-                                       coords_m, lf_p, lf_m, o_rel)
+                                       coords_m, lf_p, lf_m, o_rel,
+                                       ftype=self.ftype)
             cd = {c.count: {"+": wp, "-": wm} for c, wp, wm in
                   zip(self.coefficients, coeffs_p, coeffs_m)}
             return self._lower(ctx, cd, consts)

@@ -72,16 +72,23 @@ def _tables_at(element, points, order):
     return element_tables(element, points, order)
 
 
-def _facet_points(cell, qf_pts):
-    """(nlf, nq, tdim): facet-rule points embedded in each local facet."""
+def _facet_points(cell, qf_pts, ftype=None):
+    """(nlf, nq, tdim): facet-rule points embedded in each local facet.
+    On cells with two facet classes (prisms) ``ftype`` names the class of
+    the rule; the other class's facets get zero blocks, which the
+    assembler never selects (it splits facet integrals by class)."""
     out = []
+    types = cell.facet_types
     for lf in range(len(cell.facets)):
+        if ftype is not None and types[lf] != ftype:
+            out.append(np.zeros((len(qf_pts), cell.dim)))
+            continue
         A, b = cell.facet_embedding(lf)
         out.append(qf_pts @ A.T + b[None, :])
     return np.stack(out)
 
 
-def _minus_facet_points(cell, qf_pts, facet_cell):
+def _minus_facet_points(cell, qf_pts, facet_cell, ftype=None):
     """(nlf, n_ori, nq, tdim): minus-side points matching the plus-side
     quadrature order under each relative vertex permutation."""
     import itertools
@@ -97,7 +104,10 @@ def _minus_facet_points(cell, qf_pts, facet_cell):
         P = np.hstack([qf_pts, np.ones((len(qf_pts), 1))]).T
         bary = np.linalg.lstsq(M, P, rcond=None)[0].T   # (nq, nfv)
     out = np.zeros((len(cell.facets), len(perms), len(qf_pts), cell.dim))
+    types = cell.facet_types
     for lf in range(len(cell.facets)):
+        if ftype is not None and types[lf] != ftype:
+            continue
         A, b = cell.facet_embedding(lf)
         for oi, pi in enumerate(perms):
             # minus-side facet-local bary: b~[i'] = bary[pos] where
@@ -259,15 +269,19 @@ class PointsContext(BaseContext):
 
 class _FacetContext(BaseContext):
     """Shared part of the facet contexts: the facet rule, the facet
-    measure and the unit normal, both from the '+' cell.  Cells with one
-    facet class only (CompiledIntegral refuses prisms)."""
+    measure and the unit normal, both from the '+' cell.  On cells with
+    two facet classes (prisms) ``ftype`` names the class: its facet cell
+    gives the rule."""
 
-    def __init__(self, mesh, degree):
+    def __init__(self, mesh, degree, ftype=None):
         super().__init__(mesh, degree)
-        self.facet_cell = self.cell.facet_cell
+        from ..elements.reference_cell import by_name
+        self.ftype = ftype
+        self.facet_cell = by_name(ftype) if ftype else self.cell.facet_cell
         qf = make_quadrature(self.facet_cell.name, degree)
         self.qf_pts, self.qwts = qf.points, qf.weights
-        self.fpts = _facet_points(self.cell, self.qf_pts)  # (nlf, nq, t)
+        self.fpts = _facet_points(self.cell, self.qf_pts,
+                                  ftype)             # (nlf, nq, t)
         self.fdim = self.facet_cell.dim
 
     @staticmethod
@@ -324,8 +338,8 @@ class _FacetContext(BaseContext):
 class ExteriorFacetContext(_FacetContext):
     kind = "exterior_facet"
 
-    def __init__(self, mesh, degree, coords_e, lf):
-        super().__init__(mesh, degree)
+    def __init__(self, mesh, degree, coords_e, lf, ftype=None):
+        super().__init__(mesh, degree, ftype)
         self._coords = coords_e
         self.lf_plus = lf
 
@@ -348,10 +362,10 @@ class InteriorFacetContext(_FacetContext):
     kind = "interior_facet"
 
     def __init__(self, mesh, degree, coords_p, coords_m, lf_p, lf_m,
-                 o_rel):
-        super().__init__(mesh, degree)
+                 o_rel, ftype=None):
+        super().__init__(mesh, degree, ftype)
         self.mpts = _minus_facet_points(self.cell, self.qf_pts,
-                                        self.facet_cell)
+                                        self.facet_cell, ftype)
         self._coords = {"+": coords_p, "-": coords_m}
         self.lf_plus, self.lf_minus = lf_p, lf_m
         self.o_rel = o_rel

@@ -119,11 +119,39 @@ class FunctionSpaceData:
             return      # ragged columns: generic numbering/executor
         if getattr(elem, "family", None) != "Lagrange":
             return
-        # the JAX package renumbers dofs column-major here for its
-        # column executor (assembly/columns.py), which is not ported
-        raise NotImplementedError(
-            "column-numbered spaces on extruded meshes (assembly/columns.py)"
-            " are not ported yet: ROADMAP.md queue 1, item 15")
+        base = mesh._base_mesh
+        nlay = int(mesh._layers)
+        k = elem.degree
+        from .assembly.columns import column_factorization, ColumnLayout
+        base_elem = make_scalar_element(base.cell.name, elem.family, k)
+        fac = column_factorization(elem, base_elem, k)
+        if fac is None:
+            return
+        sb, sz = fac
+        base_sdata = get_shared_data(base, base_elem)
+        Hd = k * nlay + 1
+        if self.num_nodes != base_sdata.num_nodes * Hd:
+            return
+        old = self.cell_node_map.astype(np.int64)
+        ncell_b = base_sdata.cell_node_map.shape[0]
+        if old.shape[0] != ncell_b * nlay:
+            return
+        bmap = base_sdata.cell_node_map.astype(np.int64)
+        c = np.arange(old.shape[0])
+        b, l = c // nlay, c % nlay               # cell id = b*nlay + l
+        pred = bmap[b][:, sb] * Hd + (l[:, None] * k + sz[None, :])
+        perm = np.full(self.num_nodes, -1, dtype=np.int64)
+        perm[old.ravel()] = pred.ravel()
+        # dofs are identified geometrically from every adjacent cell, so
+        # the old->new map must be a consistent bijection: verify fully
+        if (perm < 0).any() or not np.array_equal(perm[old], pred):
+            return
+        if np.unique(perm).size != self.num_nodes:
+            return
+        self.cell_node_map = pred.astype(_IDX)
+        self.node_perm = perm
+        self.column = ColumnLayout(base_sdata, sb, sz, k, nlay)
+        self.column_numbered = True
 
     def _maybe_grid_renumber(self):
         import os
@@ -396,8 +424,8 @@ class FunctionSpace:
                  tensor_shape: tuple | None = None, variant=None,
                  vfamily=None, vdegree=None):
         self.mesh_obj = mesh
-        if hasattr(family, "resolve"):
-            # element spec objects (tensor-product elements; not ported)
+        from .elements.tensor_product import _ElementSpec
+        if isinstance(family, _ElementSpec):
             family = family.resolve()
         if isinstance(family, FiniteElement):
             elem = family

@@ -69,6 +69,17 @@ def _unique_rows(flat, M):
     return flat[order[new]], inv
 
 
+def orientation_index(pos):
+    """Index, in itertools.permutations order, of each row of ``pos``
+    (n, nv), a permutation of range(nv)."""
+    nv = pos.shape[1]
+    weights = nv ** np.arange(nv)
+    lookup = np.full(nv ** nv, -1, dtype=_IDX)
+    for i, p in enumerate(itertools.permutations(range(nv))):
+        lookup[np.dot(p, weights)] = i
+    return lookup[pos @ weights]
+
+
 class MeshTopology:
     def __init__(self, cell_vertices: np.ndarray, num_vertices: int,
                  cell_type: str, name: str = "mesh"):
@@ -90,6 +101,9 @@ class MeshTopology:
         'entities' (n_ent, nvpe) canonical sorted vertex ids,
         'cell_entities' (ncell, n_local) entity indices,
         'cell_orientations' (ncell, n_local) permutation indices.
+        Dimension ``dim`` (the cells themselves) is not tabulated: every
+        query answers it from the cell list (a hex's 8! orientations
+        would take minutes at a million cells).
         """
         out = {}
         cell = self.cell
@@ -98,7 +112,7 @@ class MeshTopology:
         # keeps packed int64 keys small (int64max/2 would overflow the
         # row-key packing below)
         SENT = self.num_vertices
-        for d in range(1, self.dim + 1):
+        for d in range(1, self.dim):
             local = cell.topology[d]                  # (n_local, nvpe)
             n_local, nvpe = local.shape
             # cell-local view; ragged rows are padded with -1 (prisms):
@@ -111,18 +125,11 @@ class MeshTopology:
             flat = canon.reshape(-1, nvpe)
             uniq, inv = _unique_rows(flat, SENT + 1)
             cell_entities = inv.reshape(self.num_cells, n_local).astype(_IDX)
-            # orientation: sigma with canon[j] == view[sigma[j]]
-            perms = list(itertools.permutations(range(nvpe)))
-            perm_arr = np.array(perms)                # (nperm, nvpe)
-            # for each (cell, local entity): find sigma s.t.
-            # view[sigma[j]] == canon[j] for all j
-            v = views.reshape(-1, nvpe)
-            c = canon.reshape(-1, nvpe)
-            ori = np.full(len(v), -1, dtype=_IDX)
-            for pi, p in enumerate(perm_arr):
-                match = np.all(v[:, p] == c, axis=1)
-                ori[match & (ori < 0)] = pi
-            assert np.all(ori >= 0)
+            # orientation: the index, in itertools.permutations order, of
+            # sigma with canon[j] == view[sigma[j]] (unique: an entity's
+            # vertex ids are distinct, and a ragged row has one pad)
+            ori = orientation_index(np.argsort(views.reshape(-1, nvpe),
+                                               axis=1))
             ent = uniq
             ent = np.where(ent >= SENT, -1, ent)
             # arity classes (prisms mix triangle and quad faces): each

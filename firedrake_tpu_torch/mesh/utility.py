@@ -467,7 +467,14 @@ def ExtrudedMesh(base_mesh, layers, layer_height=None,
     numbering — the dense-axis layout the TPU build exploits.  Column-
     compressed (O(base) metadata) storage is the follow-up optimization
     (reference keeps layer extents only, extrusion_numbering.pyx:222).
+    Only ``extrusion_type="uniform"`` is supported: another type raises
+    (the JAX package accepts it and extrudes uniformly all the same).
     """
+    if extrusion_type != "uniform":
+        raise NotImplementedError(
+            f"extrusion_type {extrusion_type!r}: only 'uniform' extrusion "
+            "is supported (periodic and radial extrusion are out of "
+            "scope, ROADMAP.md)")
     base = base_mesh
     layers_arr = np.asarray(layers)
     if layers_arr.ndim == 2:

@@ -6,12 +6,16 @@ Refinement is host-side numpy; the products are the child-cell maps the
 transfer kernels consume.
 
 Simplex refinement: red refinement — each triangle -> 4 children, each tet
--> 4 corner tets + 4 octahedron tets (Bey's rule, diagonal m01-m23).
-Structured utility meshes refine keeping their grid numbering
-(_refine_structured), so every level takes the stencil path.
+-> 4 corner tets + 4 octahedron tets (Bey's rule, diagonal m01-m23);
+unstructured quads -> 4 children through edge and cell midpoints.
+Structured utility meshes (triangles, quads, tets, hexes) refine keeping
+their grid numbering (_refine_structured), so every level takes the
+stencil path.  Extruded hierarchies refine their base meshes and the
+layers (ExtrudedMeshHierarchy), or the layers alone
+(SemiCoarsenedExtrudedHierarchy).
 
-Not ported yet (NotImplementedError naming the ROADMAP item): quad and hex
-hierarchies, extruded and semi-coarsened hierarchies, non-nested ones.
+Not ported yet (NotImplementedError naming the ROADMAP item): non-nested
+hierarchies.
 """
 from __future__ import annotations
 
@@ -25,10 +29,6 @@ __all__ = ["MeshHierarchy", "HierarchyBase", "NonNestedHierarchy",
            "ExtrudedMeshHierarchy", "SemiCoarsenedExtrudedHierarchy"]
 
 _NOT_PORTED = {
-    "tensor": "quadrilateral and hexahedral hierarchies are not ported "
-              "yet: ROADMAP.md queue 1, item 14b (tensor-product elements)",
-    "extruded": "extruded and semi-coarsened hierarchies are not ported "
-                "yet: ROADMAP.md queue 1, item 15 (extrusion)",
     "non-nested": "non-nested hierarchies are not ported yet: ROADMAP.md "
                   "queue 1, item 18 (cross-mesh transfer, supermesh)",
 }
@@ -115,7 +115,37 @@ def _refine_tet(mesh: Mesh):
     return cells, verts, c2f, type_of
 
 
-_REFINERS = {"triangle": _refine_triangle, "tetrahedron": _refine_tet}
+def _refine_quad(mesh: Mesh):
+    topo = mesh.topology
+    nv = topo.num_vertices
+    edges = topo._entity_data[1]["entities"]
+    ne = len(edges)
+    mids = mesh._vertex_coords[edges].mean(axis=1)
+    centers = mesh._vertex_coords[topo.cell_vertices].mean(axis=1)
+    verts = np.vstack([mesh._vertex_coords, mids, centers])
+    ce = topo.cell_entities(1)                        # (nc, 4)
+    cv = topo.cell_vertices                           # lex: (0,0),(1,0),(0,1),(1,1)
+    # our quad edges: e0=(0,1) y=0, e1=(2,3) y=1, e2=(0,2) x=0, e3=(1,3) x=1
+    mb = nv + ce[:, 0]
+    mt = nv + ce[:, 1]
+    ml = nv + ce[:, 2]
+    mr = nv + ce[:, 3]
+    cc = nv + ne + np.arange(topo.num_cells)
+    v00, v10, v01, v11 = (cv[:, i] for i in range(4))
+    children = np.stack([
+        np.stack([v00, mb, ml, cc], 1),
+        np.stack([mb, v10, cc, mr], 1),
+        np.stack([ml, cc, v01, mt], 1),
+        np.stack([cc, mr, mt, v11], 1),
+    ], axis=1)
+    cells = children.reshape(-1, 4)
+    c2f = (np.arange(topo.num_cells)[:, None] * 4
+           + np.arange(4)[None, :])
+    return cells, verts, c2f
+
+
+_REFINERS = {"triangle": _refine_triangle, "tetrahedron": _refine_tet,
+             "quadrilateral": _refine_quad}
 
 # child reference maps: fine child k occupies sub-cell of the reference
 # cell; A_k, b_k with  X_coarse = A_k @ X_fine + b_k
@@ -152,6 +182,13 @@ def child_reference_maps(cell_name: str):
             a = vs[0]
             A = np.stack([vs[i] - a for i in (1, 2, 3)], axis=1)
             out.append((A, a))
+        return out
+    if cell_name == "quadrilateral":
+        h = 0.5
+        out = []
+        for (ox, oy) in [(0, 0), (h, 0), (0, h), (h, h)]:
+            A = np.eye(2) * h
+            out.append((A, np.array([ox, oy])))
         return out
     raise NotImplementedError(cell_name)
 
@@ -271,8 +308,6 @@ def _refine_structured(mesh: Mesh):
 
 
 def refine_mesh(mesh: Mesh):
-    if mesh.cell.name in ("quadrilateral", "hexahedron"):
-        raise NotImplementedError(_NOT_PORTED["tensor"])
     if getattr(mesh, "_structured", None) is not None:
         return _refine_structured(mesh)
     try:
@@ -370,13 +405,89 @@ def MeshHierarchy(mesh: Mesh, refinement_levels: int, **kwargs):
     return HierarchyBase(meshes)
 
 
-# ------------------------------------------- hierarchies not ported yet
-def ExtrudedMeshHierarchy(*args, **kwargs):
-    raise NotImplementedError(_NOT_PORTED["extruded"])
+# ------------------------------------------------------------- extruded
+def _link_extruded_levels(mc, mf, nlc, nlf):
+    """Attach coarse->fine cell maps + child reference maps between two
+    extruded levels (horizontal children x vertical sub-layers).
+    Reference: firedrake/mg/mesh.py:320 ExtrudedMeshHierarchy builds the
+    extruded levels from the base hierarchy's DMPlex refinements."""
+    bc_mesh, bf_mesh = mc._base_mesh, mf._base_mesh
+    rz = nlf // nlc
+    assert rz * nlc == nlf, "fine layers must be a multiple of coarse"
+    d = mc.geometric_dimension
+    if bf_mesh is bc_mesh:                      # semi-coarsened: z only
+        b_c2f = np.arange(bc_mesh.num_cells, dtype=np.int64)[:, None]
+        bcm = [[(np.eye(d - 1), np.zeros(d - 1))]]
+        btype_of = np.zeros(bc_mesh.num_cells, dtype=np.int64)
+    else:
+        assert getattr(bf_mesh, "_coarse_mesh", None) is bc_mesh, \
+            "base meshes are not consecutive hierarchy levels"
+        b_c2f = np.asarray(bf_mesh._c2f_cells, dtype=np.int64)
+        bcm = getattr(bf_mesh, "_child_maps", None)
+        if bcm is None:
+            bcm = [child_reference_maps(bc_mesh.cell.name)]
+        ntypes_b = len(bcm)
+        btype_of = np.arange(bc_mesh.num_cells) % ntypes_b
+    ncb, nchild_b = b_c2f.shape
+    lc = np.arange(nlc, dtype=np.int64)
+    jz = np.arange(rz, dtype=np.int64)
+    # coarse extruded cell (b, l) = b*nlc + l; fine child (bf, rz*l + j)
+    c2f = (b_c2f[:, None, :, None] * nlf
+           + lc[None, :, None, None] * rz + jz[None, None, None, :])
+    mf._coarse_mesh = mc
+    mf._c2f_cells = c2f.reshape(ncb * nlc, nchild_b * rz)
+    # child maps: X_coarse = blkdiag(A_b, 1/rz) @ X_fine + (b_b, j/rz)
+    cmaps = []
+    for maps_t in bcm:
+        mt = []
+        for (Ab, bb) in maps_t:
+            for j in range(rz):
+                A = np.zeros((d, d))
+                A[:d - 1, :d - 1] = Ab
+                A[d - 1, d - 1] = 1.0 / rz
+                b = np.append(np.asarray(bb, dtype=float), j / rz)
+                mt.append((A, b))
+        cmaps.append(mt)
+    mf._child_maps = cmaps
+    # extruded cell ordering is column-major, not type-interleaved
+    mf._c2f_type_of = np.repeat(btype_of, nlc)
 
 
-def SemiCoarsenedExtrudedHierarchy(*args, **kwargs):
-    raise NotImplementedError(_NOT_PORTED["extruded"])
+def ExtrudedMeshHierarchy(base_hierarchy, height=1.0, base_layer=None,
+                          refinement_ratio=2, layers=None, **kwargs):
+    """Hierarchy of extruded meshes over a base hierarchy: horizontal
+    refinement from the base levels, vertical refinement by
+    ``refinement_ratio`` starting at ``base_layer`` (or a constant
+    ``layers`` on every level).  Reference: firedrake/mg/mesh.py:320."""
+    from ..mesh.utility import ExtrudedMesh
+    bms = list(base_hierarchy.meshes)
+    if layers is not None:
+        lays = [int(layers)] * len(bms)
+    else:
+        if base_layer is None:
+            raise ValueError("give either layers= or base_layer=")
+        lays = [int(base_layer) * int(refinement_ratio) ** l
+                for l in range(len(bms))]
+    meshes = [ExtrudedMesh(bm, nl, layer_height=height / nl)
+              for bm, nl in zip(bms, lays)]
+    for mc, mf, nlc, nlf in zip(meshes, meshes[1:], lays, lays[1:]):
+        _link_extruded_levels(mc, mf, nlc, nlf)
+    return HierarchyBase(meshes)
+
+
+def SemiCoarsenedExtrudedHierarchy(base_mesh, height=1.0, nref=1,
+                                   base_layer=1, refinement_ratio=2,
+                                   **kwargs):
+    """Hierarchy refined ONLY in the extruded direction (same base mesh
+    on every level).  Reference: firedrake/mg/mesh.py:404."""
+    from ..mesh.utility import ExtrudedMesh
+    lays = [int(base_layer) * int(refinement_ratio) ** l
+            for l in range(nref + 1)]
+    meshes = [ExtrudedMesh(base_mesh, nl, layer_height=height / nl)
+              for nl in lays]
+    for mc, mf, nlc, nlf in zip(meshes, meshes[1:], lays, lays[1:]):
+        _link_extruded_levels(mc, mf, nlc, nlf)
+    return HierarchyBase(meshes)
 
 
 def NonNestedHierarchy(*meshes):

@@ -403,7 +403,7 @@ def _local_form_tensor(form: Form):
     from .compiler.cell_eval import run_cell_kernel
     from .assemble import (_local_dofs, _coeff_local, _canonical,
                            _vmapped, _kernel_chunk, interior_facets,
-                           facet_pairs)
+                           facet_pairs, facet_classes, of_class)
     mesh = form.mesh()
     topo = mesh.topology
     nc = topo.num_cells
@@ -472,7 +472,7 @@ def _local_form_tensor(form: Form):
         kern = ci.interior_facet_kernel()
         consts = consts_of(ci)
         nco = len(ci.coefficients)
-        cp, cm, lfp, lfm, o_rel = facet_pairs(mesh, facets)
+        cp, cm, lfp, lfm, o_rel = facet_pairs(mesh, facets, ci.ftype)
 
         def fn(a, b, lp, lm, o, *w):
             return kern(a, b, lp, lm, o, w[:nco], w[nco:], consts)
@@ -494,6 +494,15 @@ def _local_form_tensor(form: Form):
         else:
             contribs.append((cp, loc))
 
+    def by_class(integral, facets, run, *sides):
+        """``run`` per facet class (prisms: triangle and quad facets,
+        each with its own rule), on that class's facets."""
+        for ft in facet_classes(mesh):
+            sub = of_class(mesh, facets, ft)
+            if len(sub):
+                run(CompiledIntegral(integral, test, trial, mesh, ftype=ft),
+                    sub, *sides)
+
     for integral in form.integrals():
         itype = integral.integral_type
         if itype == "cell":
@@ -507,21 +516,18 @@ def _local_form_tensor(form: Form):
                 one = Integral(_one_sided(integral.integrand),
                                "exterior_facet", integral.subdomain_id,
                                integral.metadata, integral.domain)
-                run_facets(CompiledIntegral(one, test, trial, mesh),
-                           facets, (0,))
+                by_class(one, facets, run_facets, (0,))
         elif itype == "interior_facet":
             facets = interior_facets(mesh, integral.subdomain_id)
             if not len(facets):
                 continue
             if _is_two_sided(integral.integrand):
-                run_two_sided(CompiledIntegral(integral, test, trial, mesh),
-                              facets)
+                by_class(integral, facets, run_two_sided)
             else:
                 one = Integral(_one_sided(integral.integrand),
                                "exterior_facet", "everywhere",
                                integral.metadata, integral.domain)
-                run_facets(CompiledIntegral(one, test, trial, mesh),
-                           facets, (0, 1))
+                by_class(one, facets, run_facets, (0, 1))
         else:
             raise NotImplementedError(
                 f"Slate local tensors over {itype!r} integrals")

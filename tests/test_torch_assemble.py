@@ -105,7 +105,10 @@ def test_unported_routes_raise():
     """What the port still refuses raises NotImplementedError naming its
     ROADMAP.md item.  The cases this test first held to raising (0-forms,
     facet integrals, rows and columns on two grids, unstructured meshes)
-    now take the gather route (tests/test_torch_gather.py)."""
+    now take the gather route (tests/test_torch_gather.py); extruded
+    meshes (the column plan) and Q_k >= 2 on the gather route (the
+    sum-factorised plan) are ported too (tests/test_torch_extrusion.py,
+    tests/test_torch_tensor_product.py)."""
     mesh = T.UnitSquareMesh(2, 2)
     V = T.FunctionSpace(mesh, "CG", 1)
     assert isinstance(T.assemble(T.Function(V) * T.dx), float)  # 0-form
@@ -120,12 +123,12 @@ def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="item 17"):  # complex
         T.assemble(T.Constant(1j) * T.TestFunction(V) * T.dx)
     ext = T.ExtrudedMesh(T.UnitIntervalMesh(2), 2)            # extruded
-    with pytest.raises(NotImplementedError, match="item 15"):
-        T.FunctionSpace(ext, "CG", 1)
+    assert T.FunctionSpace(ext, "CG", 1).sdata.column_numbered
     from firedrake_tpu_torch.assemble import FormAssembler as TFA
     Q = T.FunctionSpace(T.UnitSquareMesh(2, 2, quadrilateral=True), "CG", 2)
-    with pytest.raises(NotImplementedError, match="item 14"):  # spectral
-        TFA(T.TrialFunction(Q) * T.TestFunction(Q) * T.dx, use_stencil=False)
+    asm = TFA(T.TrialFunction(Q) * T.TestFunction(Q) * T.dx,   # spectral
+              use_stencil=False)
+    assert asm._statics[0]["spectral"] is not None
 
 
 def test_function_assign_and_bc_zero_match_jax():

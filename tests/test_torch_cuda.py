@@ -409,3 +409,53 @@ def test_hybridized_and_scpc_solves_on_card_match_cpu(on_cuda):
         assert g.is_cuda
         assert float((g.cpu() - c).abs().max()) \
             <= 1e-10 * float(c.abs().max())
+
+
+def _extruded_case():
+    """A column-plan operator on extruded hexes (with Dirichlet rows), a
+    Q3 spectral operator on quads (gather route), an HDiv prism mass
+    matrix and a prism facet vector, as host arrays."""
+    m = T.ExtrudedMesh(T.UnitSquareMesh(3, 3, quadrilateral=True), 3)
+    V = T.FunctionSpace(m, "CG", 2)
+    u, v = T.TrialFunction(V), T.TestFunction(V)
+    X = T.SpatialCoordinate(m)
+    f = T.Function(V).interpolate(1 + X[0] * X[2])
+    bc = T.DirichletBC(V, 0.0, "top")
+    A = T.assemble((T.inner(T.grad(u), T.grad(v)) + f * u * v) * T.dx,
+                   bcs=[bc])
+    x = torch.linspace(-1.0, 1.0, V.dim, dtype=torch.float64,
+                       device=A.data.device)
+    q = T.UnitSquareMesh(4, 4, quadrilateral=True)
+    Q = T.FunctionSpace(q, "CG", 3)
+    S = FormAssembler((T.inner(T.grad(T.TrialFunction(Q)),
+                               T.grad(T.TestFunction(Q)))
+                       + T.TrialFunction(Q) * T.TestFunction(Q)) * T.dx,
+                      use_stencil=False)
+    p = T.ExtrudedMesh(T.UnitSquareMesh(3, 3), 2)
+    W = T.FunctionSpace(p, T.HDiv(T.TensorProductElement(
+        T.FiniteElement("BDM", "triangle", 1),
+        T.FiniteElement("DG", "interval", 0))))
+    M = T.assemble(T.dot(T.TestFunction(W), T.TrialFunction(W)) * T.dx)
+    P = T.FunctionSpace(p, "CG", 1)
+    Y = T.SpatialCoordinate(p)
+    t = T.TestFunction(P)
+    b = T.assemble(Y[0] * t * T.ds + Y[0] * T.avg(t) * T.dS)
+    return (A.to_dense(), A.matvec(x).cpu().numpy(),
+            A.transpose_matvec(x).cpu().numpy(), S.assemble().to_dense(),
+            M.to_dense(), b.dat.cpu().numpy(), A.data.device,
+            S._statics[0]["spectral"] is not None)
+
+
+def test_extruded_and_spectral_on_card_match_cpu(on_cuda):
+    """The column plan (its ColumnMatrix, matvec and transpose), the
+    sum-factorised plan, an HDiv prism mass matrix and prism facet
+    integrals on the card, within 1e-12 of the CPU; K1 and K2 launch on
+    none of them."""
+    K.kernel_launches = BI.kernel_launches = 0
+    card = _extruded_case()
+    assert card[6].type == "cuda" and card[7]
+    assert K.kernel_launches == 0 and BI.kernel_launches == 0
+    T.set_device("cpu")
+    cpu = _extruded_case()
+    for a, b in zip(card[:6], cpu[:6]):
+        assert np.abs(a - b).max() <= 1e-12 * max(np.abs(b).max(), 1.0)

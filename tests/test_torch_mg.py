@@ -262,10 +262,15 @@ def test_gmg_patch_on_unstructured_hierarchy():
 
 
 def test_unported_hierarchies_and_levels_raise():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.MeshHierarchy(T.UnitSquareMesh(2, 2, quadrilateral=True), 1)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        T.mg.mesh.ExtrudedMeshHierarchy(_square(T), layers=2)
+    # quad and extruded hierarchies are ported
+    # (tests/test_torch_tensor_product.py, tests/test_torch_extrusion.py);
+    # non-nested ones still raise naming their item
+    assert len(T.MeshHierarchy(T.UnitSquareMesh(2, 2, quadrilateral=True),
+                               1)) == 2
+    assert [m._layers for m in T.mg.mesh.ExtrudedMeshHierarchy(
+        _square(T), layers=2)] == [2] * len(_square(T))
+    with pytest.raises(NotImplementedError, match="item 18"):
+        T.NonNestedHierarchy(T.UnitSquareMesh(2, 2), T.UnitSquareMesh(3, 3))
     mesh = _square(T).meshes[-1]
     V = T.FunctionSpace(mesh, "CG", 1)
     a, bcs = _poisson(T, V)
