@@ -15,8 +15,15 @@
                                           # cases' CPU convergence study
                                           # (bounds)
     python3 chip_smoke.py --only slate    # device, build and the named
-                                          # phases alone (slate, dg_mixed,
-                                          # gather, nonlinear, extruded)
+                                          # phases alone (main, slate,
+                                          # dg_mixed, gather, nonlinear,
+                                          # extruded, fieldsplit)
+    python3 chip_smoke.py --only pcd_limit
+                                          # PCDPC's dense Kp pseudo-
+                                          # inverse on the card and the
+                                          # host at navier_stokes_pcd_64's
+                                          # size and the next (seconds,
+                                          # memory)
 
 Phases of the card run (each prints its own lines and its seconds; any
 failure raises and the exit code is non-zero):
@@ -166,7 +173,41 @@ failure raises and the exit code is non-zero):
              the first 4,096 cells, both timed.  K1 and K2 launch 0 times
              on these paths.  Every case runs and prints; the phase fails
              after the last if any case failed.
-10. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
+10. fieldsplit — each case with every launch count set to 0 before its
+             counted solve and read after, printing its stage times
+             (assembly, PC set-up, GMG set-up, K2, solve: CUDA events;
+             Newton per step): stokes_th_schur_256 (tests/regression/
+             test_solver_composition.py test_mg_inside_fieldsplit on
+             MeshHierarchy(UnitSquareMesh(16), 4): Taylor-Hood P2-P1,
+             592,387 dofs, Poiseuille flow; fgmres at rtol 1e-8, Schur
+             full, GMG with Chebyshev(3) on the velocity block, MassInvPC
+             on the pressure); gates: converged, iterations within one of
+             the CPU rehearsal, the velocity's errornorm below
+             FIELDSPLIT_ERR, K1 launched, K2 not; then K2's large variant
+             on that operator's (66,049, 39, 39) Vanka patches against
+             its plain version, timed as in phase 3.
+             stokes_th_vanka_24 (test_vanka_smoother at UnitSquareMesh(24),
+             5,427 dofs, fgmres with pc_type vanka): iterations within 2%
+             of the rehearsal, errornorm below FIELDSPLIT_ERR, one launch
+             of K2's large variant, held to its plain version on the
+             (625, 39, 39) patches.  navier_stokes_pcd_64
+             (test_navier_stokes_schur[pcd] at UnitSquareMesh(64), 37,507
+             dofs: Newton, fgmres, Schur full, fieldsplit_1 gmres with
+             PCDPC): Newton steps equal to the rehearsal's and to the same
+             solve's on the CPU in this process, 0.9 < max|u_x| < 1.3,
+             max u_y > 0.02, the velocity within 1e-8 of the CPU's, the
+             fgmres count of every Newton step equal to the CPU's, K1
+             launched (the pressure mass, stiffness and convection), K2
+             not.  navier_stokes_pcd_128 (the same at UnitSquareMesh(128),
+             148,739 dofs, on the card alone): Newton steps and fgmres
+             counts equal to the CPU rehearsal's, the flow bounds, max
+             u_y within 1e-8 of the rehearsal's.  In the Stokes Schur
+             case and the cavities K1 is held to
+             its plain version and the lowerer on the inputs of each
+             form that the case's run gave it (every launch of the run
+             through one of them).  Every case runs and prints; the
+             phase fails after the last if any failed.
+11. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
              -lap u = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on the
              boundary, P2 on MeshHierarchy(UnitCubeMesh(8), 4) (12,582,912
              tets, 16,974,593 dofs), CG + GMG (Chebyshev(2) + Jacobi) with
@@ -248,7 +289,14 @@ CPU_REHEARSAL_ITS = {"gmg_p1_1m": 10, "gmg_star_p2_1m": 6,
                      # the condensed system (within 1%)
                      "hybridized_rt2_256": 1434, "scpc_p5_128": 1422,
                      # the extruded phase (within one)
-                     "gmg_ext_hex_1m": 11, "spectral_q4_periodic_256": 10}
+                     "gmg_ext_hex_1m": 11, "spectral_q4_periodic_256": 10,
+                     # the fieldsplit phase: fgmres iterations (within one;
+                     # Vanka within 2%)
+                     "stokes_th_schur_256": 28, "stokes_th_vanka_24": 404,
+                     # Newton steps and fgmres iterations per step (equal;
+                     # at 64^2 also the CPU solve's in the same process)
+                     "navier_stokes_pcd_64": (4, [2, 2, 3, 3]),
+                     "navier_stokes_pcd_128": (4, [2, 2, 3, 3])}
 
 
 def phase(name):
@@ -1714,9 +1762,12 @@ def cpu_study(labels):
     import firedrake_tpu_torch as fd
     labels = labels or list(GATHER) + ["newton_p1_1m", "krylov_p1_1m",
                                        "poisson_mixed_rt1_256"] \
-        + list(SLATE_LABELS) + list(EXTRUDED_STUDY)
+        + list(SLATE_LABELS) + list(EXTRUDED_STUDY) \
+        + ["stokes_th_schur_256"]
     if "poisson_mixed_rt1_256" in labels:
         mixed_cpu_study()
+    fieldsplit_cpu([lb for lb in labels if lb == "stokes_th_schur_256"],
+                   "cpu_study", study=True)
     extruded_cpu([lb for lb in EXTRUDED_STUDY if lb in labels],
                  "cpu_study", study=True)
     slate_cpu([lb for lb in SLATE_LABELS if lb in labels], "cpu_study",
@@ -1752,15 +1803,18 @@ def cpu_rehearsal(labels):
     kernel versions; prints each iteration count."""
     import firedrake_tpu_torch as fd
     labels = labels or list(GMG) + list(GATHER) + list(NONLINEAR_LABELS) \
-        + ["dg_advection_512"] + list(SLATE_LABELS) + list(EXTRUDED_LABELS)
+        + ["dg_advection_512"] + list(SLATE_LABELS) + list(EXTRUDED_LABELS) \
+        + list(FIELDSPLIT_LABELS)
     nonlinear_cpu([lb for lb in labels if lb in NONLINEAR_LABELS])
+    fieldsplit_cpu([lb for lb in labels if lb in FIELDSPLIT_LABELS],
+                   "cpu_rehearsal")
     slate_cpu([lb for lb in labels if lb in SLATE_LABELS], "cpu_rehearsal")
     extruded_cpu([lb for lb in labels if lb in EXTRUDED_LABELS],
                  "cpu_rehearsal")
     fd.set_device("cpu")
     for label in labels:
         if label in NONLINEAR_LABELS or label in SLATE_LABELS \
-                or label in EXTRUDED_LABELS:
+                or label in EXTRUDED_LABELS or label in FIELDSPLIT_LABELS:
             continue
         if label == "dg_advection_512":
             t0 = time.perf_counter()
@@ -2338,6 +2392,59 @@ def _slate_k1_check(label, st, k1):
     if args is not None:
         ci, ce, ws, cv = args[:4]
         _k1_compare(K, label, 0, K.family_spec(ci), ci, ce, ws, cv, False)
+
+
+class _K1Inputs:
+    """While entered, keeps the inputs of the first K1 launch of each cell
+    integral that the assembler (or Slate) evaluates, cloned: the path's
+    own cell-last arrays, its coefficients included; `launches` counts
+    the K1 launches made inside those calls."""
+
+    OWNERS = ("firedrake_tpu_torch.assemble",
+              "firedrake_tpu_torch.compiler.cell_eval")
+
+    def __enter__(self):
+        import importlib
+        from firedrake_tpu_torch.compiler import cell_eval as K
+        self.kept, self.launches, self.saved = {}, 0, []
+        for name in self.OWNERS:
+            mod = importlib.import_module(name)
+            fn = mod.run_cell_kernel
+            self.saved.append((mod, fn))
+            mod.run_cell_kernel = self._keeping(K, fn)
+        return self
+
+    def _keeping(self, K, fn):
+        def run(ci, ce, ws, consts, **kw):
+            if id(ci) not in self.kept and K.family_spec(ci) is not None:
+                self.kept[id(ci)] = (ci, ce.clone(),
+                                     tuple(w.clone() for w in ws),
+                                     tuple(consts))
+            before = K.kernel_launches
+            out = fn(ci, ce, ws, consts, **kw)
+            self.launches += K.kernel_launches - before
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for mod, fn in self.saved:
+            mod.run_cell_kernel = fn
+
+    def check(self, label, k1):
+        """K1 against its plain version and the lowerer, in float64 and
+        float32, on each kept form's inputs; `k1` is the run's count of
+        K1 launches, all of which must have gone through the kept
+        calls."""
+        from firedrake_tpu_torch.compiler import cell_eval as K
+        if self.launches != k1:
+            raise AssertionError(f"{label}: {k1} K1 launches, "
+                                 f"{self.launches} of them from cell "
+                                 "integrals that were kept")
+        for i, (ci, ce, ws, cv) in enumerate(self.kept.values()):
+            _k1_compare(K, f"{label} form {i}", 0, K.family_spec(ci), ci,
+                        ce, ws, cv, False)
+        print(f"{label}: K1 held to its plain version on the inputs of "
+              f"{len(self.kept)} forms ({k1} launches)")
 
 
 def _stage_line(label, run, total_s, st):
@@ -3023,6 +3130,388 @@ def extruded_cpu(labels, tag, study=False):
             prev = err
 
 
+# ------------------------------------------ fieldsplit, python PCs, Vanka
+# stokes_th_schur_256: tests/regression/test_solver_composition.py
+# test_mg_inside_fieldsplit on MeshHierarchy(UnitSquareMesh(16), 4), i.e.
+# 256^2 (Taylor-Hood P2-P1, 526,338 + 66,049 = 592,387 dofs), Poiseuille
+# flow u = (y(1 - y), 0) on the whole boundary: fgmres at rtol 1e-8, Schur
+# full, fieldsplit_0 preonly + mg (Chebyshev(3) levels) on the velocity
+# block, fieldsplit_1 MassInvPC (its Mp_ preonly + lu).
+# stokes_th_vanka_24: test_vanka_smoother at UnitSquareMesh(24) (5,427
+# dofs), fgmres at rtol 1e-8 with pc_type vanka (625 patches of 39 dofs,
+# K2's large variant); Vanka alone takes 50, 104, 404 iterations at n = 6,
+# 12, 24 and stops at the 2000 cap at 48 (the JAX package, CPU), so it
+# runs at 24.  navier_stokes_pcd_64: test_navier_stokes_schur[pcd] at
+# UnitSquareMesh(64) (37,507 dofs): the Re = 50 lid-driven cavity, Newton
+# at snes_rtol 1e-8, fgmres at rtol 1e-8, Schur full, fieldsplit_0 lu,
+# fieldsplit_1 gmres at rtol 1e-4 with PCDPC (Kp's pseudo-inverse at
+# 4,225 pressure dofs on the card), held to the same solve on the CPU in
+# this process.  navier_stokes_pcd_128: the same at UnitSquareMesh(128)
+# (148,739 dofs), on the card alone, held to the CPU rehearsal: the
+# largest size whose dense Kp pseudo-inverse the card holds (16,641
+# pressure dofs: 5.18 s, 12.4 GB, python3 chip_smoke.py --only
+# pcd_limit; at 256^2 the dense Kp alone is 34.9 GB).
+FS_N0, FS_LEVELS, VANKA_N, PCD_N, PCD_RE = 16, 4, 24, 64, 50.0
+PCD_FULL_N = 128
+# navier_stokes_pcd_128's max u_y in the CPU rehearsal (python3
+# chip_smoke.py --cpu-rehearsal navier_stokes_pcd_128 on the 8-core host
+# of an H100 machine, 784 s); the card's within 1e-8 of it
+PCD_FULL_UY = 0.5238850498573759
+SCHUR_MG_SP = {"ksp_type": "fgmres", "ksp_rtol": 1e-8,
+               "pc_type": "fieldsplit", "pc_fieldsplit_type": "schur",
+               "pc_fieldsplit_schur_fact_type": "full",
+               "fieldsplit_0_ksp_type": "preonly",
+               "fieldsplit_0_pc_type": "mg",
+               "fieldsplit_0_mg_levels_ksp_type": "chebyshev",
+               "fieldsplit_0_mg_levels_ksp_max_it": 3,
+               "fieldsplit_1_pc_type": "python",
+               "fieldsplit_1_pc_python_type": "firedrake.MassInvPC"}
+VANKA_SP = {"ksp_type": "fgmres", "ksp_rtol": 1e-8, "ksp_max_it": 2000,
+            "pc_type": "vanka"}
+PCD_SP = {"snes_rtol": 1e-8, "snes_max_it": 30, "ksp_type": "fgmres",
+          "ksp_rtol": 1e-8, "ksp_max_it": 400, "pc_type": "fieldsplit",
+          "pc_fieldsplit_type": "schur",
+          "pc_fieldsplit_schur_fact_type": "full",
+          "fieldsplit_0_ksp_type": "preonly", "fieldsplit_0_pc_type": "lu",
+          "fieldsplit_1_ksp_type": "gmres", "fieldsplit_1_ksp_rtol": 1e-4,
+          "fieldsplit_1_ksp_max_it": 100, "fieldsplit_1_pc_type": "python",
+          "fieldsplit_1_pc_python_type": "firedrake.PCDPC"}
+FIELDSPLIT_LABELS = ("stokes_th_schur_256", "stokes_th_vanka_24",
+                     "navier_stokes_pcd_64", "navier_stokes_pcd_128")
+PCD_SIZE = {"navier_stokes_pcd_64": PCD_N,
+            "navier_stokes_pcd_128": PCD_FULL_N}
+# --cpu-study stokes_th_schur_256: the hierarchy at these levels
+FIELDSPLIT_STUDY = (2, 3)
+# Bounds on the Poiseuille velocity's errornorm (P2 holds it exactly: the
+# error is the solve's): stokes_th_schur_256 twice the CPU rehearsal's
+# (python3 chip_smoke.py --cpu-rehearsal stokes_th_schur_256 on the 8-core
+# host of an H100 machine: 28 iterations, 1.647235e-7), below the test's
+# 1e-6; stokes_th_vanka_24 below 1e-7 (the JAX package's CPU run and the
+# port's: 1.13e-8).
+FIELDSPLIT_ERR = {"stokes_th_schur_256": 3.2945e-7,
+                  "stokes_th_vanka_24": 1e-7}
+# stage times of a linear solve (CUDA events; the host's LU and set-up
+# too, the card idle meanwhile)
+FIELDSPLIT_STAGES = (
+    ("assembly", _TP + "solving", "assemble"),
+    ("pc_setup", _TP + "solving", "build_pc"),
+    ("gmg_setup", _TP + "mg.vcycle", "GMGPreconditioner"),
+    ("k2", _TP + "ops.batched_inverse", "batched_inv"),
+    ("solve", _TP + "solving", "_run_ksp"))
+
+
+def _stokes_problem(fd, mesh, params):
+    """test_solver_composition.py stokes_problem on `mesh`: Taylor-Hood
+    Stokes, Poiseuille flow on the boundary, zero load."""
+    V = fd.VectorFunctionSpace(mesh, "CG", 2)
+    Q = fd.FunctionSpace(mesh, "CG", 1)
+    W = V * Q
+    u, p = fd.TrialFunctions(W)
+    v, q = fd.TestFunctions(W)
+    a = (fd.inner(fd.grad(u), fd.grad(v)) - p * fd.div(v)
+         - q * fd.div(u)) * fd.dx
+    X = fd.SpatialCoordinate(mesh)
+    uex = fd.as_vector([X[1] * (1 - X[1]), 0.0])
+    L = fd.inner(fd.Constant([0.0, 0.0]), v) * fd.dx
+    bcs = [fd.DirichletBC(W.sub(0), fd.Function(V).interpolate(uex),
+                          (1, 2, 3, 4))]
+    w = fd.Function(W)
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(a, L, w, bcs=bcs),
+        solver_parameters=params)
+    return dict(W=W, w=w, uex=uex, solver=solver)
+
+
+def _stokes_case(fd, label, n):
+    """The Stokes cases' problem: the 256^2 hierarchy's finest mesh, or
+    UnitSquareMesh(n)."""
+    if label == "stokes_th_schur_256":
+        mesh = fd.MeshHierarchy(fd.UnitSquareMesh(FS_N0, FS_N0),
+                                n).meshes[-1]
+        return _stokes_problem(fd, mesh, SCHUR_MG_SP)
+    return _stokes_problem(fd, fd.UnitSquareMesh(n, n), VANKA_SP)
+
+
+def _cavity_problem(fd, n):
+    """test_solver_composition.py navier_stokes_cavity at Re = PCD_RE with
+    PCD_SP, as a solver object (its Newton history)."""
+    mesh = fd.UnitSquareMesh(n, n)
+    V = fd.VectorFunctionSpace(mesh, "CG", 2)
+    Q = fd.FunctionSpace(mesh, "CG", 1)
+    W = V * Q
+    w = fd.Function(W)
+    u, p = fd.split(w)
+    v, q = fd.TestFunctions(W)
+    F = ((1.0 / PCD_RE) * fd.inner(fd.grad(u), fd.grad(v))
+         + fd.inner(fd.dot(u, fd.nabla_grad(u)), v)
+         - p * fd.div(v) - q * fd.div(u)) * fd.dx
+    X = fd.SpatialCoordinate(mesh)
+    lid = fd.as_vector([1.0 + 0 * X[0], 0.0 * X[1]])
+    bcs = [fd.DirichletBC(W.sub(0), fd.Function(V).interpolate(lid), 4),
+           fd.DirichletBC(W.sub(0), fd.Constant([0.0, 0.0]), (1, 2, 3))]
+    solver = fd.NonlinearVariationalSolver(
+        fd.NonlinearVariationalProblem(F, w, bcs=bcs),
+        solver_parameters=PCD_SP,
+        appctx={"Re": PCD_RE, "state": w, "velocity_space": 0,
+                "mu": 1 / PCD_RE})
+    return dict(W=W, w=w, solver=solver)
+
+
+def _flow(w):
+    """(max |u_x|, max u_y) of the cavity's velocity."""
+    ud = w.subfunctions[0].dat.reshape(-1, 2)
+    return float(ud[:, 0].abs().max()), float(ud[:, 1].max())
+
+
+def _fs_stage_line(label, total_s, st):
+    ms = st.ms()
+    print(f"{label} stages: total_ms {1e3 * total_s:.3f} exclusive_ms "
+          + " ".join(f"{k} {v[0]:.3f}" for k, v in ms.items())
+          + " other " + f"{1e3 * total_s - sum(v[0] for v in ms.values()):.3f}"
+          + "; calls " + " ".join(f"{k} {v[2]}" for k, v in ms.items()))
+
+
+def _stokes_run(fd, label):
+    """One Stokes case on the card: host set-up, then the counted solve
+    with its stage times; the gates."""
+    n = FS_LEVELS if label == "stokes_th_schur_256" else VANKA_N
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _stokes_case(fd, label, n))
+    solver = p["solver"]
+    with _Counts() as counts, _EventStages(FIELDSPLIT_STAGES) as st, \
+            _K1Inputs() as k1_inputs:
+        _, solve_s = _sync_time(solver.solve)
+    _fs_stage_line(label, solve_s, st)
+    err = fd.errornorm(p["uex"], p["w"].subfunctions[0])
+    its, want = solver.ksp_iterations, CPU_REHEARSAL_ITS[label]
+    bound = FIELDSPLIT_ERR[label]
+    W = p["W"]
+    print(f"{label}: dofs {W.subspaces[0].dim} + {W.subspaces[1].dim} = "
+          f"{W.dim} setup_s {setup_s:.3f} solve_s {solve_s:.3f} "
+          f"iterations {its} (CPU rehearsal {want}) converged "
+          f"{solver.converged} errornorm_u {err:.4e} (bound {bound}) "
+          f"device_peak {torch.cuda.max_memory_allocated()} on "
+          f"{p['w'].dat.device} k1_launches {counts.k1} k1_by_variant "
+          f"{counts.k1_by_variant} k2_launches {counts.k2} k2_large "
+          f"{counts.k2_large} lowerer_evals {counts.lowerer}")
+    if not p["w"].dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    tol = 1 if label == "stokes_th_schur_256" else 0.02 * want
+    if not (solver.converged and abs(its - want) <= tol):
+        raise AssertionError(f"{label}: {its} iterations, the CPU "
+                             f"rehearsal took {want}")
+    if not err < bound:
+        raise AssertionError(f"{label}: errornorm {err} >= {bound}")
+    k1_inputs.check(label, counts.k1)
+    return p, counts, st
+
+
+def stokes_schur_run(fd, label):
+    """stokes_th_schur_256: K1 on MassInvPC's pressure mass, K2 not on the
+    solve; then the Vanka patches of its assembled operator, (66,049, 39,
+    39), through K2's large variant against its plain version (set-up
+    only: Vanka alone does not converge at this size)."""
+    from firedrake_tpu_torch.solvers.preconditioners import (
+        vanka_patches, patch_matrices)
+    p, counts, st = _stokes_run(fd, label)
+    if counts.k1 <= 0 or counts.k2:
+        raise AssertionError(f"{label}: K1 {counts.k1} launches, K2 "
+                             f"{counts.k2} (K1 >= 1, K2 0 expected)")
+    A = st.first_args["pc_setup"][0].mat
+    (idx, mask), patch_s = _sync_time(lambda: vanka_patches(A, p["W"], 1))
+    Ap, gather_s = _sync_time(lambda: patch_matrices(A, idx, mask))
+    print(f"{label}: Vanka patches {tuple(Ap.shape)} host lists_s "
+          f"{patch_s:.3f} device gather_s {gather_s:.3f}")
+    row = _k2_path_row(f"{label} Vanka", Ap)
+    del p, st, A, Ap
+    _release(label)
+    return counts, row
+
+
+def stokes_vanka_run(fd, label):
+    """stokes_th_vanka_24: one launch of K2's large variant on the 625
+    Vanka patches, held to its plain version on them."""
+    p, counts, st = _stokes_run(fd, label)
+    Ap = st.first_args["k2"][0]
+    if counts.k2 != 1 or counts.k2_large != 1 or Ap.shape[-1] <= 32:
+        raise AssertionError(f"{label}: K2 {counts.k2} launches, "
+                             f"{counts.k2_large} large, on {Ap.shape}")
+    row = _k2_path_row(label, Ap)
+    del p, st, Ap
+    _release(label)
+    return counts, row
+
+
+def cavity_run(fd, label):
+    """A cavity case on the card, per Newton step the stage times; held
+    to the CPU rehearsal's Newton steps and fgmres counts, to the test's
+    flow bounds and, within 1e-8, to the same solve on the CPU in this
+    process (navier_stokes_pcd_64: the velocity, and the counts too) or
+    to the rehearsal's max u_y (navier_stokes_pcd_128); K1 to its plain
+    version on the inputs the run gave it.  Returns (counts, None): no
+    K2 row."""
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _cavity_problem(fd, PCD_SIZE[label]))
+    solver = p["solver"]
+    with _Counts() as counts, _StageTimes(NEWTON_STAGES) as st, \
+            _K1Inputs() as k1_inputs:
+        _, solve_s = _sync_time(solver.solve)
+    _steps_line(label, solver.history, st)
+    peak = torch.cuda.max_memory_allocated()
+    n, ksp = solver.snes_iterations, [h["ksp_iterations"]
+                                      for h in solver.history]
+    want_n, want_k = CPU_REHEARSAL_ITS[label]
+    ux, uy = _flow(p["w"])
+    u = p["w"].subfunctions[0].dat
+    if label == "navier_stokes_pcd_64":
+        fd.set_device("cpu")
+        t0 = time.perf_counter()
+        try:
+            q = _cavity_problem(fd, PCD_N)
+            q["solver"].solve()
+        finally:
+            fd.set_device(torch.device("cuda"))
+        u_cpu = q["w"].subfunctions[0].dat
+        diff = float((u.cpu() - u_cpu).abs().max()) / float(u_cpu.abs().max())
+        cpu = (q["solver"].snes_iterations,
+               [h["ksp_iterations"] for h in q["solver"].history])
+        ref = (f"this process's CPU solve {cpu[0]} {cpu[1]}, card_vs_cpu "
+               f"{diff:.3e}, cpu solve_s {time.perf_counter() - t0:.1f}")
+        del q
+    else:
+        cpu = (want_n, want_k)
+        diff = abs(uy - PCD_FULL_UY) / PCD_FULL_UY
+        ref = f"max u_y {PCD_FULL_UY!r}, card_vs_cpu {diff:.3e}"
+    print(f"{label}: dofs {p['W'].subspaces[0].dim} + "
+          f"{p['W'].subspaces[1].dim} = {p['W'].dim} setup_s {setup_s:.3f} "
+          f"solve_s {solve_s:.3f} newton_steps {n} fgmres_iterations {ksp} "
+          f"(CPU rehearsal {want_n} {want_k}; {ref}) converged "
+          f"{solver.converged} max|u_x| {ux:.6f} max u_y {uy!r} "
+          f"device_peak {peak} on {u.device} k1_launches {counts.k1} "
+          f"k1_by_variant {counts.k1_by_variant} k2_launches {counts.k2} "
+          f"lowerer_evals {counts.lowerer}")
+    if not u.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if not (solver.converged and (n, ksp) == (want_n, want_k) == cpu):
+        raise AssertionError(f"{label}: {n} Newton steps, fgmres {ksp}; "
+                             f"the CPU rehearsal {want_n}, {want_k}, the "
+                             f"CPU {cpu}")
+    if not (0.9 < ux < 1.3 and uy > 0.02):
+        raise AssertionError(f"{label}: flow max|u_x| {ux}, max u_y {uy}")
+    if not diff <= 1e-8:
+        raise AssertionError(f"{label}: card {diff} from the CPU")
+    if counts.k1 <= 0 or counts.k2:
+        raise AssertionError(f"{label}: K1 {counts.k1} launches, K2 "
+                             f"{counts.k2} (K1 >= 1, K2 0 expected)")
+    k1_inputs.check(label, counts.k1)
+    del p, st
+    _release(label)
+    return counts, None
+
+
+def fieldsplit_phase():
+    """stokes_th_schur_256, stokes_th_vanka_24, navier_stokes_pcd_64,
+    navier_stokes_pcd_128."""
+    t0 = phase("fieldsplit")
+    import firedrake_tpu_torch as fd
+    fd.set_device(torch.device("cuda"))
+    used, rows, failed = {}, {}, []
+    for label, run in (("stokes_th_schur_256", stokes_schur_run),
+                       ("stokes_th_vanka_24", stokes_vanka_run),
+                       ("navier_stokes_pcd_64", cavity_run),
+                       ("navier_stokes_pcd_128", cavity_run)):
+        t1 = time.perf_counter()
+        try:
+            used[label], rows[label] = run(fd, label)
+        except AssertionError as exc:
+            # the later cases still run and print; the phase fails below
+            failed.append(f"{label}: {exc}")
+            _release(label)
+        print(f"{label}: case_s {time.perf_counter() - t1:.1f}")
+    if failed:
+        raise AssertionError("fieldsplit phase: " + "; ".join(failed))
+    phase_done("fieldsplit", t0)
+    return used, {k: v for k, v in rows.items() if v is not None}
+
+
+def pcd_limit():
+    """PCDPC's Kp solve (solvers/pcs.py _dense_pinv_solver: the dense
+    pseudo-inverse of the pressure stiffness, made once per Newton step)
+    at navier_stokes_pcd_64's size and the next, UnitSquareMesh(64) and
+    (128): seconds on the card (a warm-up call first) and the device
+    memory it takes; the same on the host at 64 (the in-process CPU
+    solve's)."""
+    import firedrake_tpu_torch as fd
+    from firedrake_tpu_torch.solvers.pcs import _dense_pinv_solver
+
+    def stiffness(n):
+        Q = fd.FunctionSpace(fd.UnitSquareMesh(n, n), "CG", 1)
+        p, q = fd.TrialFunction(Q), fd.TestFunction(Q)
+        return fd.assemble(fd.inner(fd.grad(p), fd.grad(q)) * fd.dx)
+
+    fd.set_device(torch.device("cuda"))
+    _dense_pinv_solver(stiffness(8))
+    for n in (PCD_N, 2 * PCD_N):
+        Kp = stiffness(n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        solve, pinv_s = _sync_time(lambda: _dense_pinv_solver(Kp))
+        extra = torch.cuda.max_memory_allocated() - base
+        r = torch.ones(Kp.shape[0], dtype=torch.float64, device="cuda")
+        _, apply_s = _sync_time(lambda: solve(r))
+        print(f"pcd_limit card n {n}: pressure dofs {Kp.shape[0]} pinv_s "
+              f"{pinv_s:.3f} apply_ms {1e3 * apply_s:.3f} device_peak_extra "
+              f"{extra} ({extra / 2 ** 30:.3f} GiB)", flush=True)
+        del solve, Kp
+    fd.set_device("cpu")
+    try:
+        Kp = stiffness(PCD_N)
+        t0 = time.perf_counter()
+        _dense_pinv_solver(Kp)
+        print(f"pcd_limit host n {PCD_N}: pressure dofs {Kp.shape[0]} "
+              f"pinv_s {time.perf_counter() - t0:.3f}", flush=True)
+    finally:
+        fd.set_device(torch.device("cuda"))
+
+
+def fieldsplit_cpu(labels, tag, study=False):
+    """The fieldsplit phase's cases on the CPU: at the card's size (the
+    counts and errors the card must match) or, with `study`,
+    stokes_th_schur_256 at the hierarchy levels of FIELDSPLIT_STUDY."""
+    import firedrake_tpu_torch as fd
+    fd.set_device("cpu")
+    for label in labels:
+        if label in PCD_SIZE:
+            if study:
+                continue
+            t0 = time.perf_counter()
+            p = _cavity_problem(fd, PCD_SIZE[label])
+            p["solver"].solve()
+            ux, uy = _flow(p["w"])
+            print(f"{tag} {label}: dofs {p['W'].dim} newton_steps "
+                  f"{p['solver'].snes_iterations} fgmres_iterations "
+                  f"{[h['ksp_iterations'] for h in p['solver'].history]} "
+                  f"max|u_x| {ux!r} max u_y {uy!r} seconds "
+                  f"{time.perf_counter() - t0:.1f} host_max_rss_gib "
+                  f"{_max_rss_gib():.2f}", flush=True)
+            continue
+        full = FS_LEVELS if label == "stokes_th_schur_256" else VANKA_N
+        sizes = FIELDSPLIT_STUDY if study else (full,)
+        if study and label != "stokes_th_schur_256":
+            continue
+        for s in sizes:
+            t0 = time.perf_counter()
+            p = _stokes_case(fd, label, s)
+            p["solver"].solve()
+            err = fd.errornorm(p["uex"], p["w"].subfunctions[0])
+            print(f"{tag} {label} size {s}: dofs {p['W'].dim} iterations "
+                  f"{p['solver'].ksp_iterations} converged "
+                  f"{p['solver'].converged} errornorm_u {err:.6e} seconds "
+                  f"{time.perf_counter() - t0:.1f} host_max_rss_gib "
+                  f"{_max_rss_gib():.2f}", flush=True)
+
+
 def main():
     t0 = time.perf_counter()
     device_phase()
@@ -3037,6 +3526,8 @@ def main():
     slate_used, k2_paths = slate_phase()
     used.update(slate_used)
     used.update(extruded_phase())
+    fs_used, vanka_rows = fieldsplit_phase()
+    used.update(fs_used)
     used["gmg_p2_tet_16m"], k1_action = north_star_phase()
     for label, c in used.items():
         print(f"launches {label}: k1 {c.k1} k2 {c.k2} k2_large "
@@ -3078,8 +3569,8 @@ def main():
          # on the slate phase's own blocks: hybridized_rt2_256's packed
          # broken mixed matrices, scpc_p5_128's interior blocks
          "paths": k2_paths},
-        # the large variant (33 <= n <= 128), same source; no solve path
-        # of this script has patches that large
+        # the large variant (33 <= n <= 128), same source: the Vanka
+        # patches (n = 39) of the fieldsplit phase
         {"name": "batched_inv_large",
          "route": "cuda",
          "source": "firedrake_tpu_torch/csrc/batched_inv.cu",
@@ -3093,7 +3584,10 @@ def main():
          "plain_ms": k2_large["plain_ms"],
          "bound_ms": k2_large["bound_ms"],
          "bound_by": k2_large["bound_by"],
-         "library_ms": k2_large["library_ms"]}],
+         "library_ms": k2_large["library_ms"],
+         # on the Vanka patches: stokes_th_vanka_24's solve, and
+         # stokes_th_schur_256's operator at full width
+         "paths": vanka_rows}],
         # the CSR matrix's SpMV at 1,050,625 rows (torch ops, no kernel)
         "gather_matvec_ms": matvec,
         # poisson_mixed_rt1_256's BlockMatrix matvec (torch ops, no kernel)
@@ -3108,9 +3602,11 @@ def only(names):
     trying one phase on the card); prints no result line."""
     device_phase()
     build_phase()
-    phases = {"slate": slate_phase, "dg_mixed": dg_mixed_phase,
+    phases = {"main": main_phase, "slate": slate_phase,
+              "dg_mixed": dg_mixed_phase,
               "gather": gather_phase, "nonlinear": nonlinear_phase,
-              "extruded": extruded_phase}
+              "extruded": extruded_phase, "fieldsplit": fieldsplit_phase,
+              "pcd_limit": pcd_limit}
     for name in names:
         phases[name]()
     print("only: done")

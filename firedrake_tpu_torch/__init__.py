@@ -22,7 +22,10 @@ block assembly into a BlockMatrix, mixed.py) with the H(div)/H(curl)
 elements RT, BDM, BDFM, RTCF, RTCE and N1curl (Piola maps, dof signs);
 Slate (slate.py: element-local tensors, inverses and solves through the
 batched-inverse kernel), the HDiv trace and broken elements, and the
-hybridization and static-condensation (SCPC) solver options; extruded
+hybridization and static-condensation (SCPC) solver options; fieldsplit
+(additive, multiplicative, Schur), composite PCs, the python PCs
+(AssembledPC, AuxiliaryOperatorPC, MassInvPC, PCDPC) and the Vanka patch
+smoother (solvers/composition.py, solvers/pcs.py); extruded
 meshes (column-numbered Lagrange spaces assembled by the column plan into
 a ColumnMatrix, assembly/columns.py; prism facet integrals by facet
 class; HDiv(TensorProductElement(...)) prism elements, elements/
@@ -55,6 +58,8 @@ from .slate import (Tensor, AssembledVector, assemble_slate,
 from .adapt import refine_marked, adapt
 from .nullspace import VectorSpaceBasis, MixedVectorSpaceBasis
 from .solvers.snes import AuxiliaryOperatorSNES
+from .solvers.pcs import (PCBase, AssembledPC, AuxiliaryOperatorPC,
+                          MassInvPC, PCDPC)
 from .mg import MeshHierarchy, HierarchyBase, prolong, restrict, inject
 from .mg.mesh import (ExtrudedMeshHierarchy, SemiCoarsenedExtrudedHierarchy,
                       NonNestedHierarchy)

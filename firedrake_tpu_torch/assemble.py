@@ -300,6 +300,42 @@ def _accumulation(pos_all, nseg, device, sorted_=False, order=None):
     return _Tables(dev(tbl), dev(tblx), dev(rows_x, torch.int64))
 
 
+def _accumulation_device(pos_all, nseg):
+    """_accumulation's plan built where the int64 tensor ``pos_all`` lies:
+    the same stable order and the same tables, entry for entry, without
+    the host's sort (the patch PCs' millions of slots)."""
+    nvals = pos_all.numel()
+    src = torch.nonzero(pos_all < nseg).reshape(-1)
+    spos, perm = torch.sort(pos_all[src], stable=True)
+    order = src[perm]
+    counts = torch.bincount(spos, minlength=nseg)
+    K = int(counts.max()) if counts.numel() else 0
+    if K == 0 or K > _TABLE_MAX_K or nseg * min(K, 4) > 6e7:
+        return _Sorted(order, counts)
+    col = torch.arange(len(order), device=order.device) \
+        - (torch.cumsum(counts, 0) - counts)[spos]
+    # rows with more than nb contributions, for nb = 0..K (host: K + 1
+    # numbers), and _accumulation's split point from them
+    above = nseg - np.cumsum(
+        torch.bincount(counts, minlength=K + 1).cpu().numpy())
+    NB = min(range(1, K + 1), key=lambda nb: nseg * nb
+             + int(above[nb]) * (K - nb))
+    order32 = order.to(torch.int32)
+    tbl = torch.full((NB, nseg), nvals, dtype=torch.int32,
+                     device=order.device)
+    m = col < NB
+    tbl[col[m], spos[m]] = order32[m]
+    rows_x = torch.nonzero(counts > NB).reshape(-1)
+    if not len(rows_x):
+        return _Tables(tbl, None, None)
+    ridx = torch.full((nseg,), -1, dtype=torch.int64, device=order.device)
+    ridx[rows_x] = torch.arange(len(rows_x), device=order.device)
+    tblx = torch.full((K - NB, len(rows_x)), nvals, dtype=torch.int32,
+                      device=order.device)
+    tblx[col[~m] - NB, ridx[spos[~m]]] = order32[~m]
+    return _Tables(tbl, tblx, rows_x)
+
+
 class FormAssembler:
     """Static plan + device evaluation for one form (reference analogue:
     ParloopFormAssembler, assemble.py:1019)."""

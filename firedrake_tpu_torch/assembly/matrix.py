@@ -83,6 +83,20 @@ class Matrix:
         self.bcs = tuple(bcs)
         self._tables = device_tables(sparsity, self.data.device)
 
+    @classmethod
+    def from_scipy(cls, csr, space=None):
+        """A device Matrix holding the stored entries of a host scipy
+        sparse matrix, explicit zeros included (the JAX package's
+        EllMatrix role, for derived operators such as the selfp Schur
+        approximation)."""
+        csr = csr.tocsr()
+        csr.sum_duplicates()          # sorted, unique: the Sparsity's order
+        rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+        sp = Sparsity(csr.shape[0], csr.shape[1],
+                      [(rows[:, None], csr.indices[:, None])])
+        return cls(sp, torch.as_tensor(csr.data.astype(np.float64),
+                                       device=get_device()), space, space)
+
     @property
     def data(self):
         return self._data

@@ -275,7 +275,26 @@ class BlockMatrix:
                             device=dev)
             for i, Vi in enumerate(self.W_test.subspaces)])
 
+    def entries(self, rows, cols):
+        """A[rows, cols] for int64 index tensors of one shape in the
+        concatenated numbering, each looked up in its block's stored
+        entries (Matrix.entries); 0 in absent blocks."""
+        dev, shape = rows.device, rows.shape
+        rows, cols = rows.reshape(-1), cols.reshape(-1)
+        rf = torch.bucketize(rows, torch.as_tensor(
+            self.row_offsets[1:], device=dev), right=True)
+        cf = torch.bucketize(cols, torch.as_tensor(
+            self.col_offsets[1:], device=dev), right=True)
+        out = torch.zeros(rows.shape, dtype=torch.float64, device=dev)
+        for (i, j), B in self.blocks.items():
+            sel = (rf == i) & (cf == j)
+            out[sel] = B.entries(rows[sel] - int(self.row_offsets[i]),
+                                 cols[sel] - int(self.col_offsets[j]))
+        return out.view(shape)
+
     def to_scipy(self):
+        """The host CSR of the whole operator: the blocks' stored entries,
+        explicit zeros included (the pattern the Vanka patches read)."""
         from scipy.sparse import bmat
         n = self.W_test.num_sub_spaces
         m = self.W_trial.num_sub_spaces

@@ -3,13 +3,20 @@ firedrake/dmhooks.py + PETSc's options-prefix machinery): a
 ``solver_parameters`` dict whose prefixed keys configure nested solvers,
 e.g. ``mg_levels_ksp_type``, ``mg_levels_pc_type``, ``mg_coarse_pc_type``.
 
-Every solver/PC built here is a callable on device tensors.  Ported so
-far: ``none``, ``jacobi``, ``lu``/``cholesky``, ``ksp``, ``mg`` (geometric
-multigrid) and ``patch`` (vertex-star additive Schwarz), under any of the
-KSP methods of solvers/krylov.py.  Every other ``pc_type`` raises
-NotImplementedError naming ROADMAP.md queue 1, item 16.
+Every solver/PC built here is a callable on device tensors.  Ported:
+``none``, ``jacobi`` (and ``bjacobi``/``sor``/``ilu``/``icc``, which
+substitute it with a warning), ``lu``/``cholesky``, ``ksp``, ``mg``/
+``gamg`` (geometric multigrid), ``patch`` (vertex-star additive Schwarz),
+``vanka``, ``python`` (solvers/pcs.py and user subclasses), ``composite``
+and ``fieldsplit`` (additive, multiplicative, symmetric_multiplicative and
+Schur), under any of the KSP methods of solvers/krylov.py.  ``pmg``,
+``linesmooth``, ``extruded_star`` and ``gridline`` raise
+NotImplementedError naming ROADMAP.md queue 1, item 16; ``hypre`` has no
+analogue.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -173,6 +180,24 @@ def _pc_jacobi(ctx, params, prefix):
     return lambda r: dinv * r
 
 
+#: (pc_type, prefix) pairs already warned about
+_warned_substitutions = set()
+
+
+def _pc_jacobi_substitute(ctx, params, prefix):
+    """bjacobi, sor, ilu and icc: point-Jacobi, with a warning once per
+    (type, prefix), as in the JAX package."""
+    pc_type = opt(params, prefix, "pc_type")
+    if (pc_type, prefix) not in _warned_substitutions:
+        _warned_substitutions.add((pc_type, prefix))
+        warnings.warn(
+            f"pc_type {pc_type!r} has no native implementation; "
+            "substituting point-Jacobi. Expect different convergence: "
+            "consider 'jacobi', 'patch'/'vanka' smoothers, 'mg', or a "
+            "python PC instead.", stacklevel=3)
+    return _pc_jacobi(ctx, params, prefix)
+
+
 def _pc_lu(ctx, params, prefix):
     """Exact inverse: a dense inverse on the device up to
     pc_factor_dense_limit unknowns, a host sparse LU above it."""
@@ -214,6 +239,255 @@ def _pc_patch(ctx, params, prefix):
     return make_star_patch(ctx.mat, ctx.space)
 
 
-_PCS = {"none": _pc_none, "jacobi": _pc_jacobi, "lu": _pc_lu,
-        "cholesky": _pc_lu, "ksp": _pc_ksp, "mg": _pc_mg,
-        "patch": _pc_patch, "asm": _pc_patch, "star": _pc_patch}
+def _pc_vanka(ctx, params, prefix):
+    from .preconditioners import make_vanka_patch
+    if ctx.mat is None or ctx.space is None:
+        raise ValueError("vanka pc needs an assembled matrix + space")
+    exclude = opt(params, prefix, "pc_vanka_exclude_field", None)
+    return make_vanka_patch(ctx.mat, ctx.space, exclude_field=exclude)
+
+
+def _pc_python(ctx, params, prefix):
+    name = opt(params, prefix, "pc_python_type", "")
+    pc_obj = _resolve_python_pc(name)()
+    pc_obj.initialize_ctx(ctx, params, prefix)
+    return pc_obj.apply
+
+
+def _resolve_python_pc(name):
+    """``firedrake.X`` (or plain ``X``) is solvers/pcs.py's X; any other
+    dotted path is imported (a user's AuxiliaryOperatorPC subclass)."""
+    from . import pcs as _pcs
+    short = name.rsplit(".", 1)[-1]
+    if short in _pcs.__all__ or short in _pcs._UNPORTED:
+        return getattr(_pcs, short)
+    if "." in name and not name.startswith("firedrake."):
+        import importlib
+        mod, cls = name.rsplit(".", 1)
+        try:
+            return getattr(importlib.import_module(mod), cls)
+        except (ImportError, AttributeError) as e:
+            raise ImportError(f"cannot resolve pc_python_type {name!r}: "
+                              f"{e}") from e
+    raise NotImplementedError(
+        f"pc_python_type {name!r} is not a python PC of solvers/pcs.py; "
+        f"available: {sorted(_pcs.__all__)}")
+
+
+def _pc_composite(ctx, params, prefix):
+    """PCCOMPOSITE: additive or multiplicative combination of sub-PCs
+    configured under sub_0_, sub_1_, ... prefixes."""
+    names = [s.strip() for s in
+             opt(params, prefix, "pc_composite_pcs", "").split(",") if s]
+    ctype = opt(params, prefix, "pc_composite_type", "additive")
+    subs = []
+    for i, nm in enumerate(names):
+        sub_params = dict(params)
+        sub_params[prefix + f"sub_{i}_pc_type"] = nm
+        subs.append(build_pc(ctx, sub_params, prefix + f"sub_{i}_"))
+    op = ctx.matvec
+
+    def pc(r):
+        z = subs[0](r)
+        for s in subs[1:]:
+            z = z + (s(r) if ctype == "additive" else s(r - op(z)))
+        return z
+
+    return pc
+
+
+# --------------------------------------------------------------- fieldsplit
+def _field_bcs(ctx, i):
+    """Dirichlet BCs of mixed field i, re-rooted on the plain subspace
+    (so re-discretization PCs like mg can rebuild them per level)."""
+    from ..bcs import DirichletBC
+    out = []
+    for b in ctx.bcs:
+        fs = getattr(b, "function_space_obj", None)
+        if getattr(fs, "index", None) == i and \
+                getattr(fs, "parent", None) is ctx.space:
+            out.append(DirichletBC(fs._V, b.g, b.sub_domain,
+                                   b.sub_component))
+    return tuple(out)
+
+
+def _field_ctx(ctx, i):
+    """OpCtx of diagonal block i of a mixed operator."""
+    W = ctx.space
+    Bi = ctx.mat.blocks.get((i, i)) if ctx.mat is not None else None
+    return OpCtx(mat=Bi, space=W.subspaces[i], form=_block_form(ctx, i, i),
+                 bcs=_field_bcs(ctx, i), appctx=ctx.appctx)
+
+
+def _block_form(ctx, i, j):
+    """Bilinear form of block (i, j) with its arguments re-rooted on the
+    plain subspaces (for re-discretization PCs); None without a form."""
+    form, W = ctx.form, ctx.space
+    if form is None or W is None:
+        return None
+    from ..mixed import extract_block
+    from ..language.core import Argument
+    from ..language.calculus import map_expr
+    from ..language.measure import Form
+    blk = extract_block(form, i, j)
+    mapping = {}
+    for it in blk.integrals():
+        for t in it.integrand.traverse():
+            if isinstance(t, Argument) and t.part is not None:
+                mapping[t] = Argument(W.subspaces[t.part], t.number)
+    return Form(tuple(it.reconstruct(map_expr(it.integrand, mapping))
+                      for it in blk.integrals()))
+
+
+def _pc_fieldsplit(ctx, params, prefix):
+    from ..mixed import is_mixed
+    W = ctx.space
+    if not is_mixed(W):
+        raise ValueError("pc_type 'fieldsplit' needs a mixed space")
+    A = ctx.mat
+    if A is None:
+        raise ValueError("fieldsplit needs an assembled block operator "
+                         "(mat_type aij)")
+    nf = W.num_sub_spaces
+    fs_type = opt(params, prefix, "pc_fieldsplit_type", "additive")
+    bounds = [(int(o), int(o) + V.dim)
+              for o, V in zip(W.offsets, W.subspaces)]
+
+    def split(r):
+        return [r[a:b] for a, b in bounds]
+
+    def inner_solver(i):
+        fc = _field_ctx(ctx, i)
+        if fc.mat is None:
+            # zero diagonal block (e.g. Stokes pressure): identity
+            return lambda b, x0=None: b
+        return build_ksp(fc, params, prefix + f"fieldsplit_{i}_")
+
+    if fs_type in ("additive", "multiplicative",
+                   "symmetric_multiplicative"):
+        inner = [inner_solver(i) for i in range(nf)]
+
+        def sweep(rs, zs, order):
+            """Block Gauss-Seidel: recompute field i's residual from all
+            fields with corrections so far, then solve block (i, i)."""
+            for i in order:
+                ri = rs[i]
+                for j in range(nf):
+                    B = A.blocks.get((i, j))
+                    if j != i and zs[j] is not None and B is not None:
+                        ri = ri - B.matvec(zs[j])
+                zs[i] = inner[i](ri)
+            return zs
+
+        def pc(r):
+            rs = split(r)
+            if fs_type == "additive":
+                return torch.cat([f(ri) for f, ri in zip(inner, rs)])
+            zs = sweep(rs, [None] * nf, range(nf))
+            if fs_type == "symmetric_multiplicative":
+                zs = sweep(rs, zs, range(nf - 2, -1, -1))
+            return torch.cat(zs)
+
+        return pc
+
+    if fs_type != "schur":
+        raise NotImplementedError(f"pc_fieldsplit_type {fs_type!r}")
+    if nf != 2:
+        raise ValueError("schur fieldsplit needs exactly 2 fields")
+    return _schur_pc(ctx, params, prefix, split)
+
+
+def _schur_pc(ctx, params, prefix, split):
+    """Schur-complement fieldsplit: factorization full/diag/lower/upper,
+    Schur preconditioned per pc_fieldsplit_schur_precondition
+    (a11 | user | selfp | full)."""
+    A = ctx.mat
+    A00, A01, A10, A11 = (A.blocks.get(ij)
+                          for ij in ((0, 0), (0, 1), (1, 0), (1, 1)))
+    fact = opt(params, prefix, "pc_fieldsplit_schur_fact_type", "full")
+    sp_kind = opt(params, prefix, "pc_fieldsplit_schur_precondition",
+                  "a11")
+
+    ctx0 = _field_ctx(ctx, 0)
+    inv0 = build_ksp(ctx0, params, prefix + "fieldsplit_0_")
+
+    def a10(z0):
+        return A10.matvec(z0) if A10 is not None else 0.0
+
+    def a01(z1):
+        return A01.matvec(z1) if A01 is not None else 0.0
+
+    # Schur operator S = A11 - A10 inv0 A01, matrix-free, with the
+    # preconditioner-quality inv0 (PETSc's semantics when fieldsplit_0 is
+    # preonly; with an inner KSP this is the "full" inner solve)
+    def S_matvec(x1):
+        y = A01.matvec(x1) if A01 is not None else x1.new_zeros(ctx0.dim)
+        out = A11.matvec(x1) if A11 is not None else torch.zeros_like(x1)
+        return out - a10(inv0(y))
+
+    # the matrix the Schur PC is built against
+    V1 = ctx.space.subspaces[1]
+    if sp_kind == "selfp":
+        # Sp = A11 - A10 diag(A00)^-1 A01, a host scipy product
+        import scipy.sparse as sp
+        from ..assembly.matrix import Matrix
+        d0 = to_numpy(ctx0.diagonal())
+        d0inv = sp.diags(np.where(np.abs(d0) > 0, 1.0 / d0, 1.0))
+        Sp_sci = (-(A10.to_scipy() @ d0inv @ A01.to_scipy())).tocsr()
+        if A11 is not None:
+            Sp_sci = (A11.to_scipy() + Sp_sci).tocsr()
+        Smat = Matrix.from_scipy(Sp_sci, V1)
+    elif sp_kind in ("a11", "user"):
+        Smat = A11
+    elif sp_kind == "full":
+        Smat = None   # matrix-free on S itself
+    else:
+        raise NotImplementedError(
+            f"pc_fieldsplit_schur_precondition {sp_kind!r}")
+
+    ctx1 = OpCtx(mat=Smat, matvec=S_matvec, space=V1,
+                 form=_block_form(ctx, 1, 1), bcs=_field_bcs(ctx, 1),
+                 appctx=ctx.appctx)
+    p1 = params
+    if Smat is None and opt(params, prefix + "fieldsplit_1_",
+                            "pc_type") in (
+            "jacobi", "bjacobi", "sor", "ilu", "icc", "lu", "cholesky"):
+        # no Schur matrix to precondition with (zero A11 under a11, or
+        # full): unpreconditioned, as in the JAX package
+        p1 = dict(params)
+        p1[prefix + "fieldsplit_1_pc_type"] = "none"
+    inv1 = build_ksp(ctx1, p1, prefix + "fieldsplit_1_")
+
+    def pc(r):
+        r0, r1 = split(r)
+        if fact == "diag":
+            # PETSc's convention: -S^-1 on the (1, 1) block (minres-safe)
+            return torch.cat([inv0(r0), -inv1(r1)])
+        if fact == "lower":
+            z0 = inv0(r0)
+            return torch.cat([z0, inv1(r1 - a10(z0))])
+        if fact == "upper":
+            z1 = inv1(r1)
+            return torch.cat([inv0(r0 - a01(z1)), z1])
+        # full
+        z0 = inv0(r0)
+        z1 = inv1(r1 - a10(z0))
+        return torch.cat([z0 - inv0(a01(z1)), z1])
+
+    return pc
+
+
+def _pc_hypre(ctx, params, prefix):
+    raise NotImplementedError(
+        "pc_type 'hypre' (BoomerAMG) has no analogue in the port or the "
+        "JAX package; use 'mg' (geometric, needs a MeshHierarchy)")
+
+
+_PCS = {"none": _pc_none, "jacobi": _pc_jacobi,
+        "bjacobi": _pc_jacobi_substitute, "sor": _pc_jacobi_substitute,
+        "ilu": _pc_jacobi_substitute, "icc": _pc_jacobi_substitute,
+        "lu": _pc_lu, "cholesky": _pc_lu, "ksp": _pc_ksp, "mg": _pc_mg,
+        "gamg": _pc_mg, "patch": _pc_patch, "asm": _pc_patch,
+        "star": _pc_patch, "vanka": _pc_vanka, "python": _pc_python,
+        "composite": _pc_composite, "fieldsplit": _pc_fieldsplit,
+        "hypre": _pc_hypre}

@@ -17,13 +17,14 @@ assembled or matrix-free Jacobian, Dirichlet conditions and EquationBCs
 (whose Newton steps are a host sparse LU, as in the JAX package), and
 snes_type python (solvers/snes.py).  On mixed spaces the operator is a
 BlockMatrix (mixed.py): preonly + lu factors its host CSR copy; a Krylov
-method with jacobi or none runs its matvec on the device.
+method runs its matvec on the device under any PC of
+solvers/composition.py (fieldsplit, vanka, python PCs among them).
 ``pc_type`` hybridization (solvers/hybridization.py) and scpc
 (solvers/scpc.py) condense per cell through Slate (slate.py) and solve
 the trace or interface system by host LU or a Krylov method on the
-device.  Fieldsplit, nonlinear multigrid, nonlinear patch
-preconditioning, deflation and distributed solves raise
-NotImplementedError naming their ROADMAP.md item.
+device.  Nonlinear multigrid, nonlinear patch preconditioning, deflation
+and distributed solves raise NotImplementedError naming their ROADMAP.md
+item.
 """
 from __future__ import annotations
 
@@ -147,11 +148,6 @@ class LinearVariationalProblem:
         self.constant_jacobian = constant_jacobian
 
 
-#: pc_type values of the JAX package's solver that are not ported yet, and
-#: their ROADMAP.md queue 1 items
-_UNPORTED = {"ilu": 16, "fieldsplit": 16}
-
-
 def direct_solve(A, b):
     """Host sparse LU of the assembled operator (the PETSc `preonly` +
     `lu` role at the outermost level); the solution goes back to b's
@@ -192,10 +188,6 @@ class LinearVariationalSolver:
             self.ksp_iterations, self.converged = solve_scpc(
                 p, params, appctx=self.appctx)
             return
-        if params.get("pc_type") in _UNPORTED:
-            raise NotImplementedError(
-                f"pc_type {params['pc_type']!r} is not ported yet: "
-                f"ROADMAP.md queue 1, item {_UNPORTED[params['pc_type']]}")
         if params.get("distributed"):
             raise NotImplementedError("distributed solves are not ported "
                                       "yet: ROADMAP.md queue 1, item 20")
@@ -230,7 +222,7 @@ class LinearVariationalSolver:
         else:
             bvec, A = b, A0
         if params.get("ksp_type") == "preonly" and \
-                params.get("pc_type") in ("lu", "cholesky"):
+                params.get("pc_type") in ("lu", "cholesky", "ilu"):
             if mat_type == "matfree":
                 raise ValueError("pc_type 'lu' needs an assembled "
                                  "operator; got mat_type 'matfree'")
@@ -462,9 +454,11 @@ class LinearSolver:
     firedrake/linear_solver.py).  After solve(): ``ksp_iterations`` and
     ``converged``."""
 
-    def __init__(self, A, *, P=None, solver_parameters=None, **kwargs):
+    def __init__(self, A, *, P=None, solver_parameters=None, appctx=None,
+                 **kwargs):
         self.A = A
         self.params = _merged_params(solver_parameters)
+        self.appctx = appctx or {}
 
     def solve(self, x: Function, b):
         bvec = as_tensor(b.dat if isinstance(b, Function) else b)
@@ -473,8 +467,10 @@ class LinearSolver:
             x.dat = direct_solve(A, bvec)
             self.ksp_iterations, self.converged = 1, True
             return
-        ctx = OpCtx(mat=A, space=getattr(A, "row_space", None),
-                    bcs=getattr(A, "bcs", ()))
+        # a BlockMatrix's space is its mixed test space (fieldsplit, vanka)
+        ctx = OpCtx(mat=A, space=getattr(A, "row_space",
+                                         getattr(A, "W_test", None)),
+                    bcs=getattr(A, "bcs", ()), appctx=self.appctx)
         pc = build_pc(ctx, self.params, "")
         res = _run_ksp(A.matvec, bvec, self.params, pc=pc)
         x.dat = res.x
@@ -489,8 +485,8 @@ def solve(*args, **kwargs):
     x)."""
     if not isinstance(args[0], Equation):
         A, x, b = args[:3]
-        LinearSolver(A, solver_parameters=kwargs.get(
-            "solver_parameters")).solve(x, b)
+        LinearSolver(A, solver_parameters=kwargs.get("solver_parameters"),
+                     appctx=kwargs.get("appctx")).solve(x, b)
         return x
     eq, u = args[0], args[1]
     bcs = kwargs.get("bcs")

@@ -3,7 +3,8 @@ K2's large variant included) against its plain PyTorch version, the
 launch counts, and the matrix-free operator, the gather route's matrix
 and vectors, Newton (assembled and matrix-free Jacobians), the Krylov
 methods, the slope limiter, an RT1 x DG0 block assembly and a hybridized
-and an SCPC solve (K2 on the Slate path) on the card against the CPU.
+and an SCPC solve (K2 on the Slate path), and Stokes by Vanka (K2's
+large variant) and by a Schur fieldsplit on the card against the CPU.
 Marked `cuda`; skips where torch
 has no CUDA device.  Run on a machine with an NVIDIA GPU with
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
@@ -459,3 +460,68 @@ def test_extruded_and_spectral_on_card_match_cpu(on_cuda):
     cpu = _extruded_case()
     for a, b in zip(card[:6], cpu[:6]):
         assert np.abs(a - b).max() <= 1e-12 * max(np.abs(b).max(), 1.0)
+
+
+def _stokes_solves_on(device):
+    """Taylor-Hood Stokes on UnitSquareMesh(6) (Poiseuille data) by
+    fgmres with the Vanka patches (K2's large variant, n = 39) and with
+    a Schur fieldsplit (MassInvPC, K1's pressure mass); the solutions on
+    the host and the large variant's launches of the Vanka solve."""
+    T.set_device(device)
+    mesh = T.UnitSquareMesh(6, 6)
+    V = T.VectorFunctionSpace(mesh, "CG", 2)
+    Q = T.FunctionSpace(mesh, "CG", 1)
+    W = V * Q
+    u, p = T.TrialFunctions(W)
+    v, q = T.TestFunctions(W)
+    a = (T.inner(T.grad(u), T.grad(v)) - p * T.div(v) - q * T.div(u)) * T.dx
+    X = T.SpatialCoordinate(mesh)
+    g = T.Function(V).interpolate(T.as_vector([X[1] * (1 - X[1]), 0.0]))
+    L = T.inner(T.Constant([0.0, 0.0]), v) * T.dx
+    bcs = [T.DirichletBC(W.sub(0), g, (1, 2, 3, 4))]
+    out = []
+    for sp in ({"ksp_type": "fgmres", "ksp_rtol": 1e-10,
+                "pc_type": "vanka"},
+               {"ksp_type": "fgmres", "ksp_rtol": 1e-10,
+                "pc_type": "fieldsplit", "pc_fieldsplit_type": "schur",
+                "fieldsplit_0_pc_type": "lu",
+                "fieldsplit_1_pc_type": "python",
+                "fieldsplit_1_pc_python_type": "firedrake.MassInvPC"}):
+        w = T.Function(W)
+        n0 = BI.large_launches
+        T.solve(a == L, w, bcs=bcs, solver_parameters=sp)
+        out += [w.dat, BI.large_launches - n0]
+    return out
+
+
+def test_vanka_and_fieldsplit_solves_on_card_match_cpu(on_cuda):
+    """The Vanka solve launches K2's large variant once (the 49 patches);
+    both solutions on the card within 1e-10 of the CPU's."""
+    wc, _, fc, _ = _stokes_solves_on("cpu")
+    wg, k2_vanka, fg, k2_fs = _stokes_solves_on("cuda")
+    assert (k2_vanka, k2_fs) == (1, 0)
+    for g, c in ((wg, wc), (fg, fc)):
+        assert g.is_cuda
+        assert float((g.cpu() - c).abs().max()) \
+            <= 1e-10 * float(c.abs().max())
+
+
+def test_patch_plan_built_on_card_is_the_host_plan(on_cuda):
+    """The patch PC's accumulation plan, sorted on the card, holds the
+    host plan's tables entry for entry (vertex stars of P2 on
+    UnitSquareMesh(16))."""
+    from firedrake_tpu_torch.assemble import (_accumulation,
+                                              _accumulation_device)
+    from firedrake_tpu_torch.solvers.preconditioners import star_patches
+    T.set_device("cpu")
+    V = T.FunctionSpace(T.UnitSquareMesh(16, 16), "CG", 2)
+    idx, mask = star_patches(V)
+    pos = np.where(mask > 0, idx, V.dim).reshape(-1)
+    host = _accumulation(pos, V.dim, torch.device("cpu"))
+    card = _accumulation_device(torch.as_tensor(pos, device="cuda"), V.dim)
+    assert type(card) is type(host)
+    for name, want in vars(host).items():
+        got = getattr(card, name)
+        assert (got is None and want is None) or (
+            got.is_cuda and got.dtype == want.dtype
+            and torch.equal(got.cpu(), want)), name

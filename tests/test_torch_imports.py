@@ -54,9 +54,8 @@ def test_device_defaults_to_cuda():
 #: every public name of the JAX package that the port does not have yet,
 #: with the ROADMAP.md queue 1 item that brings it
 NOT_YET_PORTED = {
-    # item 16: the PC zoo, nonlinear multigrid, deflation, eigensolvers
-    16: ["PCBase", "AssembledPC", "AuxiliaryOperatorPC", "MassInvPC",
-         "PCDPC", "Deflation", "DeflatedSNES", "LinearEigenproblem",
+    # item 16: deflation, eigensolvers
+    16: ["Deflation", "DeflatedSNES", "LinearEigenproblem",
          "LinearEigensolver"],
     # item 18: meshes, I/O and tooling
     18: ["Mesh", "VertexOnlyMesh", "PointNotInDomainError", "Interpolator",
@@ -105,8 +104,8 @@ def _mass_solve(V, params):
 
 
 @pytest.mark.parametrize("call, item", [
-    (lambda V, u: _mass_solve(V, {"pc_type": "fieldsplit"}), 16),
-    (lambda V, u: _mass_solve(V, {"pc_type": "ilu"}), 16),
+    (lambda V, u: _mass_solve(V, {"pc_type": "pmg"}), 16),
+    (lambda V, u: _mass_solve(V, {"pc_type": "linesmooth"}), 16),
     (lambda V, u: T.solve((u * u - 1.0) * T.TestFunction(V) * T.dx == 0, u,
                           solver_parameters={"snes_type": "fas"}), 16),
     (lambda V, u: u.at((0.5, 0.5)), 18),

@@ -105,12 +105,16 @@ def test_unported_solver_options_raise():
     V = T.FunctionSpace(mesh, "CG", 1)
     u, v = T.TrialFunction(V), T.TestFunction(V)
     a, L = u * v * T.dx, v * T.dx
-    for params, item in (({"ksp_type": "cg", "pc_type": "bjacobi"}, 16),
-                         ({"ksp_type": "cg", "pc_type": "fieldsplit"}, 16),
+    for params, item in (({"ksp_type": "cg", "pc_type": "pmg"}, 16),
+                         ({"ksp_type": "cg", "pc_type": "gridline"}, 16),
                          ({"ksp_type": "cg", "pc_type": "hybridization",
                            "distributed": 2}, 20)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             T.solve(a == L, T.Function(V), solver_parameters=params)
+    # fieldsplit is ported: a plain space is refused as in the JAX package
+    with pytest.raises(ValueError, match="mixed space"):
+        T.solve(a == L, T.Function(V), solver_parameters={
+            "ksp_type": "cg", "pc_type": "fieldsplit"})
     w = T.Function(V)
     with pytest.raises(NotImplementedError, match="item 16"):
         T.solve(w * w * v * T.dx == L, w,
@@ -129,5 +133,8 @@ def test_make_pc_jacobi_matches_build_pc():
     z2 = build_pc(OpCtx(mat=A), {"pc_type": "jacobi"})(r)
     torch.testing.assert_close(z1, z2, rtol=1e-15, atol=0)
     assert torch.equal(make_pc("none")(r), r)
+    with pytest.warns(UserWarning, match="ubstituting point-Jacobi"):
+        z3 = make_pc("ilu", A)(r)
+    assert torch.equal(z3, z1)
     with pytest.raises(NotImplementedError):
-        make_pc("ilu", A)
+        make_pc("pmg", A)
