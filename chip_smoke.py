@@ -12,12 +12,20 @@
                                           # poisson_mixed_rt1_256's and
                                           # the slate cases' and the
                                           # extruded GMG and spectral
-                                          # cases' CPU convergence study
-                                          # (bounds)
+                                          # cases', pmg_p4_256's and
+                                          # fdm_q4_256's CPU convergence
+                                          # study (bounds)
     python3 chip_smoke.py --only slate    # device, build and the named
                                           # phases alone (main, slate,
                                           # dg_mixed, gather, nonlinear,
-                                          # extruded, fieldsplit)
+                                          # extruded, fieldsplit,
+                                          # multilevel)
+    python3 chip_smoke.py --only ml_rounding
+                                          # pmg_p4_256's and fdm_q4_256's
+                                          # errornorms taken apart: card
+                                          # against host CPU, residuals
+                                          # in long double, iterative
+                                          # refinement (prints only)
     python3 chip_smoke.py --only pcd_limit
                                           # PCDPC's dense Kp pseudo-
                                           # inverse on the card and the
@@ -207,7 +215,33 @@ failure raises and the exit code is non-zero):
              form that the case's run gave it (every launch of the run
              through one of them).  Every case runs and prints; the
              phase fails after the last if any failed.
-11. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
+11. multilevel — each case with every launch count set to 0 before its
+             counted solve and read after, printing its stage times
+             (host set-up; assembly, PC set-up, K2 and CG by CUDA events;
+             FAS: residuals, diagonals, the coarsest Newton) and ms per
+             iteration: pmg_p4_256 (P4 Poisson at 256^2, 1,050,625 dofs,
+             CG + pmg, the P1 level by GMG; iterations within one of the
+             CPU rehearsal, ||b - A u|| / ||b|| <= 1e-10, errornorm below
+             ML_ERR, K1 launched on the P2 and P1 levels and held to its
+             plain version on their inputs); fas_bratu_p1_1024 (Bratu by
+             FAS at 1024^2, 7 levels: converged, at most 3 cycles more
+             than the rehearsal at 64^2, within FAS_ATOL of Newton + GMG
+             on the card); linesmooth_q1_ext_128 (Q1 on a 128^2 x 64 slab,
+             1,081,665 dofs, GMG with vertical line smoothers: iterations
+             within one of the rehearsal, residual <= 1e-8, K2's large
+             variant once per smoothed level, held to its plain version
+             on the finest level's (16,641, 65, 65) patch matrices and
+             timed as in phase 3); fdm_q4_256 (Q4 at 256^2 by CG + FDMPC:
+             iterations within one of the rehearsal and below 60,
+             errornorm below ML_ERR); then gridline_p1_cube_16,
+             extruded_star_q2_ext_6 (K2's large variant at (81, 117, 117),
+             held to its plain version and timed), npc_patch_bratu_64,
+             pfas_bratu_p4_8 and facet_split_p4_32, each held to the same
+             solve on the CPU in this process (within 1e-10, equal
+             counts); last, 129-dof lines must raise at set-up on the
+             card, naming K2's cap.  Every case runs and prints; the
+             phase fails after the last if any failed.
+12. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
              -lap u = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on the
              boundary, P2 on MeshHierarchy(UnitCubeMesh(8), 4) (12,582,912
              tets, 16,974,593 dofs), CG + GMG (Chebyshev(2) + Jacobi) with
@@ -296,7 +330,12 @@ CPU_REHEARSAL_ITS = {"gmg_p1_1m": 10, "gmg_star_p2_1m": 6,
                      # Newton steps and fgmres iterations per step (equal;
                      # at 64^2 also the CPU solve's in the same process)
                      "navier_stokes_pcd_64": (4, [2, 2, 3, 3]),
-                     "navier_stokes_pcd_128": (4, [2, 2, 3, 3])}
+                     "navier_stokes_pcd_128": (4, [2, 2, 3, 3]),
+                     # the multilevel phase: CG iterations (within one);
+                     # FAS cycles at 64^2 (the card's at 1024^2 at most
+                     # 3 more)
+                     "pmg_p4_256": 12, "linesmooth_q1_ext_128": 5,
+                     "fdm_q4_256": 10, "fas_bratu_p1_1024": 11}
 
 
 def phase(name):
@@ -1763,7 +1802,9 @@ def cpu_study(labels):
     labels = labels or list(GATHER) + ["newton_p1_1m", "krylov_p1_1m",
                                        "poisson_mixed_rt1_256"] \
         + list(SLATE_LABELS) + list(EXTRUDED_STUDY) \
-        + ["stokes_th_schur_256"]
+        + ["stokes_th_schur_256"] + list(ML_STUDY)
+    multilevel_cpu([lb for lb in ML_STUDY if lb in labels], "cpu_study",
+                   study=True)
     if "poisson_mixed_rt1_256" in labels:
         mixed_cpu_study()
     fieldsplit_cpu([lb for lb in labels if lb == "stokes_th_schur_256"],
@@ -1804,7 +1845,9 @@ def cpu_rehearsal(labels):
     import firedrake_tpu_torch as fd
     labels = labels or list(GMG) + list(GATHER) + list(NONLINEAR_LABELS) \
         + ["dg_advection_512"] + list(SLATE_LABELS) + list(EXTRUDED_LABELS) \
-        + list(FIELDSPLIT_LABELS)
+        + list(FIELDSPLIT_LABELS) + list(MULTILEVEL_LABELS)
+    multilevel_cpu([lb for lb in labels if lb in MULTILEVEL_LABELS],
+                   "cpu_rehearsal")
     nonlinear_cpu([lb for lb in labels if lb in NONLINEAR_LABELS])
     fieldsplit_cpu([lb for lb in labels if lb in FIELDSPLIT_LABELS],
                    "cpu_rehearsal")
@@ -1814,7 +1857,8 @@ def cpu_rehearsal(labels):
     fd.set_device("cpu")
     for label in labels:
         if label in NONLINEAR_LABELS or label in SLATE_LABELS \
-                or label in EXTRUDED_LABELS or label in FIELDSPLIT_LABELS:
+                or label in EXTRUDED_LABELS or label in FIELDSPLIT_LABELS \
+                or label in MULTILEVEL_LABELS:
             continue
         if label == "dg_advection_512":
             t0 = time.perf_counter()
@@ -3512,6 +3556,617 @@ def fieldsplit_cpu(labels, tag, study=False):
                   f"{_max_rss_gib():.2f}", flush=True)
 
 
+# ------------------------------------------------------------ multilevel
+# pmg_p4_256: -lap u = 2 pi^2 sin(pi x) sin(pi y), u = 0 on the boundary,
+# P4 on the finest mesh of MeshHierarchy(UnitSquareMesh(16), 4) (256^2,
+# 1,050,625 dofs), CG at rtol 1e-11 with pc_type pmg (4 -> 2 -> 1), the
+# P1 level (66,049 dofs) by GMG over the hierarchy (at rtol 1e-10 CG
+# stopped with ||b - A u|| / ||b|| at 1.008e-10, on the card and in the
+# CPU rehearsal alike, above the case's 1e-10 gate).  fas_bratu_p1_1024:
+# Bratu, -lap u = 2 exp(u), u = 0, P1 on MeshHierarchy(UnitSquareMesh(16),
+# 6) (1024^2, 1,050,625 dofs, 7 levels), snes_type fas at snes_rtol 1e-9
+# (tests/multigrid/test_fas.py), held to Newton + CG + GMG on the same
+# mesh.  linesmooth_q1_ext_128: -lap u = 1 on a slab 0.05 thick, Q1 on
+# ExtrudedMeshHierarchy(MeshHierarchy(UnitSquareMesh(8, quadrilateral=
+# True), 4), height=0.05, layers=64) (128^2 x 64, 1,081,665 dofs), u = 0
+# on the sides, top and bottom, CG at rtol 1e-8 with GMG whose levels
+# smooth by vertical lines (linesmooth, codim 2: one 65-dof column per
+# base vertex, K2's large variant), horizontal coarsening only.
+# fdm_q4_256: pmg_p4_256's problem with Q4 on UnitSquareMesh(256,
+# quadrilateral=True) (1,050,625 dofs), CG at rtol 1e-10 with FDMPC (its
+# Q1 coarse level by host LU).
+ML_N0, PMG_LEVELS, FAS_LEVELS = 16, 4, 6
+LINE_N0, LINE_LEVELS, LINE_LAYERS, LINE_HEIGHT = 8, 4, 64, 0.05
+FDM_N = 256
+# fas_bratu_p1_1024 may take at most 3 cycles more than the same solve at
+# MeshHierarchy(UnitSquareMesh(16), 2), 64^2 (the JAX test's
+# mesh-independence bound), as --cpu-rehearsal counts it
+FAS_REHEARSAL_LEVELS = 2
+FAS_ATOL = 5e-8                    # FAS against Newton (the JAX test's)
+PMG_SP = {"ksp_type": "cg", "ksp_rtol": 1e-11, "pc_type": "pmg",
+          "pmg_mg_coarse_ksp_type": "preonly",
+          "pmg_mg_coarse_pc_type": "mg"}
+FAS_SP = {"snes_type": "fas", "snes_rtol": 1e-9}
+BRATU_NEWTON_SP = {"snes_rtol": 1e-10, "ksp_type": "cg", "ksp_rtol": 1e-12,
+                   "pc_type": "mg"}
+LINE_SP = {"ksp_type": "cg", "ksp_rtol": 1e-8, "pc_type": "mg",
+           "mg_levels_pc_type": "linesmooth",
+           "mg_levels_pc_linesmooth_codims": "2"}
+FDM_SP = {"ksp_type": "cg", "ksp_rtol": 1e-10, "pc_type": "python",
+          "pc_python_type": "firedrake.FDMPC"}
+MULTILEVEL_LABELS = ("pmg_p4_256", "fas_bratu_p1_1024",
+                     "linesmooth_q1_ext_128", "fdm_q4_256")
+# --cpu-study: pmg_p4_256 at these hierarchy levels, fdm_q4_256 at these
+# mesh sizes (the errornorms' rates)
+ML_STUDY = {"pmg_p4_256": (0, 1, 2), "fdm_q4_256": (16, 32, 64)}
+# errornorm bounds.  At 256^2 the errornorm is set by rounding, not by the
+# h^5 rate of the study (ratios 31.95-31.99 up to 64^2).  python3
+# chip_smoke.py --only ml_rounding (an H100 and its 8-core host) takes it
+# apart: card and CPU assemble b and A within 6.3e-16 relative, the
+# card's u gives the card's errornorm on the host too, and both u's
+# residuals, taken in long double, lie below the f64 floor
+# eps || |A| |u| || / ||b|| (pmg 2.8e-10, FDM 1.4e-10), where CG stops
+# reducing them.  Two steps of iterative refinement with long-double
+# residuals bring the card's and the CPU's u to one vector (within
+# 2.2e-16) whose errornorm is 4.987e-13 (pmg) and 2.1135e-12 (FDM): the
+# solution of the f64-assembled system.  The readings (card, CPU) differ
+# from it by the algebraic error CG leaves at the floor, which follows
+# the order of the reductions.  So each case is held below twice the
+# larger reading and below the study's errornorm at 64^2.  pmg's CG runs
+# at rtol 1e-11: at 1e-10 its true residual stopped at 1.008e-10, on
+# card and CPU alike, over the 1e-10 gate.
+ML_READINGS = {"pmg_p4_256": (4.5216e-12, 5.1626e-13),
+               "fdm_q4_256": (1.9981e-13, 2.1076e-12)}
+ML_STUDY_64 = {"pmg_p4_256": 2.389e-11, "fdm_q4_256": 3.237e-12}
+ML_ERR = {k: min(2 * max(v), ML_STUDY_64[k])
+          for k, v in ML_READINGS.items()}
+# the small cases, each held to the same solve on the CPU in this process
+# (within 1e-10 max|u|, equal counts): GMG with grid-line smoothers on
+# MeshHierarchy(UnitCubeMesh(4), 2) (17-dof lines, K2's warp variant);
+# Q2 on ExtrudedMesh(UnitSquareMesh(8, quadrilateral=True), 6) with
+# pc_type extruded_star (117-dof stars, K2's large variant); Newton with
+# the nonlinear patch smoother on Bratu P1 at 64^2; pfas on Bratu P4 at
+# 8^2 (35 cycles; at 32^2 the CPU solve alone takes 251-277 s on 8
+# cores); FacetSplitPC with an exact Schur factorization on P4 at 32^2
+# (tests/regression/test_facet_split.py:26), also held to the LU solve.
+# Then the line smoother on 128 layers must raise at set-up on the card
+# (129-dof lines, above K2's n <= 128).
+SMALL_ML = ("gridline_p1_cube_16", "extruded_star_q2_ext_6",
+            "npc_patch_bratu_64", "pfas_bratu_p4_8", "facet_split_p4_32")
+GRIDLINE_SP = {"ksp_type": "cg", "ksp_rtol": 1e-10, "pc_type": "mg",
+               "mg_levels_pc_type": "gridline"}
+STAR_SP = {"ksp_type": "cg", "ksp_rtol": 1e-10,
+           "pc_type": "extruded_star"}
+NPC_SP = {"snes_rtol": 1e-9, "npc_snes_type": "patch", "ksp_type": "cg",
+          "ksp_rtol": 1e-10, "pc_type": "jacobi"}
+PFAS_SP = {"snes_type": "pfas", "snes_rtol": 1e-9}
+FACET_SP = {"ksp_type": "preonly", "pc_type": "python",
+            "pc_python_type": "firedrake.FacetSplitPC",
+            "facet_pc_type": "fieldsplit",
+            "facet_pc_fieldsplit_type": "schur",
+            "facet_pc_fieldsplit_schur_fact_type": "full",
+            "facet_fieldsplit_0_ksp_type": "preonly",
+            "facet_fieldsplit_0_pc_type": "lu",
+            "facet_fieldsplit_1_ksp_type": "cg",
+            "facet_fieldsplit_1_ksp_rtol": 1e-12,
+            "facet_fieldsplit_1_ksp_max_it": 2000,
+            "facet_fieldsplit_1_pc_type": "none"}
+CAP_LAYERS = 128
+# stage times of a linear solve (CUDA events): the operator's and right-
+# hand side's assembly, the PC set-up (level operators, patches; K2
+# apart), K2, CG
+ML_STAGES = (
+    ("assembly", _TP + "solving", "assemble"),
+    ("pc_setup", _TP + "solving", "build_pc"),
+    ("k2", _TP + "ops.batched_inverse", "batched_inv"),
+    ("solve", _TP + "solving", "_run_ksp"))
+# Newton with the nonlinear patch smoother: NEWTON_STAGES, the smoother
+# (K2 apart)
+NPC_STAGES = NEWTON_STAGES + (
+    ("patch_smooth", _TP + "solving",
+     "NonlinearVariationalSolver._patch_smooth"),
+    ("k2", _TP + "ops.batched_inverse", "batched_inv"))
+# FAS: its set-up (level forms, transfers), the level residuals and
+# Jacobian diagonals (assemblies), the coarsest Newton
+FAS_STAGES = (
+    ("residual", _TP + "solvers.fas", "FASSolver._R"),
+    ("diagonal", _TP + "solvers.fas", "FASSolver._diag"),
+    ("coarse_newton", _TP + "solvers.fas", "FASSolver._coarse_newton"),
+    # the class last: its methods are wrapped on the class itself
+    ("setup", _TP + "solvers.fas", "FASSolver"))
+
+
+def _sin_problem(fd, V, params):
+    """-lap u = dim pi^2 prod sin(pi x_k), u = 0 on the boundary, in V."""
+    dim = V.mesh().geometric_dimension
+    X = fd.SpatialCoordinate(V.mesh())
+    s = fd.sin(fd.pi * X[0])
+    for k in range(1, dim):
+        s = s * fd.sin(fd.pi * X[k])
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    a = fd.inner(fd.grad(u), fd.grad(v)) * fd.dx
+    L = dim * fd.pi ** 2 * s * v * fd.dx
+    bcs = [fd.DirichletBC(V, 0.0, "on_boundary")]
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(a, L, uh, bcs=bcs),
+        solver_parameters=params)
+    return dict(V=V, a=a, L=L, bcs=bcs, uh=uh, solver=solver, exact=s)
+
+
+def _slab_problem(fd, mesh, degree, params):
+    """-lap u = 1 on an extruded mesh, u = 0 on its sides, top and
+    bottom."""
+    V = fd.FunctionSpace(mesh, "CG", degree)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    a = fd.inner(fd.grad(u), fd.grad(v)) * fd.dx
+    L = fd.Constant(1.0) * v * fd.dx
+    bcs = [fd.DirichletBC(V, 0.0, sub) for sub in
+           ("on_boundary", "top", "bottom")]
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(a, L, uh, bcs=bcs),
+        solver_parameters=params)
+    return dict(V=V, a=a, L=L, bcs=bcs, uh=uh, solver=solver, exact=None)
+
+
+def _bratu_problem(fd, mesh, degree, params):
+    """Bratu, -lap u = 2 exp(u), u = 0 on the boundary, u0 = 0."""
+    V = fd.FunctionSpace(mesh, "CG", degree)
+    u, v = fd.Function(V), fd.TestFunction(V)
+    F = (fd.inner(fd.grad(u), fd.grad(v)) - 2.0 * fd.exp(u) * v) * fd.dx
+    solver = fd.NonlinearVariationalSolver(
+        fd.NonlinearVariationalProblem(
+            F, u, bcs=[fd.DirichletBC(V, 0.0, "on_boundary")]),
+        solver_parameters=params)
+    return dict(V=V, uh=u, solver=solver)
+
+
+def _ml_problem(fd, label, size=None):
+    """The problem of one multilevel case (full size by default, or at
+    `size`: hierarchy levels, mesh cells per side or layers)."""
+    if label == "pmg_p4_256":
+        mesh = fd.MeshHierarchy(fd.UnitSquareMesh(ML_N0, ML_N0),
+                                size if size is not None
+                                else PMG_LEVELS)[-1]
+        return _sin_problem(fd, fd.FunctionSpace(mesh, "CG", 4), PMG_SP)
+    if label == "fdm_q4_256":
+        n = size or FDM_N
+        mesh = fd.UnitSquareMesh(n, n, quadrilateral=True)
+        return _sin_problem(fd, fd.FunctionSpace(mesh, "CG", 4), FDM_SP)
+    if label in ("fas_bratu_p1_1024", "bratu_newton"):
+        mesh = fd.MeshHierarchy(fd.UnitSquareMesh(ML_N0, ML_N0),
+                                size if size is not None
+                                else FAS_LEVELS)[-1]
+        return _bratu_problem(fd, mesh, 1, FAS_SP if label.startswith(
+            "fas") else BRATU_NEWTON_SP)
+    if label == "linesmooth_q1_ext_128":
+        bh = fd.MeshHierarchy(fd.UnitSquareMesh(
+            LINE_N0, LINE_N0, quadrilateral=True),
+            size if size is not None else LINE_LEVELS)
+        h = fd.ExtrudedMeshHierarchy(bh, height=LINE_HEIGHT,
+                                     layers=LINE_LAYERS)
+        return _slab_problem(fd, h[-1], 1, LINE_SP)
+    if label == "gridline_p1_cube_16":
+        mesh = fd.MeshHierarchy(fd.UnitCubeMesh(4, 4, 4), 2)[-1]
+        return _sin_problem(fd, fd.FunctionSpace(mesh, "CG", 1),
+                            GRIDLINE_SP)
+    if label == "extruded_star_q2_ext_6":
+        mesh = fd.ExtrudedMesh(fd.UnitSquareMesh(8, 8, quadrilateral=True),
+                               6)
+        return _slab_problem(fd, mesh, 2, STAR_SP)
+    if label == "npc_patch_bratu_64":
+        return _bratu_problem(fd, fd.UnitSquareMesh(64, 64), 1, NPC_SP)
+    if label == "pfas_bratu_p4_8":
+        return _bratu_problem(fd, fd.UnitSquareMesh(8, 8), 4, PFAS_SP)
+    if label == "facet_split_p4_32":
+        mesh = fd.UnitSquareMesh(32, 32)
+        V = fd.FunctionSpace(mesh, "CG", 4)
+        u, v = fd.TrialFunction(V), fd.TestFunction(V)
+        x, y = fd.SpatialCoordinate(mesh)
+        a = fd.inner(fd.grad(u), fd.grad(v)) * fd.dx
+        L = (x - y) * v * fd.dx
+        bcs = [fd.DirichletBC(V, 0.0, "on_boundary")]
+        uh = fd.Function(V)
+        solver = fd.LinearVariationalSolver(
+            fd.LinearVariationalProblem(a, L, uh, bcs=bcs),
+            solver_parameters=FACET_SP)
+        return dict(V=V, a=a, L=L, bcs=bcs, uh=uh, solver=solver,
+                    exact=None)
+    if label == "linesmooth_cap_129":
+        mesh = fd.ExtrudedMesh(fd.UnitSquareMesh(2, 2, quadrilateral=True),
+                               CAP_LAYERS)
+        return _slab_problem(fd, mesh, 1, {
+            "ksp_type": "cg", "pc_type": "linesmooth",
+            "pc_linesmooth_codims": "2"})
+    raise KeyError(label)
+
+
+def _counts_of(solver):
+    """(iterations, converged, linear iterations per Newton step) of a
+    linear or nonlinear solver."""
+    its = getattr(solver, "snes_iterations", None)
+    if its is None:
+        its = solver.ksp_iterations
+    hist = [h["ksp_iterations"] for h in getattr(solver, "history", ())]
+    return its, solver.converged, hist
+
+
+def _ml_stage_line(label, setup_s, total_s, st, its):
+    ms = st.ms()
+    parts = " ".join(f"{k} {v[0] / 1e3:.3f}" for k, v in ms.items())
+    other = total_s - sum(v[0] for v in ms.values()) / 1e3
+    solve = ms["solve"][0] if "solve" in ms else 1e3 * total_s
+    print(f"{label} stages (s): host_setup {setup_s:.3f} total_solve "
+          f"{total_s:.3f} exclusive {parts} other {other:.3f}; calls "
+          + " ".join(f"{k} {v[2]}" for k, v in ms.items())
+          + f"; ms_per_iteration {solve / max(its, 1):.4f}")
+    return ms
+
+
+def _pmg_fdm_run(fd, label):
+    """pmg_p4_256 or fdm_q4_256 on the card: iterations against the CPU
+    rehearsal, ||b - A u|| / ||b||, errornorm against ML_ERR; pmg: K1
+    launched on the P2 and P1 levels, held to its plain version on their
+    inputs."""
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _ml_problem(fd, label))
+    solver, uh = p["solver"], p["uh"]
+    with _Counts() as counts, _EventStages(ML_STAGES) as st, \
+            _K1Inputs() as k1_inputs:
+        _, solve_s = _sync_time(solver.solve)
+    its = solver.ksp_iterations
+    _ml_stage_line(label, setup_s, solve_s, st, its)
+    rel = _rel_residual(fd, p["a"], p["L"], p["bcs"], uh)
+    err = fd.errornorm(p["exact"], uh)
+    want, bound = CPU_REHEARSAL_ITS.get(label), ML_ERR[label]
+    print(f"{label}: dofs {p['V'].dim} iterations {its} (CPU rehearsal "
+          f"{want}) converged {solver.converged} rel_residual {rel:.3e} "
+          f"errornorm {err:.6e} (bound {bound:.4e}) device_peak "
+          f"{torch.cuda.max_memory_allocated()} on {uh.dat.device} "
+          f"k1_launches {counts.k1} k1_by_variant {counts.k1_by_variant} "
+          f"k2_launches {counts.k2} lowerer_evals {counts.lowerer}")
+    if not uh.dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if want is None or not (solver.converged and abs(its - want) <= 1):
+        raise AssertionError(f"{label}: {its} iterations, the CPU "
+                             f"rehearsal took {want}")
+    if not rel <= 1e-10:
+        raise AssertionError(f"{label}: relative residual {rel}")
+    if bound is None or not err < bound:
+        raise AssertionError(f"{label}: errornorm {err}, bound {bound}")
+    if label == "fdm_q4_256":
+        if its >= 60:
+            raise AssertionError(f"{label}: {its} iterations")
+    else:
+        if counts.k1 <= 0:
+            raise AssertionError(f"{label}: K1 did not launch")
+        k1_inputs.check(label, counts.k1)
+    del p, solver, uh, st
+    _release(label)
+    return counts, None
+
+
+def _line_run(fd, label):
+    """linesmooth_q1_ext_128 on the card: K2's large variant on every
+    smoothed level's 65-dof columns, held to its plain version on the
+    finest level's (16,641, 65, 65) patch matrices and timed there;
+    iterations against the CPU rehearsal, ||b - A u|| / ||b|| <= 1e-8."""
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _ml_problem(fd, label))
+    solver, uh = p["solver"], p["uh"]
+    nbase = (LINE_N0 * 2 ** LINE_LEVELS + 1) ** 2
+    with _Counts() as counts, _EventStages(
+            ML_STAGES, keep={"k2": lambda a: a[0].shape[0] == nbase}) as st:
+        _, solve_s = _sync_time(solver.solve)
+    its = solver.ksp_iterations
+    _ml_stage_line(label, setup_s, solve_s, st, its)
+    rel = _rel_residual(fd, p["a"], p["L"], p["bcs"], uh)
+    want = CPU_REHEARSAL_ITS.get(label)
+    print(f"{label}: dofs {p['V'].dim} iterations {its} (CPU rehearsal "
+          f"{want}) converged {solver.converged} rel_residual {rel:.3e} "
+          f"max u {float(uh.dat.max())!r} device_peak "
+          f"{torch.cuda.max_memory_allocated()} on {uh.dat.device} "
+          f"k1_launches {counts.k1} k2_launches {counts.k2} k2_large "
+          f"{counts.k2_large} lowerer_evals {counts.lowerer}")
+    if not uh.dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if want is None or not (solver.converged and abs(its - want) <= 1):
+        raise AssertionError(f"{label}: {its} iterations, the CPU "
+                             f"rehearsal took {want}")
+    if not rel <= 1e-8:
+        raise AssertionError(f"{label}: relative residual {rel}")
+    Ap = st.first_args.get("k2", (None,))[0]
+    if counts.k2_large != LINE_LEVELS or Ap is None \
+            or tuple(Ap.shape) != (nbase, LINE_LAYERS + 1, LINE_LAYERS + 1):
+        raise AssertionError(
+            f"{label}: K2 large {counts.k2_large} launches (one per "
+            f"smoothed level, {LINE_LEVELS}), finest patches "
+            f"{None if Ap is None else tuple(Ap.shape)}")
+    del p, solver, uh
+    row = _k2_path_row(f"{label} line patches", Ap)
+    del st, Ap
+    _release(label)
+    return counts, row
+
+
+def _fas_run(fd, label):
+    """fas_bratu_p1_1024 on the card, its stage times; then Newton + CG +
+    GMG on the same mesh on the card: max|u_fas - u_newton| <= FAS_ATOL,
+    cycles at most 3 above the CPU rehearsal's at 64^2."""
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _ml_problem(fd, label))
+    solver = p["solver"]
+    with _Counts() as counts, _EventStages(FAS_STAGES) as st:
+        _, solve_s = _sync_time(solver.solve)
+    cycles = solver.snes_iterations
+    ms = _ml_stage_line(label, setup_s, solve_s, st, cycles)
+    peak = torch.cuda.max_memory_allocated()
+    q, newton_setup_s = _sync_time(lambda: _ml_problem(fd, "bratu_newton"))
+    with _Counts() as ncounts:
+        _, newton_s = _sync_time(q["solver"].solve)
+    u, un = p["uh"].dat, q["uh"].dat
+    diff = float((u - un).abs().max())
+    want = CPU_REHEARSAL_ITS.get(label)
+    print(f"{label}: dofs {p['V'].dim} levels {FAS_LEVELS + 1} cycles "
+          f"{cycles} (CPU rehearsal at 64^2 {want}) converged "
+          f"{solver.converged} ms_per_cycle "
+          f"{1e3 * solve_s / max(cycles, 1):.3f}"
+          f" residual_evals {ms['residual'][2]} diagonal_evals "
+          f"{ms['diagonal'][2]} max u {float(u.max())!r} device_peak {peak} "
+          f"on {u.device} k1_launches {counts.k1} k2_launches {counts.k2} "
+          f"lowerer_evals {counts.lowerer}; Newton + GMG: setup_s "
+          f"{newton_setup_s:.3f} solve_s {newton_s:.3f} newton_steps "
+          f"{q['solver'].snes_iterations} converged {q['solver'].converged}"
+          f" k1_launches {ncounts.k1} lowerer_evals {ncounts.lowerer}; "
+          f"max|u_fas - u_newton| {diff:.3e} (bound {FAS_ATOL})")
+    if not u.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if not (solver.converged and q["solver"].converged):
+        raise AssertionError(f"{label}: FAS or Newton did not converge")
+    if want is None or cycles > want + 3:
+        raise AssertionError(f"{label}: {cycles} cycles, the CPU "
+                             f"rehearsal at 64^2 took {want}")
+    if not diff <= FAS_ATOL:
+        raise AssertionError(f"{label}: FAS {diff} from Newton")
+    # the Newton reference's launches are printed above and not counted
+    # as the FAS path's
+    del p, q, solver, u, un, st
+    _release(label)
+    return counts, None
+
+
+def _small_ml_run(fd, label):
+    """One small case on the card, then on the CPU in this process:
+    within 1e-10 max|u|, equal counts; its kernel launches."""
+    keep = {"k2": lambda a: a[0].shape[-1] > 32}
+    p, setup_s = _sync_time(lambda: _ml_problem(fd, label))
+    stages = {"npc_patch_bratu_64": NPC_STAGES,
+              "pfas_bratu_p4_8": FAS_STAGES}.get(label, ML_STAGES)
+    with _Counts() as counts, _EventStages(stages, keep=keep) as st:
+        _, solve_s = _sync_time(p["solver"].solve)
+    its, conv, hist = _counts_of(p["solver"])
+    _ml_stage_line(label, setup_s, solve_s, st, its)
+    u = p["uh"].dat
+    fd.set_device("cpu")
+    t0 = time.perf_counter()
+    try:
+        q = _ml_problem(fd, label)
+        q["solver"].solve()
+    finally:
+        fd.set_device(torch.device("cuda"))
+    cpu_s = time.perf_counter() - t0
+    cits, cconv, chist = _counts_of(q["solver"])
+    ref = q["uh"].dat
+    diff = float((u.cpu() - ref).abs().max()) / float(ref.abs().max())
+    extra = ""
+    if label == "facet_split_p4_32":
+        # the exact Schur factorization against the host LU solve
+        r = _ml_problem(fd, label)
+        r["solver"].params.update(ksp_type="preonly", pc_type="lu")
+        r["solver"].solve()
+        lu_diff = float((u - r["uh"].dat).abs().max()) / float(
+            r["uh"].dat.abs().max())
+        extra = f" card_vs_lu {lu_diff:.3e}"
+        if not lu_diff <= 1e-8:
+            raise AssertionError(f"{label}: {lu_diff} from the LU solve")
+    print(f"{label}: dofs {p['V'].dim} iterations {its} {hist} converged "
+          f"{conv} (this process's CPU solve {cits} {chist} {cconv}, "
+          f"{cpu_s:.1f} s) "
+          f"card_vs_cpu {diff:.3e}{extra} on {u.device} k1_launches "
+          f"{counts.k1} k2_launches {counts.k2} k2_large {counts.k2_large} "
+          f"lowerer_evals {counts.lowerer}")
+    if not u.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if not (conv and cconv and (its, hist) == (cits, chist)
+            and diff <= 1e-10):
+        raise AssertionError(f"{label}: card {its} {conv}, CPU {cits} "
+                             f"{cconv}, {diff} apart")
+    want_k2 = {"gridline_p1_cube_16": 2, "extruded_star_q2_ext_6": 1}
+    if label in want_k2 and counts.k2 != want_k2[label]:
+        raise AssertionError(f"{label}: K2 launched {counts.k2} times")
+    if label == "npc_patch_bratu_64" and counts.k2 <= 0:
+        raise AssertionError(f"{label}: K2 did not launch")
+    row = None
+    if label == "extruded_star_q2_ext_6":
+        Ap = st.first_args.get("k2", (None,))[0]
+        if counts.k2_large != 1 or Ap is None:
+            raise AssertionError(f"{label}: K2 large {counts.k2_large}")
+        row = _k2_path_row(f"{label} star patches", Ap)
+    del p, q, st
+    _release(label)
+    return counts, row
+
+
+def _cap_check(fd):
+    """The line smoother on CAP_LAYERS layers (129-dof columns) raises at
+    set-up on the card, naming K2's cap and the patch size."""
+    p = _ml_problem(fd, "linesmooth_cap_129")
+    n = CAP_LAYERS + 1
+    try:
+        p["solver"].solve()
+    except ValueError as exc:
+        msg = str(exc)
+        print(f"linesmooth_cap_{n}: raised at set-up: {msg}")
+        if f"n = {n}" not in msg or "n <= 128" not in msg:
+            raise AssertionError(f"linesmooth_cap_{n}: message {msg!r}")
+    else:
+        raise AssertionError(f"linesmooth_cap_{n}: {n}-dof lines did not "
+                             "raise on the card")
+    del p
+    _release(f"linesmooth_cap_{n}")
+
+
+def multilevel_phase():
+    """pmg_p4_256, fas_bratu_p1_1024, linesmooth_q1_ext_128, fdm_q4_256,
+    the small cases against the CPU, and the K2 cap check."""
+    t0 = phase("multilevel")
+    import firedrake_tpu_torch as fd
+    fd.set_device(torch.device("cuda"))
+    used, rows, failed = {}, {}, []
+    runs = [("pmg_p4_256", _pmg_fdm_run), ("fas_bratu_p1_1024", _fas_run),
+            ("linesmooth_q1_ext_128", _line_run),
+            ("fdm_q4_256", _pmg_fdm_run)] \
+        + [(label, _small_ml_run) for label in SMALL_ML]
+    for label, run in runs:
+        t1 = time.perf_counter()
+        try:
+            used[label], rows[label] = run(fd, label)
+        except AssertionError as exc:
+            # the later cases still run and print; the phase fails below
+            failed.append(f"{label}: {exc}")
+            _release(label)
+        print(f"{label}: case_s {time.perf_counter() - t1:.1f}", flush=True)
+    try:
+        _cap_check(fd)
+    except AssertionError as exc:
+        failed.append(str(exc))
+    if failed:
+        raise AssertionError("multilevel phase: " + "; ".join(failed))
+    phase_done("multilevel", t0)
+    return used, {k: v for k, v in rows.items() if v is not None}
+
+
+def ml_rounding():
+    """Where pmg_p4_256's and fdm_q4_256's errornorms come from.  Each is
+    solved on the card and on the host's CPU, and compared on the host:
+    the assembled b and A, u, the errornorm of the card's u evaluated on
+    the host, the true residual ||b - A u|| / ||b|| taken in long double
+    beside its f64 rounding floor eps || |A| |u| || / ||b||, and the
+    errornorm after two steps of iterative refinement against the CPU's
+    A and b, their residuals taken in long double and the corrections
+    solved on the card by the case's own solver (rtol 1e-8).  Prints
+    only; gates nothing."""
+    t0 = phase("ml_rounding")
+    import firedrake_tpu_torch as fd
+    from firedrake_tpu_torch.solvers.composition import OpCtx, build_pc
+    from firedrake_tpu_torch.solving import _run_ksp
+    ld, eps = np.longdouble, np.finfo(np.float64).eps
+    for label in ("pmg_p4_256", "fdm_q4_256"):
+        t1 = time.perf_counter()
+        fd.set_device(torch.device("cuda"))
+        p = _ml_problem(fd, label)
+        p["solver"].solve()
+        card_its = p["solver"].ksp_iterations
+        card_err = fd.errornorm(p["exact"], p["uh"])
+        u_card = p["uh"].dat.cpu().numpy()
+        A_card = fd.assemble(p["a"], bcs=p["bcs"])
+        b_card = fd.assemble(p["L"], bcs=p["bcs"]).dat.cpu().numpy()
+        params = p["solver"].params
+        pc = build_pc(OpCtx(mat=A_card, space=p["V"], form=p["a"],
+                            bcs=p["bcs"]), params)
+        fd.set_device("cpu")
+        q = _ml_problem(fd, label)
+        q["solver"].solve()
+        cpu_its = q["solver"].ksp_iterations
+        cpu_err = fd.errornorm(q["exact"], q["uh"])
+        u_cpu = q["uh"].dat.numpy().copy()
+        A = fd.assemble(q["a"], bcs=q["bcs"]).to_scipy().tocsr()
+        b = fd.assemble(q["L"], bcs=q["bcs"]).dat.numpy()
+        dA = abs(A_card.to_scipy().tocsr() - A).max() / abs(A).max()
+        db = np.abs(b_card - b).max() / np.abs(b).max()
+        A_ld, b_ld = A.astype(ld), b.astype(ld)
+        absA = abs(A)
+        nb = np.linalg.norm(b_ld)
+
+        def host_err(u):
+            q["uh"].dat = torch.as_tensor(u)
+            return fd.errornorm(q["exact"], q["uh"])
+
+        def residual(u):
+            r = b_ld - A_ld @ u.astype(ld)
+            floor = eps * np.linalg.norm(absA @ np.abs(u)) / float(nb)
+            return r, float(np.linalg.norm(r) / nb), floor
+
+        def refine(u):
+            r = residual(u)[0]
+            res = _run_ksp(A_card.matvec, torch.as_tensor(
+                r.astype(np.float64), device="cuda"),
+                dict(params, ksp_rtol=1e-8), pc=pc)
+            return (u.astype(ld) + res.x.cpu().numpy().astype(ld)).astype(
+                np.float64), res.iterations
+
+        line = (f"ml_rounding {label}: dofs {p['V'].dim} iterations card "
+                f"{card_its} cpu {cpu_its}; max|b_card - b_cpu| / max|b| "
+                f"{db:.3e} max|A_card - A_cpu| / max|A| {dA:.3e} "
+                f"max|u_card - u_cpu| {np.abs(u_card - u_cpu).max():.3e}; "
+                f"errornorm card {card_err!r} (the card's u on the host "
+                f"{host_err(u_card)!r}) cpu {cpu_err!r}")
+        refined = {}
+        for name, u in (("card", u_card), ("cpu", u_cpu)):
+            _, rel, floor = residual(u)
+            line += (f"; {name}: long-double residual {rel:.3e} (f64 "
+                     f"floor {floor:.3e})")
+            for step in (1, 2):
+                u, kits = refine(u)
+                line += (f", refined {step} ({kits} its) errornorm "
+                         f"{host_err(u)!r} residual {residual(u)[1]:.3e}")
+            refined[name] = u
+        line += (f"; refined max|u_card - u_cpu| "
+                 f"{np.abs(refined['card'] - refined['cpu']).max():.3e} "
+                 f"seconds {time.perf_counter() - t1:.1f}")
+        print(line, flush=True)
+        del p, q, pc, A_card, A, A_ld
+        _release(label)
+    fd.set_device(torch.device("cuda"))
+    phase_done("ml_rounding", t0)
+
+
+def multilevel_cpu(labels, tag, study=False):
+    """The multilevel cases on the CPU: at the card's size (the counts the
+    card must match; fas_bratu_p1_1024 at 64^2) or, with `study`, at the
+    sizes of ML_STUDY (the errornorms and their ratios)."""
+    import firedrake_tpu_torch as fd
+    fd.set_device("cpu")
+    for label in labels:
+        if study:
+            sizes = ML_STUDY.get(label, ())
+        else:
+            sizes = (FAS_REHEARSAL_LEVELS if label == "fas_bratu_p1_1024"
+                     else None,)
+        prev = None
+        for size in sizes:
+            t0 = time.perf_counter()
+            p = _ml_problem(fd, label, size)
+            p["solver"].solve()
+            its, conv, _ = _counts_of(p["solver"])
+            err = ("" if p.get("exact") is None else
+                   fd.errornorm(p["exact"], p["uh"]))
+            line = (f"{tag} {label} size {size}: dofs {p['V'].dim} "
+                    f"iterations {its} converged {conv}")
+            if err != "":
+                line += f" errornorm {err!r}"
+                if prev is not None:
+                    line += f" ratio {prev / err:.3f}"
+                prev = err
+            if "a" in p:
+                rel = _rel_residual(fd, p["a"], p["L"], p["bcs"], p["uh"])
+                line += f" rel_residual {rel:.3e}"
+            print(f"{line} max u {float(p['uh'].dat.max())!r} seconds "
+                  f"{time.perf_counter() - t0:.1f} host_max_rss_gib "
+                  f"{_max_rss_gib():.2f}", flush=True)
+
+
 def main():
     t0 = time.perf_counter()
     device_phase()
@@ -3528,6 +4183,8 @@ def main():
     used.update(extruded_phase())
     fs_used, vanka_rows = fieldsplit_phase()
     used.update(fs_used)
+    ml_used, line_rows = multilevel_phase()
+    used.update(ml_used)
     used["gmg_p2_tet_16m"], k1_action = north_star_phase()
     for label, c in used.items():
         print(f"launches {label}: k1 {c.k1} k2 {c.k2} k2_large "
@@ -3570,7 +4227,8 @@ def main():
          # broken mixed matrices, scpc_p5_128's interior blocks
          "paths": k2_paths},
         # the large variant (33 <= n <= 128), same source: the Vanka
-        # patches (n = 39) of the fieldsplit phase
+        # patches (n = 39) of the fieldsplit phase, the line (n = 65) and
+        # extruded star (n = 117) patches of the multilevel phase
         {"name": "batched_inv_large",
          "route": "cuda",
          "source": "firedrake_tpu_torch/csrc/batched_inv.cu",
@@ -3586,8 +4244,10 @@ def main():
          "bound_by": k2_large["bound_by"],
          "library_ms": k2_large["library_ms"],
          # on the Vanka patches: stokes_th_vanka_24's solve, and
-         # stokes_th_schur_256's operator at full width
-         "paths": vanka_rows}],
+         # stokes_th_schur_256's operator at full width; on the line
+         # patches of linesmooth_q1_ext_128's finest level and the star
+         # patches of extruded_star_q2_ext_6
+         "paths": {**vanka_rows, **line_rows}}],
         # the CSR matrix's SpMV at 1,050,625 rows (torch ops, no kernel)
         "gather_matvec_ms": matvec,
         # poisson_mixed_rt1_256's BlockMatrix matvec (torch ops, no kernel)
@@ -3606,7 +4266,8 @@ def only(names):
               "dg_mixed": dg_mixed_phase,
               "gather": gather_phase, "nonlinear": nonlinear_phase,
               "extruded": extruded_phase, "fieldsplit": fieldsplit_phase,
-              "pcd_limit": pcd_limit}
+              "multilevel": multilevel_phase, "pcd_limit": pcd_limit,
+              "ml_rounding": ml_rounding}
     for name in names:
         phases[name]()
     print("only: done")

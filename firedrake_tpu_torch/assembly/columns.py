@@ -151,6 +151,7 @@ class ColumnPlan:
         else:
             self.diag_pos = None
         self._cols_dev = None
+        self._keys_dev = None
         self._tsum = None
 
     def _plan_rank1(self):
@@ -268,6 +269,20 @@ class ColumnPlan:
         if self._cols_dev is None:
             self._cols_dev = _idx(self.cols_tbl)
         return self._cols_dev
+
+    def entry_keys_device(self):
+        """(keys, slots): row * nbase_c + col of every stored base-ELL
+        pair, ascending (row-major, each row's columns sorted), and its
+        flat (row, neighbour) slot row * NB + nb, on the device."""
+        if self._keys_dev is None:
+            nb = np.arange(self.NB)[None, :]
+            valid = nb < self.row_counts[:, None]
+            rows = np.broadcast_to(np.arange(len(self.cols_tbl))[:, None],
+                                   valid.shape)
+            keys = rows * self.trial_c.nbase + self.cols_tbl
+            self._keys_dev = (_idx(keys[valid]),
+                              _idx((rows * self.NB + nb)[valid]))
+        return self._keys_dev
 
     def transpose_sum(self):
         """Fixed-order sum of (row, neighbour) blocks into their base
@@ -394,6 +409,28 @@ class ColumnMatrix:
             blk[:, :, dz:dz + Hd] += self.data[:, :, dz, :] * Y[:, None, :]
         out = self.plan.transpose_sum()(blk.reshape(-1, Hd + 2 * kz))
         return out[:, kz:kz + self.plan.trial_c.Hd].reshape(-1)
+
+    def entries(self, rows, cols):
+        """A[rows, cols] for int64 index tensors of one shape, gathered on
+        the data's device: the base pair (row // Hd, col // Hd) is looked
+        up among the plan's sorted base-ELL keys, its layer offset is the
+        difference of the two z; 0 off the band (as
+        A.to_scipy()[np.ix_(p, p)].toarray(), bit for bit)."""
+        p = self.plan
+        Hc = p.trial_c.Hd
+        keys, slots = p.entry_keys_device()
+        z, zc = rows % self.Hd, cols % Hc
+        q = (rows // self.Hd) * self.nbase_c + cols // Hc
+        pos = torch.searchsorted(keys, q.reshape(-1)).clamp(
+            max=keys.numel() - 1).reshape(q.shape)
+        dz = zc - z + self.kz
+        ok = (keys[pos] == q) & (dz >= 0) & (dz < p.ndz)
+        vals = self.data.reshape(-1, p.ndz, self.Hd)[
+            slots[pos], dz.clamp(0, p.ndz - 1), z]
+        # + 0.0: a stored -0.0 (a Dirichlet row's zeros) reads as scipy's
+        # dense copy holds it, +0.0
+        return torch.where(ok, vals, torch.zeros((), dtype=vals.dtype,
+                                                 device=vals.device)) + 0.0
 
     def diagonal(self):
         dp = self.plan.diag_pos

@@ -16,7 +16,8 @@ Role: the dense local inverses behind the patch smoothers
 * CUDA tensors with 33 <= n <= 128: the kernel's large variant in the
   same source (in place in shared memory, one thread per row, floor(128
   / n) matrices per block), counted in ``kernel_launches`` and
-  ``large_launches``; larger n raises.
+  ``large_launches``; larger n raises, naming the cap and the batch
+  (the JAX package has no cap; nothing falls back to another inverse).
 
 Both variants round as ``batched_inv_plain`` does, so each agrees with it
 bit for bit up to signed zeros.
@@ -90,8 +91,11 @@ def _launch(A):
     global kernel_launches, large_launches
     n = A.shape[-1]
     if n > MAX_N:
+        nb = A.numel() // (n * n)
         raise ValueError(
-            f"batched_inv: the CUDA kernel takes n <= {MAX_N}, got {n}")
+            f"batched_inv: the CUDA kernel takes blocks of n <= {MAX_N} "
+            f"(its large variant's block in shared memory); got {nb} "
+            f"blocks of n = {n}")
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"batched_inv takes float32/float64, got {A.dtype}")
     A2 = A.reshape(-1, n, n).contiguous()

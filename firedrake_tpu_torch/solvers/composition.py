@@ -7,12 +7,12 @@ Every solver/PC built here is a callable on device tensors.  Ported:
 ``none``, ``jacobi`` (and ``bjacobi``/``sor``/``ilu``/``icc``, which
 substitute it with a warning), ``lu``/``cholesky``, ``ksp``, ``mg``/
 ``gamg`` (geometric multigrid), ``patch`` (vertex-star additive Schwarz),
-``vanka``, ``python`` (solvers/pcs.py and user subclasses), ``composite``
-and ``fieldsplit`` (additive, multiplicative, symmetric_multiplicative and
-Schur), under any of the KSP methods of solvers/krylov.py.  ``pmg``,
-``linesmooth``, ``extruded_star`` and ``gridline`` raise
-NotImplementedError naming ROADMAP.md queue 1, item 16; ``hypre`` has no
-analogue.
+``vanka``, ``pmg`` (p-multigrid, mg/pmg.py), the line and column
+smoothers ``linesmooth``, ``extruded_star`` and ``gridline``
+(solvers/asm.py), ``python`` (solvers/pcs.py and user subclasses),
+``composite`` and ``fieldsplit`` (additive, multiplicative,
+symmetric_multiplicative and Schur), under any of the KSP methods of
+solvers/krylov.py.  ``hypre`` has no analogue.
 """
 from __future__ import annotations
 
@@ -165,8 +165,9 @@ def build_pc(ctx: OpCtx, params: dict, prefix: str = ""):
     if make is None:
         raise NotImplementedError(
             f"pc_type {pc_type!r} (prefix {prefix!r}) is not ported yet "
-            "(the rest of the PC zoo is ROADMAP.md queue 1, item 16); "
-            f"available: {sorted(_PCS)}")
+            "(BDDC and the eigensolvers are ROADMAP.md queue 1, item 16c; "
+            "Hiptmair and GTMG wait for item 18's interpolation "
+            f"operators); available: {sorted(_PCS)}")
     return make(ctx, params, prefix)
 
 
@@ -230,6 +231,25 @@ def _pc_mg(ctx, params, prefix):
     return GMGPreconditioner(ctx.form, ctx.bcs, ctx.space,
                              params=params, prefix=prefix,
                              appctx=ctx.appctx)
+
+
+def _pc_pmg(ctx, params, prefix):
+    from ..mg.pmg import PMGPC
+    if ctx.form is None or ctx.space is None:
+        raise ValueError("pc_type 'pmg' needs the bilinear form + space")
+    return PMGPC(ctx.form, ctx.bcs, ctx.space, params=params,
+                 prefix=prefix, appctx=ctx.appctx, A_fine=ctx.mat)
+
+
+def _python_pc(name):
+    """A builder running the python PC ``name`` of solvers/pcs.py (the
+    pc_type aliases of the ASM family)."""
+    def make(ctx, params, prefix):
+        from . import pcs as _pcs
+        pc_obj = getattr(_pcs, name)()
+        pc_obj.initialize_ctx(ctx, params, prefix)
+        return pc_obj.apply
+    return make
 
 
 def _pc_patch(ctx, params, prefix):
@@ -340,9 +360,9 @@ def _block_form(ctx, i, j):
 
 
 def _pc_fieldsplit(ctx, params, prefix):
-    from ..mixed import is_mixed
     W = ctx.space
-    if not is_mixed(W):
+    # a mixed space, or FacetSplitPC's blocks of one space
+    if not hasattr(W, "subspaces"):
         raise ValueError("pc_type 'fieldsplit' needs a mixed space")
     A = ctx.mat
     if A is None:
@@ -487,7 +507,10 @@ _PCS = {"none": _pc_none, "jacobi": _pc_jacobi,
         "bjacobi": _pc_jacobi_substitute, "sor": _pc_jacobi_substitute,
         "ilu": _pc_jacobi_substitute, "icc": _pc_jacobi_substitute,
         "lu": _pc_lu, "cholesky": _pc_lu, "ksp": _pc_ksp, "mg": _pc_mg,
-        "gamg": _pc_mg, "patch": _pc_patch, "asm": _pc_patch,
-        "star": _pc_patch, "vanka": _pc_vanka, "python": _pc_python,
+        "gamg": _pc_mg, "pmg": _pc_pmg, "patch": _pc_patch,
+        "asm": _pc_patch, "star": _pc_patch, "vanka": _pc_vanka,
+        "linesmooth": _python_pc("ASMLinesmoothPC"),
+        "extruded_star": _python_pc("ASMExtrudedStarPC"),
+        "gridline": _python_pc("ASMGridLinePC"), "python": _pc_python,
         "composite": _pc_composite, "fieldsplit": _pc_fieldsplit,
         "hypre": _pc_hypre}

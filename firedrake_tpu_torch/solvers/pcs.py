@@ -14,28 +14,42 @@ zoo).
   under `Mp_`/`Kp_`.
 
 A PC is built once at solver set-up; `apply` is a callable on device
-tensors.  The JAX package's other python PCs (FDMPC, P1PC, the ASM
-family, FacetSplitPC, HiptmairPC, GTMGPC, BDDCPC, CovariancePC) raise
-NotImplementedError naming their ROADMAP.md queue 1 item.
+tensors.  FDMPC and P1PC (solvers/fdm.py), ASMLinesmoothPC,
+ASMExtrudedStarPC and ASMGridLinePC (solvers/asm.py) and FacetSplitPC
+(solvers/facet_split.py) are resolved here by name, as in the JAX
+package.  Its other python PCs (HiptmairPC, GTMGPC, BDDCPC,
+CovariancePC) raise NotImplementedError naming their ROADMAP.md queue 1
+item.
 """
 from __future__ import annotations
+
+import importlib
 
 import torch
 
 from ..device import as_tensor
 
 __all__ = ["PCBase", "AssembledPC", "AuxiliaryOperatorPC", "MassInvPC",
-           "PCDPC"]
+           "PCDPC", "FDMPC", "P1PC", "ASMLinesmoothPC",
+           "ASMExtrudedStarPC", "ASMGridLinePC", "FacetSplitPC"]
+
+#: python PCs of the other solver modules, bound on first use (those
+#: modules import PCBase from here)
+_LATE = {"FDMPC": "fdm", "P1PC": "fdm", "ASMLinesmoothPC": "asm",
+         "ASMExtrudedStarPC": "asm", "ASMGridLinePC": "asm",
+         "FacetSplitPC": "facet_split"}
 
 #: the JAX package's python PCs not ported yet, and their ROADMAP.md
 #: queue 1 items
-_UNPORTED = {"FDMPC": 16, "P1PC": 16, "ASMLinesmoothPC": 16,
-             "ASMExtrudedStarPC": 16, "ASMGridLinePC": 16,
-             "FacetSplitPC": 16, "HiptmairPC": 16, "GTMGPC": 16,
-             "BDDCPC": 16, "CovariancePC": 17}
+_UNPORTED = {"HiptmairPC": 18, "GTMGPC": 18, "BDDCPC": 16,
+             "CovariancePC": 17}
 
 
 def __getattr__(name):
+    mod = _LATE.get(name)
+    if mod is not None:
+        return getattr(importlib.import_module(f".{mod}", __package__),
+                       name)
     item = _UNPORTED.get(name)
     if item is not None:
         raise NotImplementedError(

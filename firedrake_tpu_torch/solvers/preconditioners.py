@@ -27,7 +27,7 @@ def make_pc(pc_type: str, A=None, params=None):
     return build_pc(OpCtx(mat=A), {"pc_type": pc_type or "none"})
 
 
-def star_patches(V):
+def star_patches(V, exclude=None):
     """Vertex stars of V as padded dof lists: (idx, mask), both
     (npatch, K) numpy arrays.  Patch p is the p-th mesh vertex that has
     cells; its row holds the sorted dofs of every cell around it, padded
@@ -35,17 +35,23 @@ def star_patches(V):
     the same order, as the JAX package's per-cell loop
     (firedrake_tpu/solvers/preconditioners.py:94-99), vectorised: the
     (vertex, dof) pairs of all cells are deduplicated and sorted by one
-    np.unique over vertex * ndof + dof."""
+    np.unique over vertex * ndof + dof.  ``exclude``: dofs left out of
+    every patch (the nonlinear patch smoother's Dirichlet dofs, as in
+    firedrake_tpu/solving.py _patch_smooth); a star left empty is no
+    patch."""
     cmap = V.cell_dof_map.astype(np.int64)             # (nc, nd)
     cv = V.mesh_obj.topology.cell_vertices.astype(np.int64)
     ndof = int(cmap.max()) + 1
     keys = np.unique((cv[:, :, None] * ndof + cmap[:, None, :]).ravel())
     vert, dof = np.divmod(keys, ndof)
+    if exclude is not None and len(exclude):
+        keep = ~np.isin(dof, exclude)
+        vert, dof = vert[keep], dof[keep]
     counts = np.bincount(vert)
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     patch_of = np.cumsum(counts > 0) - 1               # vertex -> patch
     npatch, K = int(patch_of[-1]) + 1, int(counts.max())
-    rows, pos = patch_of[vert], np.arange(len(keys)) - starts[vert]
+    rows, pos = patch_of[vert], np.arange(len(vert)) - starts[vert]
     idx = np.zeros((npatch, K), dtype=np.int64)
     mask = np.zeros((npatch, K))
     idx[rows, pos] = dof
@@ -53,11 +59,18 @@ def star_patches(V):
     return idx, mask
 
 
-def make_star_patch(A, V):
+def make_star_patch(A, V, multiplicative=False):
     """Vertex-star additive Schwarz smoother (reference:
     firedrake/preconditioners/asm.py ASMStarPC / PatchPC with
     construct_dim=0): one patch per mesh vertex containing every dof on
-    entities whose closure includes the vertex."""
+    entities whose closure includes the vertex.  The multiplicative
+    smoother is not ported: the JAX package takes the flag and returns
+    the additive one, and here it raises."""
+    if multiplicative:
+        raise NotImplementedError(
+            "multiplicative star patches are not ported (the JAX package "
+            "ignores the flag and smooths additively): ROADMAP.md queue 1, "
+            "item 16")
     idx, mask = star_patches(V)
     return _batched_patch_pc(A, idx, mask)
 

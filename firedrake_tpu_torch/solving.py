@@ -22,9 +22,11 @@ solvers/composition.py (fieldsplit, vanka, python PCs among them).
 ``pc_type`` hybridization (solvers/hybridization.py) and scpc
 (solvers/scpc.py) condense per cell through Slate (slate.py) and solve
 the trace or interface system by host LU or a Krylov method on the
-device.  Nonlinear multigrid, nonlinear patch preconditioning, deflation
-and distributed solves raise NotImplementedError naming their ROADMAP.md
-item.
+device.  Nonlinear multigrid: ``snes_type`` fas (over a MeshHierarchy)
+and pfas or PMGSNES (over degree levels), solvers/fas.py; nonlinear
+vertex-star patch relaxation before each Newton step (``npc_snes_type``
+patch), its patch solves through K2.  Deflation and distributed solves
+raise NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -257,7 +259,7 @@ class LinearVariationalSolver:
 
 
 # --------------------------------------------------------------- nonlinear
-#: the ROADMAP.md item of the nonlinear solver options not ported yet
+#: the ROADMAP.md item of deflation, the nonlinear option not ported yet
 _UNPORTED_SNES = "ROADMAP.md queue 1, item 16"
 
 
@@ -290,6 +292,8 @@ class NonlinearVariationalSolver:
         self.problem = problem
         self.params = _merged_params(solver_parameters, nonlinear=True)
         self.appctx = appctx or {}
+        # the nonlinear patch smoother's patches and sum plan, made once
+        self._npc_patches = None
 
     def _residual(self, uvec):
         """F(u) with the EquationBC rows replaced by the boundary forms'
@@ -305,29 +309,33 @@ class NonlinearVariationalSolver:
             r = r.index_put((idx,), uvec[idx] - g[idx])
         return r
 
-    def _check_options(self, params):
-        spt = params.get("snes_python_type", "")
-        if params.get("snes_type") in ("fas", "pfas") \
-                or spt.endswith("PMGSNES"):
-            raise NotImplementedError(
-                "nonlinear multigrid (snes_type 'fas'/'pfas', PMGSNES) is "
-                f"not ported yet: {_UNPORTED_SNES}")
-        if params.get("npc_snes_type") == "patch":
-            raise NotImplementedError(
-                "nonlinear patch preconditioning (npc_snes_type 'patch') is "
-                f"not ported yet: {_UNPORTED_SNES}")
-        if self.appctx.get("deflation") is not None:
-            raise NotImplementedError(
-                f"deflated Newton is not ported yet: {_UNPORTED_SNES}")
-
     def solve(self):
         p = self.problem
         params = self.params
-        self._check_options(params)
+        if self.appctx.get("deflation") is not None:
+            raise NotImplementedError(
+                f"deflated Newton is not ported yet: {_UNPORTED_SNES}")
         V = p.u.function_space()
         bc_idx, g = _bc_data(p.bcs, V.dim)
         idx = as_tensor(bc_idx.astype(np.int64))
         self._dirichlet = (idx, as_tensor(g))
+        spt = params.get("snes_python_type", "")
+        if params.get("snes_type") in ("fas", "pfas") \
+                or spt.endswith("PMGSNES"):
+            # FAS nonlinear multigrid (PETSc SNESFAS): h-levels from the
+            # MeshHierarchy, or degree levels for 'pfas' (the reference
+            # PMGSNES)
+            from .solvers.fas import FASSolver
+            mode = "p" if (params.get("snes_type") == "pfas"
+                           or spt.endswith("PMGSNES")) else "h"
+            fas = FASSolver(p.F, p.u, bcs=p.bcs, params=params, mode=mode)
+            fas.solve()
+            self.snes_iterations = fas.iterations
+            self.converged = fas.converged
+            if not self.converged:
+                warnings.warn(f"FAS did not converge after "
+                              f"{fas.iterations} cycles")
+            return
         if params.get("snes_type") == "python":
             # SNES-level python types: AuxiliaryOperatorSNES subclasses
             from .solvers.snes import (resolve_snes_python,
@@ -347,6 +355,7 @@ class NonlinearVariationalSolver:
         max_it = int(params.get("snes_max_it", 50))
         ls = params.get("snes_linesearch_type", "basic")
         mat_type = params.get("mat_type", "aij")
+        npc = params.get("npc_snes_type")
 
         # the initial guess on the constraint manifold
         u = as_tensor(p.u.dat)
@@ -361,6 +370,16 @@ class NonlinearVariationalSolver:
         for it in range(max_it):
             if rnorm <= max(rtol * r0, atol) or r0 == 0.0:
                 break
+            if npc == "patch":
+                # left nonlinear preconditioning (PETSc npc_snes_type,
+                # the reference's PatchSNES): vertex-star relaxation
+                # before the global step
+                u = self._patch_smooth(u, bc_idx, params)
+                r = self._residual(u)
+                rnorm = float(torch.linalg.vector_norm(r))
+                if rnorm <= max(rtol * r0, atol):
+                    self.snes_iterations = it + 1
+                    break
             du, its = self._newton_step(u, r, bc_idx, params, mat_type)
             # snes_stol: a step too small relative to the iterate
             if float(torch.linalg.vector_norm(du)) <= stol * max(
@@ -386,6 +405,43 @@ class NonlinearVariationalSolver:
         if not self.converged:
             warnings.warn(f"Newton did not converge: |r|={rnorm:.3e} "
                           f"after {self.snes_iterations} iterations")
+
+    def _patch_smooth(self, u, bc_idx, params):
+        """Vertex-star nonlinear relaxation (the reference's PatchSNES):
+        each sweep assembles the residual and the Jacobian once and takes
+        one damped Newton step on every star patch at once, the patches
+        without the Dirichlet dofs (so u stays on the constraint
+        manifold).  The patch matrices are gathered from the Jacobian on
+        its device and solved through K2; the corrections are summed in a
+        fixed order and averaged by the overlap counts."""
+        from .assemble import _accumulation_device
+        from .ops.batched_inverse import batched_inv
+        from .solvers.preconditioners import patch_matrices, star_patches
+        p = self.problem
+        V = p.u.function_space()
+        sweeps = int(params.get("npc_snes_max_it", 1))
+        damp = float(params.get("npc_snes_linesearch_damping", 1.0))
+        if self._npc_patches is None:
+            idx, mask = star_patches(V, exclude=bc_idx)
+            idx_t, mask_t = as_tensor(idx), as_tensor(mask)
+            acc = _accumulation_device(
+                torch.where(mask_t > 0, idx_t, V.dim).reshape(-1), V.dim)
+            counts = np.bincount(idx[mask > 0], minlength=V.dim)
+            self._npc_patches = (idx, mask, idx_t, mask_t, acc,
+                                 as_tensor(np.maximum(counts, 1.0)))
+        idx, mask, idx_t, mask_t, acc, counts = self._npc_patches
+        for _ in range(sweeps):
+            r = self._residual(u)
+            Apinv = batched_inv(patch_matrices(assemble(p.J), idx, mask))
+            if not bool(torch.isfinite(Apinv).all()):
+                raise ArithmeticError(
+                    "npc patch: a patch Jacobian has no inverse without "
+                    f"pivoting ({idx.shape[0]} patches of up to "
+                    f"{idx.shape[1]} dofs)")
+            dp = torch.einsum("pij,pj->pi", Apinv, r[idx_t] * mask_t)
+            u = u - damp * acc((dp * mask_t).reshape(-1)).to(u.dtype) \
+                / counts
+        return u
 
     def _jacobian(self, bc_idx, mat_type):
         """The Jacobian at the current iterate with identity Dirichlet

@@ -525,3 +525,54 @@ def test_patch_plan_built_on_card_is_the_host_plan(on_cuda):
         assert (got is None and want is None) or (
             got.is_cuda and got.dtype == want.dtype
             and torch.equal(got.cpu(), want)), name
+
+
+def _line_solve_on(device, layers):
+    """Q1 on ExtrudedMesh(UnitSquareMesh(4, quadrilateral=True), layers),
+    -lap u = 1, u = 0 on the sides, top and bottom, by CG with the line
+    smoother (one (layers + 1)-dof column per base vertex); the solution
+    on the host and the large variant's launches."""
+    T.set_device(device)
+    mesh = T.ExtrudedMesh(T.UnitSquareMesh(4, 4, quadrilateral=True), layers)
+    V = T.FunctionSpace(mesh, "CG", 1)
+    u, v = T.TrialFunction(V), T.TestFunction(V)
+    bcs = [T.DirichletBC(V, 0.0, s) for s in ("on_boundary", "top",
+                                               "bottom")]
+    w = T.Function(V)
+    n0 = BI.large_launches
+    T.solve(T.inner(T.grad(u), T.grad(v)) * T.dx == T.Constant(1.0) * v
+            * T.dx, w, bcs=bcs, solver_parameters={
+                "ksp_type": "cg", "ksp_rtol": 1e-10, "pc_type": "linesmooth",
+                "pc_linesmooth_codims": "2"})
+    return w.dat.cpu(), BI.large_launches - n0
+
+
+def test_line_patches_on_card_match_plain_and_cpu(on_cuda):
+    """K2's large variant on a real line patch set: the 25 columns of 65
+    dofs of a Q1 slab, gathered on the card by ColumnMatrix.entries (bit
+    for bit with its scipy copy), inverted bit for bit with the plain
+    version up to signed zeros; the line-smoothed CG solve on the card
+    within 1e-10 of the CPU's with one large launch; 129-dof columns
+    raise, naming the cap."""
+    from firedrake_tpu_torch.solvers.asm import _column_patches
+    from firedrake_tpu_torch.solvers.preconditioners import patch_matrices
+    mesh = T.ExtrudedMesh(T.UnitSquareMesh(4, 4, quadrilateral=True), 64)
+    V = T.FunctionSpace(mesh, "CG", 1)
+    u, v = T.TrialFunction(V), T.TestFunction(V)
+    A = T.assemble(T.inner(T.grad(u), T.grad(v)) * T.dx,
+                   bcs=T.DirichletBC(V, 0.0, "top"))
+    idx, mask = _column_patches(V, [2])
+    Ap = patch_matrices(A, idx, mask)
+    assert Ap.is_cuda and tuple(Ap.shape) == (25, 65, 65)
+    ref = np.stack([A.to_scipy()[np.ix_(p, p)].toarray() for p in idx])
+    assert np.array_equal(Ap.cpu().numpy(), ref)
+    n0 = BI.large_launches
+    out = BI.batched_inv(Ap)
+    assert BI.large_launches - n0 == 1
+    assert torch.equal(out + 0.0, BI.batched_inv_plain(Ap) + 0.0)
+    wc, _ = _line_solve_on("cpu", 64)
+    wg, launches = _line_solve_on("cuda", 64)
+    assert launches == 1
+    assert float((wg - wc).abs().max()) <= 1e-10 * float(wc.abs().max())
+    with pytest.raises(ValueError, match=r"n <= 128.*25 blocks of n = 129"):
+        _line_solve_on("cuda", 128)

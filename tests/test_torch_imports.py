@@ -54,7 +54,7 @@ def test_device_defaults_to_cuda():
 #: every public name of the JAX package that the port does not have yet,
 #: with the ROADMAP.md queue 1 item that brings it
 NOT_YET_PORTED = {
-    # item 16: deflation, eigensolvers
+    # item 16c: deflation, eigensolvers
     16: ["Deflation", "DeflatedSNES", "LinearEigenproblem",
          "LinearEigensolver"],
     # item 18: meshes, I/O and tooling
@@ -104,10 +104,12 @@ def _mass_solve(V, params):
 
 
 @pytest.mark.parametrize("call, item", [
-    (lambda V, u: _mass_solve(V, {"pc_type": "pmg"}), 16),
-    (lambda V, u: _mass_solve(V, {"pc_type": "linesmooth"}), 16),
+    (lambda V, u: _mass_solve(V, {
+        "pc_type": "python", "pc_python_type": "firedrake.HiptmairPC"}), 18),
+    (lambda V, u: _mass_solve(V, {
+        "pc_type": "python", "pc_python_type": "firedrake.BDDCPC"}), 16),
     (lambda V, u: T.solve((u * u - 1.0) * T.TestFunction(V) * T.dx == 0, u,
-                          solver_parameters={"snes_type": "fas"}), 16),
+                          appctx={"deflation": object()}), 16),
     (lambda V, u: u.at((0.5, 0.5)), 18),
     (lambda V, u: u((0.5, 0.5)), 18),
     (lambda V, u: u.vector(), 18),

@@ -286,12 +286,14 @@ def test_auxiliary_operator_snes_matches_jax():
     _close(out[1][1], out[0][1])
 
 
+# nonlinear multigrid and the patch smoother are ported
+# (test_torch_multilevel.py); deflation is refused under each of them
 @pytest.mark.parametrize("params, appctx", [
-    ({"snes_type": "fas"}, None),
-    ({"snes_type": "pfas"}, None),
+    ({"snes_type": "fas"}, {"deflation": object()}),
+    ({"snes_type": "pfas"}, {"deflation": object()}),
     ({"snes_type": "python", "snes_python_type": "firedrake.PMGSNES"},
-     None),
-    ({"npc_snes_type": "patch"}, None),
+     {"deflation": object()}),
+    ({"npc_snes_type": "patch"}, {"deflation": object()}),
     ({}, {"deflation": object()}),
 ])
 def test_other_items_raise(params, appctx):

@@ -46,12 +46,17 @@ NO_OPT = "jax_disable_most_optimizations"
 
 @pytest.fixture(autouse=True, scope="module")
 def _cpu():
+    # two torch threads: six test workers share the host's cores, and
+    # more threads per worker slow the many small torch operations down
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
     T.set_device("cpu")
     opt = jax.config.read(NO_OPT)
     jax.config.update(NO_OPT, True)
     yield
     jax.config.update(NO_OPT, opt)
     jax.clear_caches()
+    torch.set_num_threads(n)
 
 
 def _elements(fd):
