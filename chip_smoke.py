@@ -12,14 +12,15 @@
                                           # poisson_mixed_rt1_256's and
                                           # the slate cases' and the
                                           # extruded GMG and spectral
-                                          # cases', pmg_p4_256's and
-                                          # fdm_q4_256's CPU convergence
-                                          # study (bounds)
+                                          # cases', pmg_p4_256's,
+                                          # fdm_q4_256's and
+                                          # eigen_p1_1024's CPU
+                                          # convergence study (bounds)
     python3 chip_smoke.py --only slate    # device, build and the named
                                           # phases alone (main, slate,
                                           # dg_mixed, gather, nonlinear,
                                           # extruded, fieldsplit,
-                                          # multilevel)
+                                          # multilevel, ddm)
     python3 chip_smoke.py --only ml_rounding
                                           # pmg_p4_256's and fdm_q4_256's
                                           # errornorms taken apart: card
@@ -57,7 +58,12 @@ failure raises and the exit code is non-zero):
              (host and card together); the plain version and (K2)
              torch.linalg.inv by call time.  K2's large variant
              (33 <= n <= 128) at (65,536, 40, 40) and (16,384, 64, 64), bit
-             for bit with its plain version, timed the same way.
+             for bit with its plain version, timed the same way.  K2's
+             huge variant (n > 128) on random SPD blocks at n = 129, 256,
+             513 and the pivoted mode of each variant on blocks with a
+             zero leading pivot at n = 7, 65, 300, float64 and float32,
+             bit for bit with their plain versions (the huge variant is
+             timed on bddc_p1_1024's own blocks in the ddm phase).
 4. main    — four solves through LinearVariationalSolver, each with every
              launch count set to 0 just before it and read just after:
              the README Helmholtz problem (UnitSquareMesh(1024), P1, CG +
@@ -149,7 +155,9 @@ failure raises and the exit code is non-zero):
              after condensation), CG + Jacobi at rtol 1e-12 on the
              condensed system on the card, the same stage times; gates:
              the nodal error below SLATE_ERR, CG iterations within 1% of
-             the rehearsal, K2 launched.  On each path's own blocks (the
+             the rehearsal, K2 launched, and the same problem at 64^2 on
+             the card within 1e-10 of it on the CPU in this process.  On
+             each path's own blocks (the
              packed local A; the interior blocks A_II) K2 is held to its
              plain version (max |delta| <= 1e-13 max|inv|) and timed as
              in phase 3.
@@ -201,12 +209,12 @@ failure raises and the exit code is non-zero):
              (625, 39, 39) patches.  navier_stokes_pcd_64
              (test_navier_stokes_schur[pcd] at UnitSquareMesh(64), 37,507
              dofs: Newton, fgmres, Schur full, fieldsplit_1 gmres with
-             PCDPC): Newton steps equal to the rehearsal's and to the same
-             solve's on the CPU in this process, 0.9 < max|u_x| < 1.3,
-             max u_y > 0.02, the velocity within 1e-8 of the CPU's, the
-             fgmres count of every Newton step equal to the CPU's, K1
-             launched (the pressure mass, stiffness and convection), K2
-             not.  navier_stokes_pcd_128 (the same at UnitSquareMesh(128),
+             PCDPC): Newton steps and fgmres counts equal to the
+             rehearsal's, 0.9 < max|u_x| < 1.3, max u_y > 0.02; the same
+             problem at 32^2 on the card and on the CPU in this process,
+             the velocity within 1e-8, the counts of every Newton step
+             equal; K1 launched (the pressure mass, stiffness and
+             convection), K2 not.  navier_stokes_pcd_128 (the same at UnitSquareMesh(128),
              148,739 dofs, on the card alone): Newton steps and fgmres
              counts equal to the CPU rehearsal's, the flow bounds, max
              u_y within 1e-8 of the rehearsal's.  In the Stokes Schur
@@ -238,10 +246,35 @@ failure raises and the exit code is non-zero):
              held to its plain version and timed), npc_patch_bratu_64,
              pfas_bratu_p4_8 and facet_split_p4_32, each held to the same
              solve on the CPU in this process (within 1e-10, equal
-             counts); last, 129-dof lines must raise at set-up on the
-             card, naming K2's cap.  Every case runs and prints; the
-             phase fails after the last if any failed.
-12. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
+             counts).  Every case runs and prints; the phase fails after
+             the last if any failed.
+12. ddm    — each case with every launch count set to 0 before its
+             counted run and read after: bddc_p1_1024 (-lap u = 2 pi^2
+             sin(pi x) sin(pi y) on UnitSquareMesh(1024), P1, CG at rtol
+             1e-10 with BDDCPC at its default 512 subdomains; stage times
+             by CUDA events: host tables, local tensors, each K2 call,
+             CG, ms per iteration, the device peak; gates: converged,
+             ||b - A u|| / ||b|| <= 1e-10, nodal error below 5e-5, three
+             launches of K2's huge variant (M_int, K, S_Pi), one of them
+             pivoted; then K2 on the path's first two M_int and K blocks
+             bit for bit with its plain versions, and timed on 64 of
+             them beside the plain version, torch.linalg.inv and the
+             bound); eigen_p1_1024 (test_aux_components.py's Dirichlet
+             Laplacian with mass at 1024^2, the 4 smallest eigenvalues
+             by host ARPACK on the card's matrices, the card's assembly
+             and ARPACK timed apart; each within EIGEN_ERR of pi^2 (i^2 +
+             j^2)); deflation_bratu_p1_1024 (Bratu, -lap u = 2 exp(u), on
+             gmg_p1_1m's hierarchy, Newton with backtracking, Deflation()
+             and GMRES + GMG at ksp_rtol 1e-8, two roots from one guess;
+             per step |F|, GMRES iterations and tau; gates: both
+             converged at snes_rtol 1e-10, ||u1 - u2||_L2 > 1, Newton
+             steps equal to the CPU rehearsal at 512^2, GMRES iterations
+             within 2% of it); then bddc_p2_16, bddc_elasticity_16,
+             bddc_p1_cube_6, lobpcg_p1_12 and linesmooth_cap_129 (the
+             129-dof lines, on K2's huge variant), each held to the same
+             solve on the CPU in this process (within 1e-10, equal
+             counts).  `--only ddm` runs it alone.
+13. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
              -lap u = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on the
              boundary, P2 on MeshHierarchy(UnitCubeMesh(8), 4) (12,582,912
              tets, 16,974,593 dofs), CG + GMG (Chebyshev(2) + Jacobi) with
@@ -744,8 +777,51 @@ def kernels_phase():
     del sp
     torch.cuda.empty_cache()
     k2_large = k2_large_checks()
+    k2_huge_checks()
     phase_done("kernels", t0)
     return k1, k2, k2_large
+
+
+def _needs_pivots(nb, n, seed, dtype):
+    """Random blocks with a zero leading diagonal entry."""
+    A = np.random.default_rng(seed).standard_normal((nb, n, n))
+    A[:, 0, 0] = 0.0
+    return torch.as_tensor(A, dtype=dtype, device="cuda")
+
+
+def k2_huge_checks():
+    """K2's huge variant (n > 128) on random SPD batches and the pivoted
+    mode of each variant on blocks that need pivots: bit for bit with the
+    plain versions up to signed zeros, one counted launch per call.  (The
+    huge variant is timed on bddc_p1_1024's own blocks, in the ddm
+    phase.)"""
+    from firedrake_tpu_torch.ops import batched_inverse as BI
+    for dt in (torch.float64, torch.float32):
+        for n, nb in ((129, 8), (256, 4), (513, 2)):
+            A = _spd(nb, n, n, dt)
+            h0 = BI.huge_launches
+            out = BI.batched_inv(A) + 0.0
+            exact = torch.equal(out, BI.batched_inv_plain(A) + 0.0)
+            err = float((out - BI.batched_inv_plain(A)).abs().max())
+            print(f"K2 huge random SPD n={n:<4d} {str(dt)[6:]:8s} shape "
+                  f"{tuple(A.shape)} launches {BI.huge_launches - h0} bit "
+                  f"for bit with the plain version {exact} (max diff "
+                  f"{err:.3e})")
+            if not exact or BI.huge_launches - h0 != 1:
+                raise AssertionError(f"K2 huge n={n}: disagrees")
+        for n in (7, 65, 300):
+            A = _needs_pivots(6, n, 1000 + n, dt)
+            p0 = BI.pivot_launches
+            out = BI.batched_inv(A, pivot=True) + 0.0
+            ref = BI.batched_inv_plain(A, pivot=True) + 0.0
+            exact = torch.equal(out, ref)
+            unpiv = bool(torch.isfinite(BI.batched_inv_plain(A)).all())
+            print(f"K2 pivoted n={n:<4d} {str(dt)[6:]:8s} ({BI.variant(n)} "
+                  f"variant) zero leading pivot: bit for bit with the "
+                  f"pivoted plain version {exact}; unpivoted finite "
+                  f"{unpiv}; launches {BI.pivot_launches - p0}")
+            if not exact or BI.pivot_launches - p0 != 1:
+                raise AssertionError(f"K2 pivoted n={n}: disagrees")
 
 
 def _sync_time(fn):
@@ -763,6 +839,7 @@ class _Counts:
 
     def __init__(self):
         self.k1 = self.k2 = self.k2_large = self.lowerer = 0
+        self.k2_huge = self.k2_pivot = 0
         self.k1_by_variant = dict(ref=0, quad=0, act=0)
 
     def __enter__(self):
@@ -772,6 +849,7 @@ class _Counts:
         K.kernel_launches = K.lowerer_evals = 0
         K.launches_by_mode[:] = [0, 0, 0]
         BI.kernel_launches = BI.large_launches = 0
+        BI.huge_launches = BI.pivot_launches = 0
         return self
 
     def __exit__(self, *exc):
@@ -780,6 +858,8 @@ class _Counts:
         self.k1 += K.kernel_launches
         self.k2 += self.BI.kernel_launches
         self.k2_large += self.BI.large_launches
+        self.k2_huge += self.BI.huge_launches
+        self.k2_pivot += self.BI.pivot_launches
         self.lowerer += K.lowerer_evals
         for name, mode in (("ref", K.REF), ("quad", K.QUAD), ("act", K.ACT)):
             self.k1_by_variant[name] += K.launches_by_mode[mode]
@@ -1802,9 +1882,10 @@ def cpu_study(labels):
     labels = labels or list(GATHER) + ["newton_p1_1m", "krylov_p1_1m",
                                        "poisson_mixed_rt1_256"] \
         + list(SLATE_LABELS) + list(EXTRUDED_STUDY) \
-        + ["stokes_th_schur_256"] + list(ML_STUDY)
+        + ["stokes_th_schur_256"] + list(ML_STUDY) + ["eigen_p1_1024"]
     multilevel_cpu([lb for lb in ML_STUDY if lb in labels], "cpu_study",
                    study=True)
+    ddm_cpu(labels, "cpu_study", study=True)
     if "poisson_mixed_rt1_256" in labels:
         mixed_cpu_study()
     fieldsplit_cpu([lb for lb in labels if lb == "stokes_th_schur_256"],
@@ -1845,9 +1926,11 @@ def cpu_rehearsal(labels):
     import firedrake_tpu_torch as fd
     labels = labels or list(GMG) + list(GATHER) + list(NONLINEAR_LABELS) \
         + ["dg_advection_512"] + list(SLATE_LABELS) + list(EXTRUDED_LABELS) \
-        + list(FIELDSPLIT_LABELS) + list(MULTILEVEL_LABELS)
+        + list(FIELDSPLIT_LABELS) + list(MULTILEVEL_LABELS) \
+        + ["deflation_bratu_p1_1024"]
     multilevel_cpu([lb for lb in labels if lb in MULTILEVEL_LABELS],
                    "cpu_rehearsal")
+    ddm_cpu(labels, "cpu_rehearsal")
     nonlinear_cpu([lb for lb in labels if lb in NONLINEAR_LABELS])
     fieldsplit_cpu([lb for lb in labels if lb in FIELDSPLIT_LABELS],
                    "cpu_rehearsal")
@@ -1858,7 +1941,8 @@ def cpu_rehearsal(labels):
     for label in labels:
         if label in NONLINEAR_LABELS or label in SLATE_LABELS \
                 or label in EXTRUDED_LABELS or label in FIELDSPLIT_LABELS \
-                or label in MULTILEVEL_LABELS:
+                or label in MULTILEVEL_LABELS \
+                or label == "deflation_bratu_p1_1024":
             continue
         if label == "dg_advection_512":
             t0 = time.perf_counter()
@@ -2272,6 +2356,11 @@ def mixed_cpu_study():
 # u = 0 on the boundary (410,881 dofs, 196,608 interior ones condensed),
 # CG + Jacobi at rtol 1e-12 on the condensed system on the device.
 HYB_N, SCPC_N, SCPC_DEG = 256, 128, 5
+# scpc_p5_128 is held to the CPU in this process at 64^2 (a card solve
+# and a CPU solve there): at 128^2 the CPU solve alone took 71.6 s and
+# 126.6 s on two card hosts (my chip runs, PR 13), too much of the
+# script's time limit
+SCPC_CPU_N = 64
 HYB_LU = {"ksp_type": "preonly", "pc_type": "hybridization",
           "hybridization": {"ksp_type": "preonly"}}
 HYB_CG = {"ksp_type": "preonly", "pc_type": "hybridization",
@@ -2611,8 +2700,8 @@ def hybridized_run(fd):
 def scpc_run(fd):
     """scpc_p5_128 on the card: condensation, CG + Jacobi on the condensed
     system and back-substitution, timed by stage with CUDA events; K2
-    held to its plain version on the interior blocks; the same solve
-    repeated on the CPU in this process."""
+    held to its plain version on the interior blocks; the same problem at
+    SCPC_CPU_N solved on the card and on the CPU in this process."""
     label = "scpc_p5_128"
     torch.cuda.reset_peak_memory_stats()
     p, setup_s = _sync_time(lambda: _scpc_problem(fd, SCPC_N))
@@ -2623,20 +2712,23 @@ def scpc_run(fd):
     its, want = solver.ksp_iterations, CPU_REHEARSAL_ITS[label]
     err = _slate_error(fd, label, p)
     V = p["V"]
+    small = _scpc_problem(fd, SCPC_CPU_N)
+    small["solver"].solve()
     fd.set_device("cpu")
     t0 = time.perf_counter()
     try:
-        q = _scpc_problem(fd, SCPC_N)
+        q = _scpc_problem(fd, SCPC_CPU_N)
         q["solver"].solve()
     finally:
         fd.set_device(torch.device("cuda"))
     cpu_s = time.perf_counter() - t0
     cpu_its = q["solver"].ksp_iterations
-    cpu_diff = float((p["uh"].dat.cpu() - q["uh"].dat).abs().max()) / float(
-        q["uh"].dat.abs().max())
+    cpu_diff = float((small["uh"].dat.cpu() - q["uh"].dat).abs().max()) \
+        / float(q["uh"].dat.abs().max())
     print(f"{label}: dofs {V.dim} setup_s {setup_s:.3f} solve_s "
-          f"{secs:.3f} cg_iterations {its} (CPU rehearsal {want}, this "
-          f"process's CPU solve {cpu_its}) converged {solver.converged} "
+          f"{secs:.3f} cg_iterations {its} (CPU rehearsal {want}; at "
+          f"{SCPC_CPU_N}^2 the card {small['solver'].ksp_iterations} and "
+          f"this process's CPU solve {cpu_its}) converged {solver.converged} "
           f"max_nodal_err {err:.4e} (bound {SLATE_ERR[label]}) card_vs_cpu "
           f"{cpu_diff:.3e} (cpu solve_s {cpu_s:.1f}) device_peak "
           f"{torch.cuda.max_memory_allocated()} k1_launches {counts.k1} "
@@ -2649,12 +2741,13 @@ def scpc_run(fd):
     if not err < SLATE_ERR[label]:
         raise AssertionError(f"{label}: nodal error {err}")
     if not cpu_diff <= 1e-10:
-        raise AssertionError(f"{label}: card {cpu_diff} from the CPU")
+        raise AssertionError(f"{label}: card {cpu_diff} from the CPU at "
+                             f"{SCPC_CPU_N}^2")
     if counts.k2 <= 0:
         raise AssertionError(f"{label}: K2 did not run")
     _slate_k1_check(label, st, counts.k1)
     row = _k2_path_row(label, st.first_args["k2"][0])
-    del p, q, st
+    del p, q, small, st
     _release(label)
     return counts, row
 
@@ -3201,6 +3294,11 @@ PCD_FULL_N = 128
 # chip_smoke.py --cpu-rehearsal navier_stokes_pcd_128 on the 8-core host
 # of an H100 machine, 784 s); the card's within 1e-8 of it
 PCD_FULL_UY = 0.5238850498573759
+# navier_stokes_pcd_64 is held to the CPU in this process at 32^2 (a
+# card solve and a CPU solve there, equal counts, within 1e-8): at 64^2
+# the CPU solve took 35.4 s and 57.5 s on two card hosts (my chip runs,
+# PR 13), too much of the script's time limit
+PCD_CPU_N = 32
 SCHUR_MG_SP = {"ksp_type": "fgmres", "ksp_rtol": 1e-8,
                "pc_type": "fieldsplit", "pc_fieldsplit_type": "schur",
                "pc_fieldsplit_schur_fact_type": "full",
@@ -3389,11 +3487,11 @@ def stokes_vanka_run(fd, label):
 def cavity_run(fd, label):
     """A cavity case on the card, per Newton step the stage times; held
     to the CPU rehearsal's Newton steps and fgmres counts, to the test's
-    flow bounds and, within 1e-8, to the same solve on the CPU in this
-    process (navier_stokes_pcd_64: the velocity, and the counts too) or
-    to the rehearsal's max u_y (navier_stokes_pcd_128); K1 to its plain
-    version on the inputs the run gave it.  Returns (counts, None): no
-    K2 row."""
+    flow bounds and, within 1e-8, to the same problem at PCD_CPU_N solved
+    on the card and on the CPU in this process (navier_stokes_pcd_64: the
+    velocity and the counts) or to the rehearsal's max u_y
+    (navier_stokes_pcd_128); K1 to its plain version on the inputs the
+    run gave it.  Returns (counts, None): no K2 row."""
     torch.cuda.reset_peak_memory_stats()
     p, setup_s = _sync_time(lambda: _cavity_problem(fd, PCD_SIZE[label]))
     solver = p["solver"]
@@ -3408,22 +3506,30 @@ def cavity_run(fd, label):
     ux, uy = _flow(p["w"])
     u = p["w"].subfunctions[0].dat
     if label == "navier_stokes_pcd_64":
+        small = _cavity_problem(fd, PCD_CPU_N)
+        small["solver"].solve()
         fd.set_device("cpu")
         t0 = time.perf_counter()
         try:
-            q = _cavity_problem(fd, PCD_N)
+            q = _cavity_problem(fd, PCD_CPU_N)
             q["solver"].solve()
         finally:
             fd.set_device(torch.device("cuda"))
+        u_small = small["w"].subfunctions[0].dat
         u_cpu = q["w"].subfunctions[0].dat
-        diff = float((u.cpu() - u_cpu).abs().max()) / float(u_cpu.abs().max())
-        cpu = (q["solver"].snes_iterations,
-               [h["ksp_iterations"] for h in q["solver"].history])
-        ref = (f"this process's CPU solve {cpu[0]} {cpu[1]}, card_vs_cpu "
+        diff = float((u_small.cpu() - u_cpu).abs().max()) / float(
+            u_cpu.abs().max())
+
+        def counts_of(sv):
+            return (sv.snes_iterations,
+                    [h["ksp_iterations"] for h in sv.history])
+        small_counts = (counts_of(small["solver"]), counts_of(q["solver"]))
+        ref = (f"at {PCD_CPU_N}^2 the card {small_counts[0]} and this "
+               f"process's CPU solve {small_counts[1]}, card_vs_cpu "
                f"{diff:.3e}, cpu solve_s {time.perf_counter() - t0:.1f}")
-        del q
+        del q, small
     else:
-        cpu = (want_n, want_k)
+        small_counts = (0, 0)
         diff = abs(uy - PCD_FULL_UY) / PCD_FULL_UY
         ref = f"max u_y {PCD_FULL_UY!r}, card_vs_cpu {diff:.3e}"
     print(f"{label}: dofs {p['W'].subspaces[0].dim} + "
@@ -3436,10 +3542,11 @@ def cavity_run(fd, label):
           f"lowerer_evals {counts.lowerer}")
     if not u.is_cuda:
         raise AssertionError(f"{label}: solution is not on the card")
-    if not (solver.converged and (n, ksp) == (want_n, want_k) == cpu):
+    if not (solver.converged and (n, ksp) == (want_n, want_k)
+            and small_counts[0] == small_counts[1]):
         raise AssertionError(f"{label}: {n} Newton steps, fgmres {ksp}; "
-                             f"the CPU rehearsal {want_n}, {want_k}, the "
-                             f"CPU {cpu}")
+                             f"the CPU rehearsal {want_n}, {want_k}; at "
+                             f"{PCD_CPU_N}^2 card and CPU {small_counts}")
     if not (0.9 < ux < 1.3 and uy > 0.02):
         raise AssertionError(f"{label}: flow max|u_x| {ux}, max u_y {uy}")
     if not diff <= 1e-8:
@@ -3629,8 +3736,6 @@ ML_ERR = {k: min(2 * max(v), ML_STUDY_64[k])
 # 8^2 (35 cycles; at 32^2 the CPU solve alone takes 251-277 s on 8
 # cores); FacetSplitPC with an exact Schur factorization on P4 at 32^2
 # (tests/regression/test_facet_split.py:26), also held to the LU solve.
-# Then the line smoother on 128 layers must raise at set-up on the card
-# (129-dof lines, above K2's n <= 128).
 SMALL_ML = ("gridline_p1_cube_16", "extruded_star_q2_ext_6",
             "npc_patch_bratu_64", "pfas_bratu_p4_8", "facet_split_p4_32")
 GRIDLINE_SP = {"ksp_type": "cg", "ksp_rtol": 1e-10, "pc_type": "mg",
@@ -3651,6 +3756,8 @@ FACET_SP = {"ksp_type": "preonly", "pc_type": "python",
             "facet_fieldsplit_1_ksp_rtol": 1e-12,
             "facet_fieldsplit_1_ksp_max_it": 2000,
             "facet_fieldsplit_1_pc_type": "none"}
+# the line smoother on 128 layers (129-dof lines: K2's huge variant), a
+# small case of the ddm phase
 CAP_LAYERS = 128
 # stage times of a linear solve (CUDA events): the operator's and right-
 # hand side's assembly, the PC set-up (level operators, patches; K2
@@ -3998,28 +4105,9 @@ def _small_ml_run(fd, label):
     return counts, row
 
 
-def _cap_check(fd):
-    """The line smoother on CAP_LAYERS layers (129-dof columns) raises at
-    set-up on the card, naming K2's cap and the patch size."""
-    p = _ml_problem(fd, "linesmooth_cap_129")
-    n = CAP_LAYERS + 1
-    try:
-        p["solver"].solve()
-    except ValueError as exc:
-        msg = str(exc)
-        print(f"linesmooth_cap_{n}: raised at set-up: {msg}")
-        if f"n = {n}" not in msg or "n <= 128" not in msg:
-            raise AssertionError(f"linesmooth_cap_{n}: message {msg!r}")
-    else:
-        raise AssertionError(f"linesmooth_cap_{n}: {n}-dof lines did not "
-                             "raise on the card")
-    del p
-    _release(f"linesmooth_cap_{n}")
-
-
 def multilevel_phase():
-    """pmg_p4_256, fas_bratu_p1_1024, linesmooth_q1_ext_128, fdm_q4_256,
-    the small cases against the CPU, and the K2 cap check."""
+    """pmg_p4_256, fas_bratu_p1_1024, linesmooth_q1_ext_128, fdm_q4_256
+    and the small cases against the CPU."""
     t0 = phase("multilevel")
     import firedrake_tpu_torch as fd
     fd.set_device(torch.device("cuda"))
@@ -4037,10 +4125,6 @@ def multilevel_phase():
             failed.append(f"{label}: {exc}")
             _release(label)
         print(f"{label}: case_s {time.perf_counter() - t1:.1f}", flush=True)
-    try:
-        _cap_check(fd)
-    except AssertionError as exc:
-        failed.append(str(exc))
     if failed:
         raise AssertionError("multilevel phase: " + "; ".join(failed))
     phase_done("multilevel", t0)
@@ -4167,6 +4251,528 @@ def multilevel_cpu(labels, tag, study=False):
                   f"{_max_rss_gib():.2f}", flush=True)
 
 
+# ------------------------------------------------- BDDC, deflation, eigen
+# bddc_p1_1024: -lap u = 2 pi^2 sin(pi x) sin(pi y), u = 0 on the
+# boundary, P1 on UnitSquareMesh(1024) (1,050,625 dofs), CG at rtol 1e-10
+# with BDDCPC at its default subdomain count (clip(ncells // 64, 4, 512) =
+# 512 Morton chunks of 4,096 cells, 2,145 dofs each): K2's huge variant
+# inverts the interior blocks M_int (512, 2145, 2145), the saddle systems
+# K (512, 2153, 2153, pivoted) and S_Pi (1, 1441, 1441).  Its nodal error
+# is held to the P1 GMG bound.
+DDM_N = 1024
+BDDC_SP = {"ksp_type": "cg", "ksp_rtol": 1e-10, "pc_type": "python",
+           "pc_python_type": "firedrake.BDDCPC"}
+BDDC_ERR = 5e-5
+# CG iterations predicted before the first card run (7 at 128^2 and 9
+# at 256^2 with the same 512 subdomains on the CPU: ~2 per doubling of
+# H/h)
+BDDC_PREDICTED_ITS = 13
+# K2's huge variant timed on this many of the path's own M_int and K blocks
+HUGE_TIMED_BLOCKS = 64
+# eigen_p1_1024: tests/regression/test_aux_components.py:47-57 (the
+# Dirichlet Laplacian with the consistent mass, the 4 smallest
+# eigenvalues) at UnitSquareMesh(1024), the default backend (host ARPACK
+# on the matrices assembled on the card).  Bounds: twice the P1 errors
+# extrapolated from the CPU study (python3 chip_smoke.py --cpu-study
+# eigen_p1_1024: n = 64, 128, 256) to n = 1024 at the last ratio.
+EIGEN_K = 4
+EIGEN_EXACT = tuple(np.pi ** 2 * np.array([2.0, 5.0, 5.0, 8.0]))
+EIGEN_STUDY = (64, 128, 256)
+# the study's errors at 256^2: 7.431774e-4, 3.195020e-3, 4.980035e-3,
+# 1.189033e-2, ratios 4.0001, 4.0000, 4.0004, 3.9996; extrapolated to
+# 1024^2: 4.6447e-5, 1.9969e-4, 3.1119e-4, 7.4331e-4
+EIGEN_ERR = (9.289e-5, 3.994e-4, 6.224e-4, 1.487e-3)
+# deflation_bratu_p1_1024: Bratu, -lap u = 2 exp(u), u = 0 on the
+# boundary, P1 on gmg_p1_1m's hierarchy (UnitSquareMesh(32) + 5 levels),
+# Newton with backtracking, Deflation() and GMRES + GMG at ksp_rtol 1e-8
+# (the upper root's Jacobian is indefinite), from u0 = 3 * 16 x (1 - x)
+# y (1 - y) twice: the upper root first, then the lower one.
+DEFL_GUESS = 3.0
+DEFL_SP = {"snes_rtol": 1e-10, "snes_max_it": 60,
+           "snes_linesearch_type": "bt", "ksp_type": "gmres",
+           "ksp_rtol": 1e-8, "ksp_max_it": 300, "pc_type": "mg"}
+# the CPU rehearsal at 512^2 (one level fewer; python3 chip_smoke.py
+# --cpu-rehearsal deflation_bratu_p1_1024, a few minutes): Newton steps
+# per root and GMRES iterations per step; the card's Newton steps equal,
+# its GMRES iterations within 2% in all (128^2 and 256^2 give the same
+# Newton steps; the GMRES total was 128 at 128^2, 130 at 512^2)
+DEFL_LEVELS, DEFL_REHEARSAL_LEVELS = 5, 4
+DEFL_REHEARSAL = ((5, 19), ([5, 6, 7, 7, 7], [5] * 16 + [6, 6, 6]))
+# Small cases, each held to the same solve on the CPU in this process
+# (within 1e-10, equal counts): BDDC on P2 Poisson at 16^2 with 16
+# subdomains, vector P1 elasticity at 16^2 with 9 (clamped on x = 0,
+# gravity), P1 on UnitCubeMesh(6) with 8; the LOBPCG backend on the
+# 12^2 problem of test_aux_components.py:92-107; the line smoother on 128
+# layers (129-dof lines, K2's huge variant).
+SMALL_DDM = ("bddc_p2_16", "bddc_elasticity_16", "bddc_p1_cube_6",
+             "lobpcg_p1_12", "linesmooth_cap_129")
+
+
+def _bddc_small(fd, label):
+    sp = dict(BDDC_SP)
+    if label == "bddc_elasticity_16":
+        mesh = fd.UnitSquareMesh(16, 16)
+        V = fd.VectorFunctionSpace(mesh, "CG", 1)
+        u, v = fd.TrialFunction(V), fd.TestFunction(V)
+
+        def eps(w):
+            return fd.sym(fd.grad(w))
+
+        a = (2.0 * fd.inner(eps(u), eps(v))
+             + fd.inner(fd.div(u), fd.div(v))) * fd.dx
+        L = fd.inner(fd.Constant((0.0, -1.0)), v) * fd.dx
+        bcs = [fd.DirichletBC(V, fd.Constant((0.0, 0.0)), 1)]
+        uh = fd.Function(V)
+        solver = fd.LinearVariationalSolver(
+            fd.LinearVariationalProblem(a, L, uh, bcs=bcs),
+            solver_parameters=dict(sp, bddc_subdomains=9))
+        return dict(V=V, a=a, L=L, bcs=bcs, uh=uh, solver=solver,
+                    exact=None)
+    if label == "bddc_p2_16":
+        V = fd.FunctionSpace(fd.UnitSquareMesh(16, 16), "CG", 2)
+        return _sin_problem(fd, V, dict(sp, bddc_subdomains=16))
+    V = fd.FunctionSpace(fd.UnitCubeMesh(6, 6, 6), "CG", 1)
+    return _sin_problem(fd, V, dict(sp, bddc_subdomains=8))
+
+
+def _eigen_problem(fd, n, params=None, k=EIGEN_K):
+    V = fd.FunctionSpace(fd.UnitSquareMesh(n, n), "CG", 1)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    ep = fd.LinearEigenproblem(
+        fd.inner(fd.grad(u), fd.grad(v)) * fd.dx, fd.inner(u, v) * fd.dx,
+        bcs=[fd.DirichletBC(V, 0.0, "on_boundary")])
+    return V, fd.LinearEigensolver(ep, n_evals=k, solver_parameters=params)
+
+
+class _LobpcgRun:
+    """lobpcg_p1_12 (test_aux_components.py:92-107) as a solver: after
+    solve(), the LOBPCG iterations, whether it stopped before
+    eps_max_it, and the 4 eigenvalues."""
+
+    def __init__(self, fd):
+        self.V, self.es = _eigen_problem(fd, 12, {
+            "eps_backend": "lobpcg", "eps_which": "SM", "eps_max_it": 400})
+
+    def solve(self):
+        from firedrake_tpu_torch import eigensolver
+        its = []
+        run = eigensolver.lobpcg_standard
+
+        def counted(*a, **kw):
+            out = run(*a, **kw)
+            its.append(out[2])
+            return out
+        eigensolver.lobpcg_standard = counted
+        try:
+            self.es.solve()
+        finally:
+            eigensolver.lobpcg_standard = run
+        self.ksp_iterations, self.converged = its[0], its[0] < 400
+        self.values = torch.as_tensor(np.array(
+            [self.es.eigenvalue(i) for i in range(EIGEN_K)]))
+
+
+def _ddm_problem(fd, label):
+    if label.startswith("bddc_"):
+        return _bddc_small(fd, label)
+    if label == "lobpcg_p1_12":
+        run = _LobpcgRun(fd)
+        return dict(V=run.V, uh=None, solver=run)
+    if label == "linesmooth_cap_129":
+        p = _ml_problem(fd, label)
+        p["solver"].params.update(ksp_rtol=1e-10)
+        return p
+    raise KeyError(label)
+
+
+def _deflation_problem(fd, levels=DEFL_LEVELS):
+    mesh = fd.MeshHierarchy(fd.UnitSquareMesh(32, 32), levels)[-1]
+    V = fd.FunctionSpace(mesh, "CG", 1)
+    X = fd.SpatialCoordinate(mesh)
+    u, v = fd.Function(V), fd.TestFunction(V)
+    F = (fd.inner(fd.grad(u), fd.grad(v)) - 2.0 * fd.exp(u) * v) * fd.dx
+    deflation = fd.Deflation()
+    solver = fd.NonlinearVariationalSolver(
+        fd.NonlinearVariationalProblem(
+            F, u, bcs=[fd.DirichletBC(V, 0.0, "on_boundary")]),
+        solver_parameters=DEFL_SP, appctx={"deflation": deflation})
+    guess = fd.Function(V).interpolate(
+        DEFL_GUESS * 16 * X[0] * (1 - X[0]) * X[1] * (1 - X[1]))
+    return dict(V=V, uh=u, solver=solver, deflation=deflation, guess=guess)
+
+
+def _deflation_roots(fd, p, around=contextlib.nullcontext):
+    """Both deflated solves from the one guess: per root (Newton steps,
+    [(|F|, GMRES iterations, tau) per step], max u, seconds)."""
+    out = []
+    for _ in range(2):
+        p["uh"].dat = p["guess"].dat.clone()
+        cuda = p["uh"].dat.is_cuda
+        with around():
+            t0 = time.perf_counter()
+            p["solver"].solve()
+            if cuda:
+                torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+        sv = p["solver"]
+        if not sv.converged:
+            raise AssertionError(f"deflated Newton did not converge "
+                                 f"after {sv.snes_iterations} steps")
+        out.append((sv.snes_iterations,
+                    [(h["rnorm"], h["ksp_iterations"], h["tau"])
+                     for h in sv.history], float(p["uh"].dat.max()), s))
+    return out
+
+
+class _K2Calls:
+    """Each batched_inv call while entered: its shape, pivot flag and
+    CUDA-event milliseconds; copies of the first `keep` blocks of the
+    first unpivoted and the first pivoted call with n > 128 (the path's
+    M_int and K, which the PC frees after use)."""
+
+    def __init__(self, keep):
+        self.keep, self.calls, self.blocks = keep, [], {}
+
+    def __enter__(self):
+        from firedrake_tpu_torch.ops import batched_inverse as BI
+        self.BI, self.run = BI, BI.batched_inv
+
+        def timed(A, pivot=False):
+            n = A.shape[-1]
+            if n > BI.LARGE_N and bool(pivot) not in self.blocks:
+                self.blocks[bool(pivot)] = A[:self.keep].clone()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = self.run(A, pivot)
+            e.record()
+            self.calls.append((tuple(A.shape), bool(pivot), s, e))
+            return out
+        BI.batched_inv = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.BI.batched_inv = self.run
+
+    def lines(self):
+        torch.cuda.synchronize()
+        return [f"{shape} pivot={piv} {s.elapsed_time(e):.1f} ms"
+                for shape, piv, s, e in self.calls]
+
+
+BDDC_STAGES = (
+    ("host_tables", _TP + "solvers.bddc", "_host_tables"),
+    ("local_tensors", _TP + "slate", "_local_form_tensor"),
+    ("pc_setup", _TP + "solving", "build_pc"),
+    ("assembly", _TP + "solving", "assemble"),
+    ("solve", _TP + "solving", "_run_ksp"))
+
+
+def _huge_row(BI, label, A, pivot):
+    """K2's huge variant on a path's own blocks: bit for bit with its
+    plain version (up to signed zeros), timed (device time of one call,
+    call time) beside the plain version, torch.linalg.inv and the bound."""
+    nb, n = A.shape[0], A.shape[-1]
+
+    def once(fn):
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        return out, s.elapsed_time(e)
+    # plain, kernel, kernel: one call each (~4 s per kernel call at 64
+    # blocks).  The huge variant launches 2n kernels per call, more than
+    # the card's launch queue holds, so _device_ms cannot queue a call
+    # while the card sleeps; the host queues each launch in microseconds
+    # against milliseconds of device work per step, so events around a
+    # call read device time (`ms`, the first call; `call_ms`, the second)
+    plain, p1 = once(lambda: BI.batched_inv_plain(A, pivot=pivot))
+    _, d1 = once(lambda: BI.batched_inv(A, pivot=pivot))
+    out, c1 = once(lambda: BI.batched_inv(A, pivot=pivot))
+    exact = torch.equal(out + 0.0, plain + 0.0)
+    err = float((out - plain).abs().max())
+    del out, plain
+    lib1 = _cuda_ms(lambda: torch.linalg.inv(A), 1, 1)
+    lib2 = _cuda_ms(lambda: torch.linalg.inv(A), 1, 1)
+    bytes_ms = 1e3 * 2 * A.numel() * A.element_size() / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2 * n ** 3 * nb / PEAK_FLOPS
+    row = dict(shape=list(A.shape), dtype=str(A.dtype)[6:], pivot=pivot,
+               ms=d1, call_ms=c1, plain_ms=p1,
+               library_ms=(lib1 + lib2) / 2,
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes_bound_ms=bytes_ms, max_abs_err=err)
+    print(f"K2 huge {label:24s} shape {tuple(A.shape)} pivot {pivot} "
+          f"bit_for_bit {exact} max|K2 - plain| {err:.3e} device "
+          f"{row['ms']:.1f} ms call {c1:.1f} ms "
+          f"plain {p1:.1f} ms torch.linalg.inv {row['library_ms']:.2f} ms "
+          f"(runs {lib1:.2f}/{lib2:.2f}) bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']}; bytes {bytes_ms:.3f} ms) share "
+          f"{row['bound_ms'] / row['ms']:.4f}", flush=True)
+    if not exact:
+        raise AssertionError(f"K2 huge {label}: not bit for bit")
+    return row
+
+
+def bddc_run(fd, label="bddc_p1_1024"):
+    """bddc_p1_1024 on the card: stage times, K2's launches by variant,
+    the path's blocks against the plain version, then the huge variant
+    timed on HUGE_TIMED_BLOCKS of them."""
+    from firedrake_tpu_torch.ops import batched_inverse as BI
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _sin_problem(
+        fd, fd.FunctionSpace(fd.UnitSquareMesh(DDM_N, DDM_N), "CG", 1),
+        BDDC_SP))
+    solver, uh = p["solver"], p["uh"]
+    with _Counts() as counts, _EventStages(
+            BDDC_STAGES, keep={n: (lambda a: False)
+                               for n, _, _ in BDDC_STAGES}) as st, \
+            _K2Calls(HUGE_TIMED_BLOCKS) as k2:
+        _, solve_s = _sync_time(solver.solve)
+    its = solver.ksp_iterations
+    peak = torch.cuda.max_memory_allocated()
+    ms = st.ms()
+    pc_ms = ms["pc_setup"][1]
+    solve_ms = ms["solve"][0]
+    rel = _rel_residual(fd, p["a"], p["L"], p["bcs"], uh)
+    err = float((uh.dat - fd.Function(p["V"]).interpolate(
+        p["exact"]).dat).abs().max())
+    print(f"{label} stages (s): host_setup {setup_s:.3f} total_solve "
+          f"{solve_s:.3f} host_tables {ms['host_tables'][1] / 1e3:.3f} "
+          f"local_tensors {ms['local_tensors'][1] / 1e3:.3f} "
+          f"operator_assembly {ms['assembly'][1] / 1e3:.3f} pc_setup "
+          f"{pc_ms / 1e3:.3f} (K2 calls: " + "; ".join(k2.lines())
+          + f") cg {solve_ms / 1e3:.3f}; ms_per_iteration "
+          f"{solve_ms / max(its, 1):.3f}")
+    print(f"{label}: dofs {p['V'].dim} subdomains {k2.calls[0][0][0]} "
+          f"iterations {its} (predicted {BDDC_PREDICTED_ITS}) converged "
+          f"{solver.converged} rel_residual {rel:.3e} max_nodal_err "
+          f"{err:.3e} (bound {BDDC_ERR}) device_peak {peak} "
+          f"({peak / 2 ** 30:.2f} GiB) on {uh.dat.device} k1_launches "
+          f"{counts.k1} k2_launches {counts.k2} k2_huge {counts.k2_huge} "
+          f"k2_pivot {counts.k2_pivot} lowerer_evals {counts.lowerer}",
+          flush=True)
+    if not uh.dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if not solver.converged or not rel <= 1e-10 or not err < BDDC_ERR:
+        raise AssertionError(f"{label}: converged {solver.converged}, "
+                             f"residual {rel}, nodal error {err}")
+    if (counts.k2_huge, counts.k2_pivot) != (3, 1) or counts.k1 <= 0:
+        raise AssertionError(f"{label}: K2 huge {counts.k2_huge} (3 "
+                             f"expected), pivoted {counts.k2_pivot} (1), "
+                             f"K1 {counts.k1}")
+    del p, solver, uh, st
+    _release(label)
+    rows = {}
+    for piv, name in ((False, "M_int"), (True, "K")):
+        A = k2.blocks[piv]
+        two = A[:2].contiguous()
+        exact = torch.equal(BI.batched_inv(two, pivot=piv) + 0.0,
+                            BI.batched_inv_plain(two, pivot=piv) + 0.0)
+        print(f"{label}: K2 on the path's first two {name} blocks "
+              f"{tuple(two.shape)} pivot {piv}: bit for bit with the "
+              f"plain version {exact}")
+        if not exact:
+            raise AssertionError(f"{label}: K2 on {name} disagrees")
+        rows[f"{label} {name}"] = _huge_row(BI, f"{label} {name}", A, piv)
+        del A, two
+        k2.blocks.pop(piv)
+        torch.cuda.empty_cache()
+    return counts, rows
+
+
+def eigen_run(fd, label="eigen_p1_1024"):
+    """eigen_p1_1024: the matrices assembled on the card, ARPACK on the
+    host, each stage timed; the eigenvalues against pi^2 (i^2 + j^2)."""
+    from firedrake_tpu_torch import eigensolver
+    V, es = _eigen_problem(fd, DDM_N)
+    stages = (("assembly", _TP + "eigensolver", "assemble"),)
+    import scipy.sparse.linalg as spla
+    eigsh = spla.eigsh
+    host = []
+
+    def timed_eigsh(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return eigsh(*a, **kw)
+        finally:
+            host.append(time.perf_counter() - t0)
+    spla.eigsh = timed_eigsh
+    try:
+        with _Counts() as counts, _EventStages(
+                stages, keep={"assembly": lambda a: False}) as st:
+            _, total_s = _sync_time(es.solve)
+    finally:
+        spla.eigsh = eigsh
+    ms = st.ms()
+    vals = np.array([es.eigenvalue(i) for i in range(EIGEN_K)])
+    errs = np.abs(vals - np.array(EIGEN_EXACT))
+    print(f"{label}: dofs {V.dim} total_s {total_s:.3f} card assembly "
+          f"{ms['assembly'][1] / 1e3:.3f} s ({ms['assembly'][2]} calls) "
+          f"host ARPACK {sum(host):.3f} s eigenvalues "
+          + " ".join(repr(float(x)) for x in vals) + " errors "
+          + " ".join(f"{x:.4e}" for x in errs) + " bounds "
+          + " ".join(str(b) for b in EIGEN_ERR)
+          + f" k1_launches {counts.k1} lowerer_evals {counts.lowerer}",
+          flush=True)
+    if counts.k1 <= 0:
+        raise AssertionError(f"{label}: the card's assembly bypassed K1")
+    if any(b is None or not e < b for e, b in zip(errs, EIGEN_ERR)):
+        raise AssertionError(f"{label}: errors {errs}, bounds {EIGEN_ERR}")
+    del es
+    _release(label)
+    return counts, None
+
+
+def deflation_run(fd, label="deflation_bratu_p1_1024"):
+    """deflation_bratu_p1_1024: both roots from one guess on the card,
+    per Newton step |F|, GMRES iterations and tau; gates: converged,
+    ||u1 - u2||_L2 > 1, Newton steps equal to the CPU rehearsal's, GMRES
+    iterations within 2% of it."""
+    p, setup_s = _sync_time(lambda: _deflation_problem(fd))
+    counts = _Counts()
+    out = _deflation_roots(fd, p, around=lambda: counts)
+    dist = fd.norm(p["deflation"].roots[0] - p["deflation"].roots[1])
+    for r, (n, hist, umax, s) in enumerate(out):
+        print(f"{label} root {r}: newton_steps {n} max u {umax!r} solve_s "
+              f"{s:.3f} steps (|F|, gmres, tau) "
+              + " ".join(f"({f:.3e}, {k}, {t:.4f})" for f, k, t in hist),
+              flush=True)
+    its = [n for n, *_ in out]
+    gm = [[k for _, k, _ in h] for _, h, _, _ in out]
+    want = DEFL_REHEARSAL
+    print(f"{label}: dofs {p['V'].dim} setup_s {setup_s:.3f} newton_steps "
+          f"{its} gmres {gm} (CPU rehearsal {want}) ||u1 - u2||_L2 "
+          f"{dist:.6f} on {p['uh'].dat.device} k1_launches {counts.k1} "
+          f"lowerer_evals {counts.lowerer}", flush=True)
+    if not p["uh"].dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    if not dist > 1:
+        raise AssertionError(f"{label}: the roots are {dist} apart")
+    total, want_total = sum(map(sum, gm)), None
+    if want is not None:
+        want_total = sum(map(sum, want[1]))
+    if want is None or its != list(want[0]) \
+            or abs(total - want_total) > 0.02 * want_total:
+        raise AssertionError(f"{label}: Newton {its}, GMRES {gm}; the CPU "
+                             f"rehearsal {want}")
+    del p
+    _release(label)
+    return counts, None
+
+
+def _small_ddm_run(fd, label):
+    """One small case on the card, then on the CPU in this process:
+    within 1e-10 relative, equal counts; its kernel launches."""
+    p, setup_s = _sync_time(lambda: _ddm_problem(fd, label))
+    with _Counts() as counts:
+        _, solve_s = _sync_time(p["solver"].solve)
+    its, conv, _ = _counts_of(p["solver"])
+    u = p["solver"].values if label == "lobpcg_p1_12" else p["uh"].dat
+    fd.set_device("cpu")
+    t0 = time.perf_counter()
+    try:
+        q = _ddm_problem(fd, label)
+        q["solver"].solve()
+    finally:
+        fd.set_device(torch.device("cuda"))
+    cpu_s = time.perf_counter() - t0
+    cits, cconv, _ = _counts_of(q["solver"])
+    ref = q["solver"].values if label == "lobpcg_p1_12" else q["uh"].dat
+    diff = float((u.cpu() - ref).abs().max()) / float(ref.abs().max())
+    print(f"{label}: dofs {p['V'].dim} iterations {its} converged {conv} "
+          f"solve_s {solve_s:.3f} (this process's CPU solve {cits} "
+          f"{cconv}, {cpu_s:.1f} s) card_vs_cpu {diff:.3e} k1_launches "
+          f"{counts.k1} k2_launches {counts.k2} k2_large {counts.k2_large} "
+          f"k2_huge {counts.k2_huge} k2_pivot {counts.k2_pivot}",
+          flush=True)
+    if label != "lobpcg_p1_12" and not p["uh"].dat.is_cuda:
+        raise AssertionError(f"{label}: solution is not on the card")
+    # LOBPCG stops when every residual is below 10 n eps (|A v| + theta),
+    # at the rounding floor: its count moves with the rounding (85 on the
+    # card and on one CPU host, 87 on another), so its gate is the
+    # eigenvalues alone
+    same_count = its == cits or label == "lobpcg_p1_12"
+    if not (conv and cconv and same_count and diff <= 1e-10):
+        raise AssertionError(f"{label}: card {its} {conv}, CPU {cits} "
+                             f"{cconv}, {diff} apart")
+    if label.startswith("bddc_") and (counts.k2 < 2 or counts.k2_pivot != 1):
+        raise AssertionError(f"{label}: K2 {counts.k2} launches, "
+                             f"{counts.k2_pivot} pivoted")
+    if label == "linesmooth_cap_129" and counts.k2_huge != 1:
+        raise AssertionError(f"{label}: K2 huge {counts.k2_huge}")
+    del p, q
+    _release(label)
+    return counts, None
+
+
+def ddm_phase():
+    """bddc_p1_1024, eigen_p1_1024, deflation_bratu_p1_1024 and the small
+    cases against the CPU."""
+    t0 = phase("ddm")
+    import firedrake_tpu_torch as fd
+    fd.set_device(torch.device("cuda"))
+    used, rows, failed = {}, {}, []
+    runs = [("bddc_p1_1024", bddc_run), ("eigen_p1_1024", eigen_run),
+            ("deflation_bratu_p1_1024", deflation_run)] \
+        + [(label, _small_ddm_run) for label in SMALL_DDM]
+    for label, run in runs:
+        t1 = time.perf_counter()
+        try:
+            used[label], row = run(fd, label)
+            rows.update(row or {})
+        except AssertionError as exc:
+            # the later cases still run and print; the phase fails below
+            failed.append(f"{label}: {exc}")
+            _release(label)
+        print(f"{label}: case_s {time.perf_counter() - t1:.1f}", flush=True)
+    if failed:
+        raise AssertionError("ddm phase: " + "; ".join(failed))
+    phase_done("ddm", t0)
+    return used, rows
+
+
+def ddm_cpu(labels, tag, study=False):
+    """deflation_bratu_p1_1024 on the CPU at 512^2 (the counts the card
+    must match), or with `study` the eigenvalue errors of eigen_p1_1024 at
+    EIGEN_STUDY and their extrapolation to DDM_N."""
+    import firedrake_tpu_torch as fd
+    fd.set_device("cpu")
+    if "deflation_bratu_p1_1024" in labels and not study:
+        t0 = time.perf_counter()
+        p = _deflation_problem(fd, DEFL_REHEARSAL_LEVELS)
+        out = _deflation_roots(fd, p)
+        print(f"{tag} deflation_bratu_p1_1024: dofs {p['V'].dim} "
+              f"newton_steps {[n for n, *_ in out]} gmres "
+              f"{[[k for _, k, _ in h] for _, h, _, _ in out]} max u "
+              f"{[m for *_, m, _ in out]} ||u1 - u2||_L2 "
+              f"{fd.norm(p['deflation'].roots[0] - p['deflation'].roots[1])!r}"
+              f" seconds {time.perf_counter() - t0:.1f} host_max_rss_gib "
+              f"{_max_rss_gib():.2f}", flush=True)
+    if "eigen_p1_1024" in labels and study:
+        prev = None
+        for n in EIGEN_STUDY:
+            t0 = time.perf_counter()
+            _, es = _eigen_problem(fd, n)
+            es.solve()
+            errs = np.array([es.eigenvalue(i) for i in range(EIGEN_K)]) \
+                - np.array(EIGEN_EXACT)
+            line = (f"{tag} eigen_p1_1024 n {n}: errors "
+                    + " ".join(f"{e:.6e}" for e in errs))
+            if prev is not None:
+                ratio = prev / errs
+                ext = errs / ratio ** np.log2(DDM_N / n)
+                line += (" ratios " + " ".join(f"{r:.4f}" for r in ratio)
+                         + f" extrapolated to {DDM_N}: "
+                         + " ".join(f"{e:.4e}" for e in ext))
+            prev = errs
+            print(f"{line} seconds {time.perf_counter() - t0:.1f}",
+                  flush=True)
+
+
 def main():
     t0 = time.perf_counter()
     device_phase()
@@ -4185,10 +4791,12 @@ def main():
     used.update(fs_used)
     ml_used, line_rows = multilevel_phase()
     used.update(ml_used)
+    ddm_used, huge_rows = ddm_phase()
+    used.update(ddm_used)
     used["gmg_p2_tet_16m"], k1_action = north_star_phase()
     for label, c in used.items():
         print(f"launches {label}: k1 {c.k1} k2 {c.k2} k2_large "
-              f"{c.k2_large}")
+              f"{c.k2_large} k2_huge {c.k2_huge} k2_pivot {c.k2_pivot}")
     main_path = used["gmg_star_p2_1m"]
     print(f"total_s {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": [
@@ -4247,7 +4855,29 @@ def main():
          # stokes_th_schur_256's operator at full width; on the line
          # patches of linesmooth_q1_ext_128's finest level and the star
          # patches of extruded_star_q2_ext_6
-         "paths": {**vanka_rows, **line_rows}}],
+         "paths": {**vanka_rows, **line_rows}},
+        # the huge variant (n > 128, global memory), same source: BDDC's
+        # interior blocks, saddle systems (pivoted) and primal Schur
+        # complement on bddc_p1_1024 (its own path's count), the 129-dof
+        # lines of linesmooth_cap_129; timed on 64 of bddc_p1_1024's own
+        # M_int blocks (the row's numbers) and K blocks (in "paths")
+        {"name": "batched_inv_huge",
+         "route": "cuda",
+         "source": "firedrake_tpu_torch/csrc/batched_inv.cu",
+         "replaces": "firedrake_tpu/ops/batched_inverse.py:60",
+         "launches": used["bddc_p1_1024"].k2_huge,
+         "launches_by_path": {k: c.k2_huge for k, c in used.items()},
+         "pivot_launches_by_path": {k: c.k2_pivot
+                                    for k, c in used.items()},
+         "shape": huge_rows["bddc_p1_1024 M_int"]["shape"],
+         "max_abs_err": huge_rows["bddc_p1_1024 M_int"]["max_abs_err"],
+         "ms": huge_rows["bddc_p1_1024 M_int"]["ms"],
+         "call_ms": huge_rows["bddc_p1_1024 M_int"]["call_ms"],
+         "plain_ms": huge_rows["bddc_p1_1024 M_int"]["plain_ms"],
+         "bound_ms": huge_rows["bddc_p1_1024 M_int"]["bound_ms"],
+         "bound_by": huge_rows["bddc_p1_1024 M_int"]["bound_by"],
+         "library_ms": huge_rows["bddc_p1_1024 M_int"]["library_ms"],
+         "paths": huge_rows}],
         # the CSR matrix's SpMV at 1,050,625 rows (torch ops, no kernel)
         "gather_matvec_ms": matvec,
         # poisson_mixed_rt1_256's BlockMatrix matvec (torch ops, no kernel)
@@ -4267,6 +4897,7 @@ def only(names):
               "gather": gather_phase, "nonlinear": nonlinear_phase,
               "extruded": extruded_phase, "fieldsplit": fieldsplit_phase,
               "multilevel": multilevel_phase, "pcd_limit": pcd_limit,
+              "ddm": ddm_phase,
               "ml_rounding": ml_rounding}
     for name in names:
         phases[name]()

@@ -31,7 +31,9 @@ a ColumnMatrix, assembly/columns.py; prism facet integrals by facet
 class; HDiv(TensorProductElement(...)) prism elements, elements/
 tensor_product.py), sum-factorised Q_k on quads and hexes
 (compiler/spectral.py) and quad, hex, extruded and semi-coarsened
-hierarchies.
+hierarchies; p-multigrid, FAS and the line, star, FDM and facet-split
+PCs; BDDC (solvers/bddc.py), deflated Newton (deflation.py) and the
+eigensolvers (eigensolver.py: host ARPACK or a device LOBPCG).
 """
 from .language import *            # noqa: F401,F403  (UFL surface)
 from .mesh.utility import *        # noqa: F401,F403
@@ -67,6 +69,8 @@ from .io import VTKFile, File
 from .parloops import par_loop, READ, WRITE, RW, INC, MIN, MAX
 from . import fml
 from .slope_limiter import VertexBasedLimiter
+from .deflation import Deflation, DeflatedSNES
+from .eigensolver import LinearEigenproblem, LinearEigensolver
 from .device import set_device, get_device
 from math import pi
 

@@ -4,8 +4,10 @@
 // (body _gj_kernel), which inverts blocks of 256 n x n matrices per grid
 // step, the batch in lanes, by Gauss-Jordan without pivoting.  This kernel
 // computes the same inverse of each matrix of a (nb, n, n) batch, for any
-// nb and 1 <= n <= 32, in float32 or float64; a second variant at the end
-// of the file takes 33 <= n <= 128.  Its callers are the
+// nb and 1 <= n <= 32, in float32 or float64; a second variant takes
+// 33 <= n <= 128 and a third, at the end of the file, any n above it.
+// Each variant also has a pivoted mode (partial pivoting, below).  Its
+// callers are the
 // vertex-star patch smoothers (solvers/preconditioners.py), with n = 7
 // (P1 triangles), 15 (P1 Kuhn tets) and 19 (P2 triangles).
 //
@@ -56,6 +58,18 @@
 // against 0.45 ms of bytes; the rest is the serial pivot-lane work
 // (reciprocal, scaling, the write) that the other lanes wait for.
 //
+// Partial pivoting (the `pivot` flag of every variant): at step k the
+// pivot row is the first i >= k with the largest |M[i, k]| (the tie rule
+// of torch.argmax), rows k and i of [M | X] are swapped, then the step
+// eliminates as without pivoting.  In place, column k then holds the
+// inverse's column L_k, L_k being the original index of the row swapped
+// into position k; each variant carries these labels with the rows and
+// writes column k to column L_k at the end.  A swap moves values without
+// rounding, so the pivoted mode too equals its plain version
+// (ops/batched_inverse.py: batched_inv_plain(A, pivot=True)) bit for bit,
+// signed zeros aside.  The unpivoted instantiations are the kernels as
+// they were.
+//
 // Interface: plain C, called through ctypes.  The launch goes on the
 // caller's stream and is not synchronised; the return value is
 // cudaGetLastError() after the launch, or a negative code for arguments
@@ -83,6 +97,8 @@ __device__ __forceinline__ double sub_rn(double a, double b) {
 }
 __device__ __forceinline__ float rcp_rn(float a) { return __frcp_rn(a); }
 __device__ __forceinline__ double rcp_rn(double a) { return __drcp_rn(a); }
+__device__ __forceinline__ float absv(float a) { return fabsf(a); }
+__device__ __forceinline__ double absv(double a) { return fabs(a); }
 
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem,
                                          int bytes) {
@@ -174,6 +190,37 @@ __device__ __forceinline__ void gj_step(T (&r)[NB], T* row, bool pivot,
   }
 }
 
+// The pivoted mode's search and swap before step k, the pivot column at
+// register position P: each lane of a matrix posts |M[i, k]| (rows
+// i >= k) to the warp's buffer `pa`, every lane of the matrix scans the
+// matrix's part for the first largest, and the lanes holding rows k and
+// p exchange their rows (and row labels) by shuffles.
+template <int P, typename T, int NB>
+__device__ __forceinline__ void pivot_swap(T (&r)[NB], int& lbl, T* pa,
+                                           int k, int i, int n, int mbase,
+                                           bool active, int lane) {
+  pa[lane] = (active && i >= k) ? absv(r[P]) : T(-1);
+  __syncwarp();
+  int best = k;
+  if (active) {
+    T bv = pa[mbase + k];
+    for (int j = k + 1; j < n; ++j) {
+      const T v = pa[mbase + j];
+      if (v > bv) {
+        bv = v;
+        best = j;
+      }
+    }
+  }
+  __syncwarp();
+  const int src = !active ? lane
+                          : (i == k ? mbase + best
+                                    : (i == best ? mbase + k : lane));
+#pragma unroll
+  for (int p = 0; p < NB; ++p) r[p] = __shfl_sync(0xffffffffu, r[p], src);
+  lbl = __shfl_sync(0xffffffffu, lbl, src);
+}
+
 // Move every value U register positions down, cyclically.
 template <int U, typename T, int NB>
 __device__ __forceinline__ void rotate(T (&r)[NB]) {
@@ -186,7 +233,7 @@ __device__ __forceinline__ void rotate(T (&r)[NB]) {
   for (int u = 0; u < U; ++u) r[NB - U + u] = t[u];
 }
 
-template <typename T, int NB>
+template <typename T, int NB, bool PIV>
 __global__ void __launch_bounds__(kThreads)
     gj_inverse_kernel(const T* __restrict__ a, T* __restrict__ out,
                       long long nb, int n, long long nchunks) {
@@ -202,6 +249,10 @@ __global__ void __launch_bounds__(kThreads)
   T* pw = pivots + (size_t)warp * 2 * G * PS;
   const int m = lane / n, i = lane - (lane / n) * n;  // matrix, row
   const bool active = m < G;
+  // pivoted mode: per warp 32 magnitudes and 32 row labels
+  T* pa = pivots + (size_t)kWarps * 2 * G * PS + (size_t)warp * 64;
+  T* labs = pa + 32;
+  const int mbase = (active ? m : 0) * n;
 
   long long ch = blockIdx.x;
   stage(bufs, a, ch, per_chunk, nn, nb);
@@ -218,6 +269,7 @@ __global__ void __launch_bounds__(kThreads)
     T r[NB];
 #pragma unroll
     for (int p = 0; p < NB; ++p) r[p] = (active && p < n) ? mine[p] : T(0);
+    int lbl = i;  // pivoted mode: the original index of the row held
 
     // At the start of step k, column j sits at register position
     // (j - k) mod NB: the pivot column is at a position known at compile
@@ -226,29 +278,39 @@ __global__ void __launch_bounds__(kThreads)
     int k = 0;
 #pragma unroll 1
     for (; k + kGroup <= n; k += kGroup) {
+      if (PIV) pivot_swap<0>(r, lbl, pa, k, i, n, mbase, active, lane);
       gj_step<0>(r, prow + (k & 1) * G * PS, active && i == k,
                  active && i != k);
+      if (PIV) pivot_swap<1>(r, lbl, pa, k + 1, i, n, mbase, active, lane);
       gj_step<1>(r, prow + ((k + 1) & 1) * G * PS, active && i == k + 1,
                  active && i != k + 1);
+      if (PIV) pivot_swap<2>(r, lbl, pa, k + 2, i, n, mbase, active, lane);
       gj_step<2>(r, prow + (k & 1) * G * PS, active && i == k + 2,
                  active && i != k + 2);
+      if (PIV) pivot_swap<3>(r, lbl, pa, k + 3, i, n, mbase, active, lane);
       gj_step<3>(r, prow + ((k + 1) & 1) * G * PS, active && i == k + 3,
                  active && i != k + 3);
       rotate<kGroup>(r);
     }
 #pragma unroll 1
     for (; k < n; ++k) {
+      if (PIV) pivot_swap<0>(r, lbl, pa, k, i, n, mbase, active, lane);
       gj_step<0>(r, prow + (k & 1) * G * PS, active && i == k,
                  active && i != k);
       rotate<1>(r);
     }
 
-    // results back through this warp's part of the buffer, coalesced
+    // results back through this warp's part of the buffer, coalesced;
+    // pivoted, column j goes to column L_j
+    if (PIV) {
+      labs[lane] = T(lbl);
+      __syncwarp();
+    }
     if (active) {
 #pragma unroll
       for (int p = 0; p < NB; ++p) {
         const int j = p + n < NB ? p + n : p + n - NB;  // (p + n) mod NB
-        if (j < n) mine[j] = r[p];
+        if (j < n) mine[PIV ? (int)labs[mbase + j] : j] = r[p];
       }
     }
     __syncwarp();
@@ -266,15 +328,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int NB>
+template <typename T, int NB, bool PIV>
 int launch(const void* a, void* out, long long nb, int n,
            cudaStream_t stream) {
   const int G = 32 / n, per_chunk = kWarps * G;
   const size_t smem =
-      (2 * (size_t)per_chunk * n * n + (size_t)kWarps * 2 * G *
-                                           pivot_stride<T, NB>()) *
+      (2 * (size_t)per_chunk * n * n +
+       (size_t)kWarps * 2 * G * pivot_stride<T, NB>() +
+       (PIV ? (size_t)kWarps * 64 : 0)) *
       sizeof(T);
-  auto kernel = gj_inverse_kernel<T, NB>;
+  auto kernel = gj_inverse_kernel<T, NB, PIV>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -299,18 +362,18 @@ int launch(const void* a, void* out, long long nb, int n,
 
 // Row lengths in registers: n rounded up to a multiple of 4 (whole
 // 16-byte moves in both types).
-template <typename T>
+template <typename T, bool PIV>
 int launch_bucket(const void* a, void* out, long long nb, int n,
                   cudaStream_t s) {
   switch ((n + 3) / 4) {
-    case 1: return launch<T, 4>(a, out, nb, n, s);
-    case 2: return launch<T, 8>(a, out, nb, n, s);
-    case 3: return launch<T, 12>(a, out, nb, n, s);
-    case 4: return launch<T, 16>(a, out, nb, n, s);
-    case 5: return launch<T, 20>(a, out, nb, n, s);
-    case 6: return launch<T, 24>(a, out, nb, n, s);
-    case 7: return launch<T, 28>(a, out, nb, n, s);
-    default: return launch<T, 32>(a, out, nb, n, s);
+    case 1: return launch<T, 4, PIV>(a, out, nb, n, s);
+    case 2: return launch<T, 8, PIV>(a, out, nb, n, s);
+    case 3: return launch<T, 12, PIV>(a, out, nb, n, s);
+    case 4: return launch<T, 16, PIV>(a, out, nb, n, s);
+    case 5: return launch<T, 20, PIV>(a, out, nb, n, s);
+    case 6: return launch<T, 24, PIV>(a, out, nb, n, s);
+    case 7: return launch<T, 28, PIV>(a, out, nb, n, s);
+    default: return launch<T, 32, PIV>(a, out, nb, n, s);
   }
 }
 
@@ -337,16 +400,27 @@ int launch_bucket(const void* a, void* out, long long nb, int n,
 // of 256 threads over its n^2 entries, spent its issue slots on index
 // arithmetic and took 8.19 ms.  Rows held in registers, as in the warp
 // variant, would read only the broadcast pivot row.
+// Pivoted mode: a third phase before the two, in which each thread posts
+// |M[i, k]| and every thread of the matrix scans them for the pivot row
+// p; phase one then forms the pivot row from row p and keeps row k, and
+// in phase two thread p eliminates the kept row k into position p.
 constexpr int kMaxLargeN = 128;
 constexpr int kLargeThreads = 128;
 
-template <typename T>
+// The per-matrix values in shared memory: the matrix, the pivot row and
+// column k; pivoted also the magnitudes, the kept row k, the row labels
+// and their inverse.
+__host__ __device__ constexpr int large_msize(int n, bool piv) {
+  return n * (n + 1) + (piv ? 6 : 2) * n;
+}
+
+template <typename T, bool PIV>
 __global__ void __launch_bounds__(kLargeThreads)
     gj_large_kernel(const T* __restrict__ a, T* __restrict__ out,
                     long long nb, int n, int per_block) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = n + 1;                     // padded column stride
-  const int msize = n * ld + 2 * n;         // matrix, pivot row, column
+  const int msize = large_msize(n, PIV);
   const int nn = n * n;
   T* base = reinterpret_cast<T*>(smem_raw);
   const int m = threadIdx.x / n, i = threadIdx.x - (threadIdx.x / n) * n;
@@ -354,6 +428,10 @@ __global__ void __launch_bounds__(kLargeThreads)
   T* S = base + (size_t)(active ? m : 0) * msize;  // S[j * ld + i] = A_ij
   T* piv = S + n * ld;                      // pivot row times 1 / pivot
   T* col = piv + n;                         // column k before step k
+  T* pa = col + n;                          // pivoted: |M[i, k]|
+  T* rowk = pa + n;                         // pivoted: row k before step k
+  T* lab = rowk + n;                        // pivoted: row labels
+  T* ilab = lab + n;                        // pivoted: their inverse
   for (long long b0 = (long long)blockIdx.x * per_block; b0 < nb;
        b0 += (long long)gridDim.x * per_block) {
     const int count = nb - b0 < per_block ? (int)(nb - b0) : per_block;
@@ -362,17 +440,46 @@ __global__ void __launch_bounds__(kLargeThreads)
       const int mm = e / nn, r = e - mm * nn, ii = r / n, jj = r - ii * n;
       base[(size_t)mm * msize + jj * ld + ii] = src[e];
     }
+    if (PIV && active) lab[i] = T(i);
     __syncthreads();
     for (int k = 0; k < n; ++k) {
+      int p = k;
+      if (PIV) {
+        if (active) pa[i] = i >= k ? absv(S[k * ld + i]) : T(-1);
+        __syncthreads();
+        if (active) {
+          T bv = pa[k];
+          for (int j = k + 1; j < n; ++j) {
+            const T v = pa[j];
+            if (v > bv) {
+              bv = v;
+              p = j;
+            }
+          }
+        }
+      }
       if (active) {
-        const T inv = rcp_rn(S[k * ld + k]);
+        const T inv = rcp_rn(S[k * ld + p]);
         // (k, k) of the inverse is 1 * inv
-        piv[i] = i == k ? inv : mul_rn(S[i * ld + k], inv);
+        piv[i] = i == k ? inv : mul_rn(S[i * ld + p], inv);
         col[i] = S[k * ld + i];
+        if (PIV && p != k) {
+          rowk[i] = S[i * ld + k];
+          if (i == k) {
+            const T t = lab[k];
+            lab[k] = lab[p];
+            lab[p] = t;
+          }
+        }
       }
       __syncthreads();
       if (active && i == k) {
         for (int j = 0; j < n; ++j) S[j * ld + i] = piv[j];
+      } else if (PIV && active && i == p) {
+        // row k, swapped into position p, eliminated
+        const T c = col[k];
+        for (int j = 0; j < n; ++j)
+          S[j * ld + i] = sub_rn(j == k ? T(0) : rowk[j], mul_rn(c, piv[j]));
       } else if (active) {
         const T c = col[i];
         // column k holds the inverse's column k from here on: 0 - c * inv
@@ -384,21 +491,32 @@ __global__ void __launch_bounds__(kLargeThreads)
       __syncthreads();
     }
     T* dst = out + b0 * nn;
-    for (int e = threadIdx.x; e < count * nn; e += kLargeThreads) {
-      const int mm = e / nn, r = e - mm * nn, ii = r / n, jj = r - ii * n;
-      dst[e] = base[(size_t)mm * msize + jj * ld + ii];
+    if (PIV) {
+      // column j of the result is the stored column ilab[j]
+      if (active) ilab[(int)lab[i]] = T(i);
+      __syncthreads();
+      for (int e = threadIdx.x; e < count * nn; e += kLargeThreads) {
+        const int mm = e / nn, r = e - mm * nn, ii = r / n, jj = r - ii * n;
+        const T* Sm = base + (size_t)mm * msize;
+        dst[e] = Sm[(int)Sm[n * ld + 5 * n + jj] * ld + ii];
+      }
+    } else {
+      for (int e = threadIdx.x; e < count * nn; e += kLargeThreads) {
+        const int mm = e / nn, r = e - mm * nn, ii = r / n, jj = r - ii * n;
+        dst[e] = base[(size_t)mm * msize + jj * ld + ii];
+      }
     }
     __syncthreads();
   }
 }
 
-template <typename T>
+template <typename T, bool PIV>
 int launch_large(const void* a, void* out, long long nb, int n,
                  cudaStream_t stream) {
   const int per_block = kLargeThreads / n;
   const size_t smem =
-      (size_t)per_block * ((size_t)n * (n + 1) + 2 * (size_t)n) * sizeof(T);
-  auto kernel = gj_large_kernel<T>;
+      (size_t)per_block * (size_t)large_msize(n, PIV) * sizeof(T);
+  auto kernel = gj_large_kernel<T, PIV>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -421,21 +539,224 @@ int launch_large(const void* a, void* out, long long nb, int n,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// ------------------------------------------------------- n > 128: huge
+// A matrix no longer fits shared memory, so the huge variant keeps the
+// batch in global memory, in place in `out` (a copy of the input), and
+// launches two kernels per pivot step k (the simplest right design):
+//
+// * gj_huge_prep, one block per matrix: pivoted, the block finds the
+//   first largest |M[i, k]| over i >= k by a reduction in shared memory
+//   and swaps rows k and p (and their labels) in global memory; then it
+//   writes the pivot row times the correctly rounded 1 / pivot (entry k:
+//   1 / pivot itself) to `piv` and column k to `col`, per matrix.
+// * gj_huge_update, a grid over (matrix, tile of 8 rows x 256 columns):
+//   each entry is updated exactly as in the other variants (row k takes
+//   the pivot row; entry (i, k) becomes 0 - c * inv; every other entry
+//   x - c * piv[j], each product and difference rounded on its own), so
+//   the result equals the plain version bit for bit, signed zeros aside.
+//   The update reads only its own entry and the two per-matrix vectors,
+//   so no block waits for another inside a step.
+//
+// Pivoted, a last launch writes each row's column j to column L_j
+// through shared memory.  What bounds it: bytes, n^2 read and written per
+// matrix and step, so n times the byte bound of one read and one write
+// of the batch: 3.45 s at (64, 2145, 2145) float64 on an H100
+// (chip_smoke.py), 1.61 ms per step, 2.9 TB/s of that traffic, where
+// torch.linalg.inv takes 0.24 s.  A blocked trailing update (several
+// pivot steps per pass) would cut the traffic by its block width.
+constexpr int kHugeThreads = 256;
+constexpr int kHugeRows = 8;  // rows per update block
 
-extern "C" int fdt_batched_inv(int is_double, const void* a, void* out,
-                               long long nb, int n, void* stream) {
-  if (nb <= 0 || n < 1 || n > kMaxN) return -2;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? launch_bucket<double>(a, out, nb, n, s)
-                   : launch_bucket<float>(a, out, nb, n, s);
+template <typename T, bool PIV>
+__global__ void __launch_bounds__(kHugeThreads)
+    gj_huge_prep(T* __restrict__ a, T* __restrict__ piv,
+                 T* __restrict__ col, int* __restrict__ lab, int n, int k) {
+  __shared__ T sv[kHugeThreads];
+  __shared__ int si[kHugeThreads];
+  const long long b = blockIdx.x;
+  const int t = threadIdx.x;
+  T* M = a + b * n * (long long)n;
+  if (PIV) {
+    T bv = T(-1);
+    int bi = n;
+    for (int i = k + t; i < n; i += kHugeThreads) {
+      const T v = absv(M[(long long)i * n + k]);
+      if (v > bv) {  // rows rise within a thread: the first largest stays
+        bv = v;
+        bi = i;
+      }
+    }
+    sv[t] = bv;
+    si[t] = bi;
+    __syncthreads();
+    for (int h = kHugeThreads / 2; h > 0; h >>= 1) {
+      if (t < h) {
+        const T v = sv[t + h];
+        const int j = si[t + h];
+        if (v > sv[t] || (v == sv[t] && j < si[t])) {
+          sv[t] = v;
+          si[t] = j;
+        }
+      }
+      __syncthreads();
+    }
+    const int p = si[0] < n ? si[0] : k;  // (a column of NaNs: no swap)
+    if (p != k) {
+      T* rk = M + (long long)k * n;
+      T* rp = M + (long long)p * n;
+      for (int j = t; j < n; j += kHugeThreads) {
+        const T x = rk[j];
+        rk[j] = rp[j];
+        rp[j] = x;
+      }
+      if (t == 0) {
+        int* L = lab + b * n;
+        const int x = L[k];
+        L[k] = L[p];
+        L[p] = x;
+      }
+    }
+    __syncthreads();
+  }
+  const T* rk = M + (long long)k * n;
+  const T inv = rcp_rn(rk[k]);
+  T* pr = piv + b * n;
+  T* cl = col + b * n;
+  for (int j = t; j < n; j += kHugeThreads)
+    pr[j] = j == k ? inv : mul_rn(rk[j], inv);
+  for (int i = t; i < n; i += kHugeThreads) cl[i] = M[(long long)i * n + k];
 }
 
-extern "C" int fdt_batched_inv_large(int is_double, const void* a,
-                                     void* out, long long nb, int n,
-                                     void* stream) {
+template <typename T>
+__global__ void __launch_bounds__(kHugeThreads)
+    gj_huge_update(T* __restrict__ a, const T* __restrict__ piv,
+                   const T* __restrict__ col, int n, int k, int col_tiles,
+                   int tiles) {
+  const long long b = blockIdx.x / tiles;
+  const int tile = (int)(blockIdx.x - b * tiles);
+  const int j = (tile % col_tiles) * kHugeThreads + threadIdx.x;
+  const int i0 = (tile / col_tiles) * kHugeRows;
+  if (j >= n) return;
+  T* M = a + b * n * (long long)n;
+  const T pj = piv[b * n + j];
+  const T* cl = col + b * n;
+  T x[kHugeRows];
+#pragma unroll
+  for (int r = 0; r < kHugeRows; ++r)
+    if (i0 + r < n) x[r] = M[(long long)(i0 + r) * n + j];
+#pragma unroll
+  for (int r = 0; r < kHugeRows; ++r) {
+    const int i = i0 + r;
+    if (i >= n) break;
+    if (i == k) {
+      x[r] = pj;
+    } else {
+      // column k holds the inverse's column from here on: 0 - c * inv
+      x[r] = sub_rn(j == k ? T(0) : x[r], mul_rn(cl[i], pj));
+    }
+    M[(long long)i * n + j] = x[r];
+  }
+}
+
+__global__ void gj_huge_labels(int* __restrict__ lab, long long total,
+                               int n) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x)
+    lab[e] = (int)(e % n);
+}
+
+// Pivoted: row r's stored column j is the result's column L_j.
+template <typename T>
+__global__ void __launch_bounds__(kHugeThreads)
+    gj_huge_unpermute(T* __restrict__ a, const int* __restrict__ lab,
+                      int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* row = reinterpret_cast<T*>(smem_raw);
+  const long long r = blockIdx.x;  // matrix * n + row
+  const int* L = lab + (r / n) * n;
+  T* x = a + r * n;
+  for (int j = threadIdx.x; j < n; j += kHugeThreads) row[j] = x[j];
+  __syncthreads();
+  for (int j = threadIdx.x; j < n; j += kHugeThreads) x[L[j]] = row[j];
+}
+
+template <typename T>
+int launch_huge(const void* a, void* out, void* piv, void* col, int* lab,
+                long long nb, int n, int pivot, cudaStream_t stream) {
+  const int col_tiles = (n + kHugeThreads - 1) / kHugeThreads;
+  const int tiles = col_tiles * ((n + kHugeRows - 1) / kHugeRows);
+  if (nb > 0x7fffffffLL / tiles || nb * n > 0x7fffffffLL) return -3;
+  const size_t row_bytes = (size_t)n * sizeof(T);
+  T* A = static_cast<T*>(out);
+  T* P = static_cast<T*>(piv);
+  T* C = static_cast<T*>(col);
+  cudaError_t e = cudaMemcpyAsync(out, a, (size_t)nb * n * row_bytes,
+                                  cudaMemcpyDeviceToDevice, stream);
+  if (e != cudaSuccess) return (int)e;
+  if (pivot) {
+    if (row_bytes > 48 * 1024) {
+      e = cudaFuncSetAttribute(gj_huge_unpermute<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)row_bytes);
+      if (e != cudaSuccess) return (int)e;
+    }
+    gj_huge_labels<<<1024, 256, 0, stream>>>(lab, nb * n, n);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  for (int k = 0; k < n; ++k) {
+    if (pivot)
+      gj_huge_prep<T, true><<<(unsigned)nb, kHugeThreads, 0, stream>>>(
+          A, P, C, lab, n, k);
+    else
+      gj_huge_prep<T, false><<<(unsigned)nb, kHugeThreads, 0, stream>>>(
+          A, P, C, lab, n, k);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    gj_huge_update<T><<<(unsigned)(nb * tiles), kHugeThreads, 0, stream>>>(
+        A, P, C, n, k, col_tiles, tiles);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  if (pivot) {
+    gj_huge_unpermute<T><<<(unsigned)(nb * n), kHugeThreads, row_bytes,
+                           stream>>>(A, lab, n);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" int fdt_batched_inv(int is_double, int pivot, const void* a,
+                               void* out, long long nb, int n, void* stream) {
+  if (nb <= 0 || n < 1 || n > kMaxN) return -2;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pivot)
+    return is_double ? launch_bucket<double, true>(a, out, nb, n, s)
+                     : launch_bucket<float, true>(a, out, nb, n, s);
+  return is_double ? launch_bucket<double, false>(a, out, nb, n, s)
+                   : launch_bucket<float, false>(a, out, nb, n, s);
+}
+
+extern "C" int fdt_batched_inv_large(int is_double, int pivot,
+                                     const void* a, void* out, long long nb,
+                                     int n, void* stream) {
   if (nb <= 0 || n <= kMaxN || n > kMaxLargeN) return -2;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? launch_large<double>(a, out, nb, n, s)
-                   : launch_large<float>(a, out, nb, n, s);
+  if (pivot)
+    return is_double ? launch_large<double, true>(a, out, nb, n, s)
+                     : launch_large<float, true>(a, out, nb, n, s);
+  return is_double ? launch_large<double, false>(a, out, nb, n, s)
+                   : launch_large<float, false>(a, out, nb, n, s);
+}
+
+// `piv` and `col` hold nb * n values each and `lab` nb * n ints (pivoted
+// only; may be null otherwise): scratch for the step vectors and labels.
+extern "C" int fdt_batched_inv_huge(int is_double, int pivot, const void* a,
+                                    void* out, void* piv, void* col,
+                                    int* lab, long long nb, int n,
+                                    void* stream) {
+  if (nb <= 0 || n <= kMaxLargeN || (pivot && lab == nullptr)) return -2;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_double
+             ? launch_huge<double>(a, out, piv, col, lab, nb, n, pivot, s)
+             : launch_huge<float>(a, out, piv, col, lab, nb, n, pivot, s);
 }

@@ -3,24 +3,29 @@
 Replaces ``firedrake_tpu/ops/batched_inverse.py`` (``_pallas_batched_inv``,
 body ``_gj_kernel``; entry points ``batched_inv`` and ``batched_solve``).
 Role: the dense local inverses behind the patch smoothers
-(solvers/preconditioners.py), later Slate, static condensation and BDDC.
+(solvers/preconditioners.py), Slate, static condensation and BDDC.
 
-``batched_inv(A)`` inverts over the last two axes of a (..., n, n) batch:
+``batched_inv(A, pivot=False)`` inverts over the last two axes of a
+(..., n, n) batch:
 
 * n <= 3: the closed-form cofactor inverse (compiler/smallmat.py);
 * CPU tensors: ``batched_inv_plain``, the TPU kernel's Gauss-Jordan without
-  pivoting, transcribed to torch in the same order of operations;
-* CUDA tensors with 4 <= n <= 32: the hand-written kernel
-  (``csrc/batched_inv.cu``: in-place elimination, one row per lane,
-  floor(32 / n) matrices per warp), counted in ``kernel_launches``;
-* CUDA tensors with 33 <= n <= 128: the kernel's large variant in the
-  same source (in place in shared memory, one thread per row, floor(128
-  / n) matrices per block), counted in ``kernel_launches`` and
-  ``large_launches``; larger n raises, naming the cap and the batch
-  (the JAX package has no cap; nothing falls back to another inverse).
+  pivoting, transcribed to torch in the same order of operations, or with
+  ``pivot=True`` the same with partial pivoting (what the JAX package gets
+  from ``jnp.linalg.inv`` on the CPU);
+* CUDA tensors: the hand-written kernel (``csrc/batched_inv.cu``), counted
+  in ``kernel_launches``, in one of three variants by n (``variant``):
+  4 <= n <= 32 the warp variant (in-place elimination, one row per lane,
+  floor(32 / n) matrices per warp); 33 <= n <= 128 the large variant (in
+  place in shared memory, one thread per row, floor(128 / n) matrices per
+  block; also counted in ``large_launches``); n > 128 the huge variant
+  (in place in global memory, two launches per pivot step; also counted
+  in ``huge_launches``).  Each takes the ``pivot`` flag (counted in
+  ``pivot_launches``).  Nothing falls back to another inverse: a failed
+  build or launch raises.
 
-Both variants round as ``batched_inv_plain`` does, so each agrees with it
-bit for bit up to signed zeros.
+Every variant rounds as ``batched_inv_plain`` does, pivoted or not, so each
+agrees with it bit for bit up to signed zeros.
 
 Unlike the JAX package there is no ``force_pallas``/``interpret`` switch and
 no padding of the batch to a multiple of 256: the kernel takes any batch.
@@ -36,40 +41,62 @@ from ..compiler.smallmat import inv as _cofactor_inv
 
 __all__ = ["batched_inv", "batched_solve", "batched_inv_plain"]
 
-#: launches of the CUDA kernel, both variants (counted where it launches,
+#: launches of the CUDA kernel, every variant (counted where it launches,
 #: nowhere else)
 kernel_launches = 0
 #: launches of the large variant alone
 large_launches = 0
+#: launches of the huge variant alone (one per call: its pivot steps are
+#: launched together)
+huge_launches = 0
+#: launches in the pivoted mode, any variant
+pivot_launches = 0
 #: largest n of the warp variant (a lane holds a row, a warp has 32 lanes)
 WARP_N = 32
-#: largest n the kernel takes (the large variant's n x (n + 1) block in
-#: shared memory: 133 KB in float64)
-MAX_N = 128
+#: largest n of the large variant (its n x (n + 1) block in shared
+#: memory: 133 KB in float64); above it the huge variant
+LARGE_N = 128
 
 _SRC = nvcc.source("batched_inv.cu")
 _lib = None
 
 
-def batched_inv_plain(A):
-    """Gauss-Jordan without pivoting over the last two axes of A, as
-    ``_gj_kernel`` computes it: for each pivot k, scale row k by 1/A[k, k]
-    and eliminate column k from every other row, on [A | I]."""
+def variant(n):
+    """The kernel variant that inverts blocks of size n on the card."""
+    if n <= 3:
+        return "cofactor"
+    if n <= WARP_N:
+        return "warp"
+    return "large" if n <= LARGE_N else "huge"
+
+
+def batched_inv_plain(A, pivot=False):
+    """Gauss-Jordan over the last two axes of A, as ``_gj_kernel`` computes
+    it: for each pivot k, scale row k by 1/A[k, k] and eliminate column k
+    from every other row, on [A | I].  With ``pivot``, rows k and p of
+    [A | I] are swapped first, p the first i >= k with the largest
+    |A[i, k]| (torch.argmax's tie rule)."""
     n = A.shape[-1]
-    M = A
-    X = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
-    rows = torch.arange(n, device=A.device)
+    nb = A.numel() // (n * n) if n else 0
+    M = A.reshape(nb, n, n).clone()
+    X = torch.eye(n, dtype=A.dtype, device=A.device).repeat(nb, 1, 1)
+    b = torch.arange(nb, device=A.device)
     for k in range(n):
-        inv_piv = 1.0 / M[..., k, k][..., None, None]
-        rowM = M[..., k, :][..., None, :] * inv_piv
-        rowX = X[..., k, :][..., None, :] * inv_piv
-        colM = M[..., :, k][..., :, None]
-        M = M - colM * rowM
-        X = X - colM * rowX
-        sel = (rows == k)[:, None]
-        M = torch.where(sel, rowM, M)
-        X = torch.where(sel, rowX, X)
-    return X
+        if pivot:
+            p = torch.argmax(M[:, k:, k].abs(), dim=-1) + k
+            for Y in (M, X):
+                rowk, rowp = Y[:, k, :].clone(), Y[b, p, :]
+                Y[:, k, :] = rowp
+                Y[b, p, :] = rowk
+        inv_piv = 1.0 / M[:, k, k][:, None, None]
+        rowM = M[:, k, :][:, None, :] * inv_piv
+        rowX = X[:, k, :][:, None, :] * inv_piv
+        colM = M[:, :, k][:, :, None].clone()
+        M -= colM * rowM
+        X -= colM * rowX
+        M[:, k, :] = rowM[:, 0]
+        X[:, k, :] = rowX[:, 0]
+    return X.reshape(A.shape)
 
 
 def build():
@@ -81,53 +108,75 @@ def build():
     lib = nvcc.load(_SRC)
     for fn in (lib.fdt_batched_inv, lib.fdt_batched_inv_large):
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_void_p]
+    lib.fdt_batched_inv_huge.restype = ctypes.c_int
+    lib.fdt_batched_inv_huge.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     _lib = lib
     return nvcc.build_logs.get(_SRC, (0.0, ""))[0]
 
 
-def _launch(A):
-    global kernel_launches, large_launches
+def _launch(A, pivot=False):
+    global kernel_launches, large_launches, huge_launches, pivot_launches
     n = A.shape[-1]
-    if n > MAX_N:
-        nb = A.numel() // (n * n)
-        raise ValueError(
-            f"batched_inv: the CUDA kernel takes blocks of n <= {MAX_N} "
-            f"(its large variant's block in shared memory); got {nb} "
-            f"blocks of n = {n}")
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"batched_inv takes float32/float64, got {A.dtype}")
+    if A.device.type != "cuda":
+        raise RuntimeError(f"batched_inv: the CUDA kernel takes CUDA "
+                           f"tensors; got one on {A.device}")
     A2 = A.reshape(-1, n, n).contiguous()
     out = torch.empty_like(A2)
-    if A2.shape[0] == 0:
+    nb = A2.shape[0]
+    if nb == 0:
         return out.reshape(A.shape)
     build()
-    large = n > WARP_N
-    fn = _lib.fdt_batched_inv_large if large else _lib.fdt_batched_inv
+    kind = variant(n)
+    dbl = int(A.dtype == torch.float64)
     with torch.cuda.device(A.device):
-        rc = fn(int(A.dtype == torch.float64), A2.data_ptr(),
-                out.data_ptr(), A2.shape[0], n,
-                nvcc.current_stream(A.device))
+        stream = nvcc.current_stream(A.device)
+        if kind == "huge":
+            # per matrix the pivot row and column of a step, and (pivoted)
+            # the row labels
+            step = torch.empty((2, nb, n), dtype=A.dtype, device=A.device)
+            lab = (torch.empty((nb, n), dtype=torch.int32, device=A.device)
+                   if pivot else None)
+            rc = _lib.fdt_batched_inv_huge(
+                dbl, int(pivot), A2.data_ptr(), out.data_ptr(),
+                step[0].data_ptr(), step[1].data_ptr(),
+                None if lab is None else lab.data_ptr(), nb, n, stream)
+        else:
+            fn = (_lib.fdt_batched_inv_large if kind == "large"
+                  else _lib.fdt_batched_inv)
+            rc = fn(dbl, int(pivot), A2.data_ptr(), out.data_ptr(), nb, n,
+                    stream)
     if rc != 0:
-        raise RuntimeError(f"batched_inv kernel launch failed: code {rc}")
+        raise RuntimeError(f"batched_inv kernel ({kind} variant, {nb} "
+                           f"blocks of n = {n}) launch failed: code {rc}")
     kernel_launches += 1
-    large_launches += large
+    large_launches += kind == "large"
+    huge_launches += kind == "huge"
+    pivot_launches += bool(pivot)
     return out.reshape(A.shape)
 
 
-def batched_inv(A):
-    """Inverse over the last two axes of a (..., n, n) batch."""
+def batched_inv(A, pivot=False):
+    """Inverse over the last two axes of a (..., n, n) batch; ``pivot``:
+    Gauss-Jordan with partial pivoting (for blocks that need it, such as
+    BDDC's saddle-point systems)."""
     if A.shape[-1] != A.shape[-2]:
         raise ValueError(f"batched_inv: blocks {tuple(A.shape[-2:])} are "
                          "not square")
     if A.shape[-1] <= 3:
         return _cofactor_inv(A)
     if A.device.type == "cpu":
-        return batched_inv_plain(A)
+        return batched_inv_plain(A, pivot)
     if A.device.type != "cuda":
         raise RuntimeError(f"batched_inv: no kernel for {A.device}")
-    return _launch(A)
+    return _launch(A, pivot)
 
 
 def batched_solve(A, b):

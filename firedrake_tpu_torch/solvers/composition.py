@@ -165,9 +165,8 @@ def build_pc(ctx: OpCtx, params: dict, prefix: str = ""):
     if make is None:
         raise NotImplementedError(
             f"pc_type {pc_type!r} (prefix {prefix!r}) is not ported yet "
-            "(BDDC and the eigensolvers are ROADMAP.md queue 1, item 16c; "
-            "Hiptmair and GTMG wait for item 18's interpolation "
-            f"operators); available: {sorted(_PCS)}")
+            "(Hiptmair and GTMG wait for ROADMAP.md queue 1, item 18's "
+            f"interpolation operators); available: {sorted(_PCS)}")
     return make(ctx, params, prefix)
 
 

@@ -16,10 +16,10 @@ zoo).
 A PC is built once at solver set-up; `apply` is a callable on device
 tensors.  FDMPC and P1PC (solvers/fdm.py), ASMLinesmoothPC,
 ASMExtrudedStarPC and ASMGridLinePC (solvers/asm.py) and FacetSplitPC
-(solvers/facet_split.py) are resolved here by name, as in the JAX
-package.  Its other python PCs (HiptmairPC, GTMGPC, BDDCPC,
-CovariancePC) raise NotImplementedError naming their ROADMAP.md queue 1
-item.
+(solvers/facet_split.py) and BDDCPC (solvers/bddc.py) are resolved here
+by name, as in the JAX package.  Its other python PCs (HiptmairPC,
+GTMGPC, CovariancePC) raise NotImplementedError naming their ROADMAP.md
+queue 1 item.
 """
 from __future__ import annotations
 
@@ -31,18 +31,17 @@ from ..device import as_tensor
 
 __all__ = ["PCBase", "AssembledPC", "AuxiliaryOperatorPC", "MassInvPC",
            "PCDPC", "FDMPC", "P1PC", "ASMLinesmoothPC",
-           "ASMExtrudedStarPC", "ASMGridLinePC", "FacetSplitPC"]
+           "ASMExtrudedStarPC", "ASMGridLinePC", "FacetSplitPC", "BDDCPC"]
 
 #: python PCs of the other solver modules, bound on first use (those
 #: modules import PCBase from here)
 _LATE = {"FDMPC": "fdm", "P1PC": "fdm", "ASMLinesmoothPC": "asm",
          "ASMExtrudedStarPC": "asm", "ASMGridLinePC": "asm",
-         "FacetSplitPC": "facet_split"}
+         "FacetSplitPC": "facet_split", "BDDCPC": "bddc"}
 
 #: the JAX package's python PCs not ported yet, and their ROADMAP.md
 #: queue 1 items
-_UNPORTED = {"HiptmairPC": 18, "GTMGPC": 18, "BDDCPC": 16,
-             "CovariancePC": 17}
+_UNPORTED = {"HiptmairPC": 18, "GTMGPC": 18, "CovariancePC": 17}
 
 
 def __getattr__(name):

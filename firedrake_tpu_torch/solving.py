@@ -259,10 +259,6 @@ class LinearVariationalSolver:
 
 
 # --------------------------------------------------------------- nonlinear
-#: the ROADMAP.md item of deflation, the nonlinear option not ported yet
-_UNPORTED_SNES = "ROADMAP.md queue 1, item 16"
-
-
 class NonlinearVariationalProblem:
     """F(u; v) = 0 for u (reference: variational_solver.py
     NonlinearVariationalProblem); J defaults to the Gateaux derivative of
@@ -282,8 +278,9 @@ class NonlinearVariationalSolver:
     Jacobian callbacks :527, :561).
 
     After solve(): ``snes_iterations``, ``converged``, and ``history``, one
-    dict per Newton step with the residual norm before the step and the
-    linear solve's iteration count."""
+    dict per Newton step with the residual norm before the step, the
+    linear solve's iteration count and the step's deflation factor tau (1
+    without appctx["deflation"]; deflation.py)."""
 
     def __init__(self, problem, *, solver_parameters=None,
                  options_prefix=None, appctx=None, nullspace=None,
@@ -312,9 +309,6 @@ class NonlinearVariationalSolver:
     def solve(self):
         p = self.problem
         params = self.params
-        if self.appctx.get("deflation") is not None:
-            raise NotImplementedError(
-                f"deflated Newton is not ported yet: {_UNPORTED_SNES}")
         V = p.u.function_space()
         bc_idx, g = _bc_data(p.bcs, V.dim)
         idx = as_tensor(bc_idx.astype(np.int64))
@@ -356,6 +350,7 @@ class NonlinearVariationalSolver:
         ls = params.get("snes_linesearch_type", "basic")
         mat_type = params.get("mat_type", "aij")
         npc = params.get("npc_snes_type")
+        deflation = self.appctx.get("deflation")
 
         # the initial guess on the constraint manifold
         u = as_tensor(p.u.dat)
@@ -381,12 +376,20 @@ class NonlinearVariationalSolver:
                     self.snes_iterations = it + 1
                     break
             du, its = self._newton_step(u, r, bc_idx, params, mat_type)
+            tau = 1.0
+            if deflation is not None and len(deflation):
+                # deflated Newton (deflation.py): scale du by tau so the
+                # iteration cannot reconverge to a known root
+                p.u.dat = u
+                tau = deflation.tau(p.u, du)
+                du = tau * du
             # snes_stol: a step too small relative to the iterate
             if float(torch.linalg.vector_norm(du)) <= stol * max(
                     float(torch.linalg.vector_norm(u)), 1e-30):
                 stalled = True
                 break
-            self.history.append(dict(rnorm=rnorm, ksp_iterations=its))
+            self.history.append(dict(rnorm=rnorm, ksp_iterations=its,
+                                     tau=tau))
             t = 1.0
             u_new = u + du
             r_new = self._residual(u_new)
@@ -402,6 +405,9 @@ class NonlinearVariationalSolver:
             self.snes_iterations = it + 1
         p.u.dat = u
         self.converged = stalled or rnorm <= max(rtol * r0, atol)
+        if self.converged and deflation is not None:
+            # record the solution just found (reference DeflatedSNES.solve)
+            deflation.append(Function(p.u))
         if not self.converged:
             warnings.warn(f"Newton did not converge: |r|={rnorm:.3e} "
                           f"after {self.snes_iterations} iterations")

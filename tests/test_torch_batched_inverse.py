@@ -89,23 +89,91 @@ def test_large_n_matches_pallas_interpret(n):
 
 
 def test_kernel_limits_raise():
+    """No cap on n: the variant follows n, and the kernel wrapper refuses
+    only what it cannot take: CPU tensors (the CUDA kernel has no CPU
+    mode), integer blocks, and blocks that are not square."""
     n0 = BI.kernel_launches
-    with pytest.raises(ValueError, match="n <= 128"):
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
         BI._launch(torch.zeros(2, 129, 129))
+    with pytest.raises(TypeError, match="float32/float64"):
+        BI._launch(torch.zeros(2, 129, 129, dtype=torch.int64))
     with pytest.raises(ValueError, match="square"):
         BI.batched_inv(torch.zeros(2, 4, 5))
     assert BI.kernel_launches == n0
 
 
-def _in_place_gj(A):
+def _needs_pivots(shape, n, seed):
+    """Random blocks whose leading diagonal entry is zero (Gauss-Jordan
+    without pivoting divides by it)."""
+    A = np.random.default_rng(seed).standard_normal(shape + (n, n))
+    A[..., 0, 0] = 0.0
+    return A
+
+
+@pytest.mark.parametrize("n", [4, 7, 33, 65, 130])
+def test_pivoted_plain_matches_lapack(n):
+    """batched_inv_plain(A, pivot=True) against the JAX package's CPU
+    inverse (jnp.linalg.inv, LAPACK's partial pivoting) and
+    torch.linalg.inv, on blocks that need pivots; the unpivoted version
+    is not finite there."""
+    import jax.numpy as jnp
+    A = _needs_pivots((5,), n, seed=n)
+    ref = np.asarray(jnp.linalg.inv(jnp.asarray(A)))
+    At = torch.as_tensor(A)
+    ours = BI.batched_inv(At, pivot=True)
+    _close(ours.numpy(), ref, 1e-11, 0.0)
+    _close(ours.numpy(), torch.linalg.inv(At).numpy(), 1e-11, 0.0)
+    assert not torch.isfinite(BI.batched_inv_plain(At)).all()
+
+
+def test_pivoted_plain_swaps_like_argmax():
+    """The pivot row is the first largest |A[i, k]| over i >= k (ties go
+    to the first): on a permutation matrix with repeated magnitudes the
+    plain version inverts exactly, and on a block that needs no swap
+    it equals the unpivoted version bit for bit."""
+    P = torch.zeros(1, 6, 6, dtype=torch.float64)
+    perm = [3, 0, 5, 1, 2, 4]
+    P[0, torch.arange(6), torch.as_tensor(perm)] = 1.0
+    A = P * 2.0
+    assert torch.equal(BI.batched_inv_plain(A, pivot=True),
+                       P.transpose(1, 2) * 0.5)
+    D = torch.as_tensor(_spd((4,), 9, seed=5))
+    D = D + torch.diag_embed(torch.linspace(100.0, 10.0, 9,
+                                            dtype=torch.float64))
+    assert torch.equal(BI.batched_inv_plain(D, pivot=True) + 0.0,
+                       BI.batched_inv_plain(D) + 0.0)
+
+
+def test_variant_by_n_without_cap():
+    """The card's variant for each n: the cofactor inverse to 3, the warp
+    variant to 32, the large variant to 128 and the huge variant above
+    it, with no upper cap."""
+    assert [BI.variant(n) for n in (2, 3, 4, 32, 33, 128, 129, 2153,
+                                    10 ** 5)] == \
+        ["cofactor", "cofactor", "warp", "warp", "large", "large",
+         "huge", "huge", "huge"]
+    assert not hasattr(BI, "MAX_N")
+
+
+def _in_place_gj(A, pivot=False):
     """The CUDA kernel's arithmetic, step by step, in torch: in-place
-    Gauss-Jordan on n x n.  At step k the pivot row is set to 1 at k and
-    scaled by the correctly rounded 1 / pivot; every other row i takes
-    c = S[i, k], sets S[i, k] = 0 and subtracts c times the pivot row,
-    each product and difference rounded on its own (no FMA)."""
+    Gauss-Jordan on n x n.  At step k (pivoted: after swapping rows k and
+    p, p the first largest |S[i, k]| over i >= k, and their labels) the
+    pivot row is set to 1 at k and scaled by the correctly rounded
+    1 / pivot; every other row i takes c = S[i, k], sets S[i, k] = 0 and
+    subtracts c times the pivot row, each product and difference rounded
+    on its own (no FMA).  Pivoted, stored column j is the result's column
+    of label j at the end."""
     S = A.clone()
-    n = S.shape[-1]
+    nb, n = S.shape[0], S.shape[-1]
+    b = torch.arange(nb)
+    lab = torch.arange(n).repeat(nb, 1)
     for k in range(n):
+        if pivot:
+            p = torch.argmax(S[:, k:, k].abs(), dim=-1) + k
+            for Y in (S, lab):
+                rowk, rowp = Y[:, k].clone(), Y[b, p].clone()
+                Y[:, k], Y[b, p] = rowp, rowk
         inv = 1.0 / S[:, k, k]
         piv = S[:, k, :].clone()
         piv[:, k] = 1.0
@@ -114,6 +182,10 @@ def _in_place_gj(A):
         S[:, :, k] = 0.0
         S = S - c[:, :, None] * piv[:, None, :]
         S[:, k, :] = piv
+    if pivot:
+        out = torch.empty_like(S)
+        out[b[:, None], :, lab] = S.transpose(1, 2)
+        S = out
     return S
 
 
@@ -127,4 +199,16 @@ def test_in_place_order_equals_plain_bit_for_bit(dt):
         A = torch.as_tensor(_spd((24,), n, seed=100 + n), dtype=dt)
         ours = _in_place_gj(A) + 0.0
         ref = BI.batched_inv_plain(A) + 0.0
+        assert torch.equal(ours, ref), n
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_pivoted_in_place_order_equals_plain_bit_for_bit(dt):
+    """The same for the pivoted mode, with the swaps and the final column
+    relabelling of the kernel's three variants (warp, large, huge), on
+    blocks that need pivots."""
+    for n in (4, 7, 19, 32, 33, 65, 129, 140):
+        A = torch.as_tensor(_needs_pivots((6,), n, seed=200 + n), dtype=dt)
+        ours = _in_place_gj(A, pivot=True) + 0.0
+        ref = BI.batched_inv_plain(A, pivot=True) + 0.0
         assert torch.equal(ours, ref), n

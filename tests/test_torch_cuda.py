@@ -1,10 +1,11 @@
-"""K1 and K2 on the card: each CUDA kernel (K1's action variant and
-K2's large variant included) against its plain PyTorch version, the
-launch counts, and the matrix-free operator, the gather route's matrix
-and vectors, Newton (assembled and matrix-free Jacobians), the Krylov
-methods, the slope limiter, an RT1 x DG0 block assembly and a hybridized
-and an SCPC solve (K2 on the Slate path), and Stokes by Vanka (K2's
-large variant) and by a Schur fieldsplit on the card against the CPU.
+"""K1 and K2 on the card: each CUDA kernel (K1's action variant, K2's
+large and huge variants and its pivoted mode included) against its plain
+PyTorch version, the launch counts, and the matrix-free operator, the
+gather route's matrix and vectors, Newton (assembled and matrix-free
+Jacobians), the Krylov methods, the slope limiter, an RT1 x DG0 block
+assembly and a hybridized and an SCPC solve (K2 on the Slate path),
+Stokes by Vanka (K2's large variant) and by a Schur fieldsplit, and line
+smoothers on 65- and 129-dof columns on the card against the CPU.
 Marked `cuda`; skips where torch
 has no CUDA device.  Run on a machine with an NVIDIA GPU with
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
@@ -198,8 +199,53 @@ def test_batched_inv_large_variant_counts_on_card(on_cuda):
     n0, m0 = BI.kernel_launches, BI.large_launches
     assert torch.equal(BI.batched_inv(A), A)
     assert (BI.kernel_launches, BI.large_launches) == (n0 + 1, m0 + 1)
-    with pytest.raises(ValueError, match="n <= 128"):
-        BI.batched_inv(torch.zeros(2, 129, 129, device="cuda"))
+    # above n = 128 the huge variant, counted apart; no cap
+    A = torch.eye(129, dtype=torch.float64, device="cuda").repeat(2, 1, 1)
+    h0 = BI.huge_launches
+    assert torch.equal(BI.batched_inv(A), A)
+    assert (BI.kernel_launches, BI.large_launches, BI.huge_launches) == \
+        (n0 + 2, m0 + 1, h0 + 1)
+
+
+def _needs_pivots(nb, n, seed, dtype):
+    A = np.random.default_rng(seed).standard_normal((nb, n, n))
+    A[:, 0, 0] = 0.0
+    return torch.as_tensor(A, dtype=dtype, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_inv_huge_variant_matches_plain_on_card(on_cuda, dtype):
+    """The huge variant (n > 128, global memory) on SPD batches at
+    ragged batch sizes, bit for bit with the plain version up to signed
+    zeros, one launch counted per call."""
+    for n, nb in ((129, 3), (256, 2), (513, 1), (200, 5)):
+        B = np.random.default_rng(n * nb).standard_normal((nb, n, n))
+        A = torch.as_tensor(B @ B.transpose(0, 2, 1) + n * np.eye(n),
+                            dtype=dtype, device="cuda")
+        h0, k0 = BI.huge_launches, BI.kernel_launches
+        out = BI.batched_inv(A) + 0.0
+        assert (BI.huge_launches, BI.kernel_launches) == (h0 + 1, k0 + 1)
+        assert torch.equal(out, BI.batched_inv_plain(A) + 0.0), (n, nb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_inv_pivoted_matches_plain_on_card(on_cuda, dtype):
+    """The pivoted mode of each variant on blocks that need pivots (a
+    zero leading diagonal entry), bit for bit with the pivoted plain
+    version up to signed zeros, and within 1e-9 (f64) of
+    torch.linalg.inv."""
+    for n in (4, 7, 19, 32, 33, 65, 128, 130, 300):
+        for nb in (1, 5):
+            A = _needs_pivots(nb, n, n * nb, dtype)
+            p0 = BI.pivot_launches
+            out = BI.batched_inv(A, pivot=True) + 0.0
+            assert BI.pivot_launches == p0 + 1
+            ref = BI.batched_inv_plain(A, pivot=True) + 0.0
+            assert torch.equal(out, ref), (n, nb)
+            if dtype == torch.float64:
+                lib = torch.linalg.inv(A)
+                err = float((out - lib).abs().max())
+                assert err <= 1e-9 * float(lib.abs().max()), (n, err)
 
 
 def test_gather_route_on_card_matches_cpu(on_cuda):
@@ -531,7 +577,7 @@ def _line_solve_on(device, layers):
     """Q1 on ExtrudedMesh(UnitSquareMesh(4, quadrilateral=True), layers),
     -lap u = 1, u = 0 on the sides, top and bottom, by CG with the line
     smoother (one (layers + 1)-dof column per base vertex); the solution
-    on the host and the large variant's launches."""
+    on the host and the large and huge variants' launches."""
     T.set_device(device)
     mesh = T.ExtrudedMesh(T.UnitSquareMesh(4, 4, quadrilateral=True), layers)
     V = T.FunctionSpace(mesh, "CG", 1)
@@ -539,12 +585,12 @@ def _line_solve_on(device, layers):
     bcs = [T.DirichletBC(V, 0.0, s) for s in ("on_boundary", "top",
                                                "bottom")]
     w = T.Function(V)
-    n0 = BI.large_launches
+    n0, h0 = BI.large_launches, BI.huge_launches
     T.solve(T.inner(T.grad(u), T.grad(v)) * T.dx == T.Constant(1.0) * v
             * T.dx, w, bcs=bcs, solver_parameters={
                 "ksp_type": "cg", "ksp_rtol": 1e-10, "pc_type": "linesmooth",
                 "pc_linesmooth_codims": "2"})
-    return w.dat.cpu(), BI.large_launches - n0
+    return w.dat.cpu(), BI.large_launches - n0, BI.huge_launches - h0
 
 
 def test_line_patches_on_card_match_plain_and_cpu(on_cuda):
@@ -552,8 +598,9 @@ def test_line_patches_on_card_match_plain_and_cpu(on_cuda):
     dofs of a Q1 slab, gathered on the card by ColumnMatrix.entries (bit
     for bit with its scipy copy), inverted bit for bit with the plain
     version up to signed zeros; the line-smoothed CG solve on the card
-    within 1e-10 of the CPU's with one large launch; 129-dof columns
-    raise, naming the cap."""
+    within 1e-10 of the CPU's with one large launch; with 129-dof
+    columns the line solve converges on the huge variant, within 1e-10 of
+    the CPU's."""
     from firedrake_tpu_torch.solvers.asm import _column_patches
     from firedrake_tpu_torch.solvers.preconditioners import patch_matrices
     mesh = T.ExtrudedMesh(T.UnitSquareMesh(4, 4, quadrilateral=True), 64)
@@ -570,9 +617,11 @@ def test_line_patches_on_card_match_plain_and_cpu(on_cuda):
     out = BI.batched_inv(Ap)
     assert BI.large_launches - n0 == 1
     assert torch.equal(out + 0.0, BI.batched_inv_plain(Ap) + 0.0)
-    wc, _ = _line_solve_on("cpu", 64)
-    wg, launches = _line_solve_on("cuda", 64)
-    assert launches == 1
+    wc, _, _ = _line_solve_on("cpu", 64)
+    wg, launches, huge = _line_solve_on("cuda", 64)
+    assert (launches, huge) == (1, 0)
     assert float((wg - wc).abs().max()) <= 1e-10 * float(wc.abs().max())
-    with pytest.raises(ValueError, match=r"n <= 128.*25 blocks of n = 129"):
-        _line_solve_on("cuda", 128)
+    wc, _, _ = _line_solve_on("cpu", 128)
+    wg, launches, huge = _line_solve_on("cuda", 128)
+    assert (launches, huge) == (0, 1)
+    assert float((wg - wc).abs().max()) <= 1e-10 * float(wc.abs().max())

@@ -374,7 +374,7 @@ def test_gamg_is_mg_and_refusals_name_their_item():
         assert comp._resolve_python_pc(f"firedrake.{name}") is getattr(
             importlib.import_module(f"firedrake_tpu_torch.solvers.{mod}"),
             name)
-    for name, item in (("HiptmairPC", 18), ("GTMGPC", 18), ("BDDCPC", 16),
+    for name, item in (("HiptmairPC", 18), ("GTMGPC", 18),
                        ("CovariancePC", 17)):
         with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
             comp.build_pc(ctx, {"pc_type": "python",
@@ -385,9 +385,12 @@ def test_gamg_is_mg_and_refusals_name_their_item():
     with pytest.raises(ImportError, match="cannot resolve"):
         comp.build_pc(ctx, {"pc_type": "python",
                             "pc_python_type": "no_such_module.APC"})
-    # a pc_type still missing names items 16c and 18; the line smoother
+    # BDDC is a python PC, as in the JAX package, which has no pc_type
+    # 'bddc' either: that refusal names item 18's PCs; the line smoother
     # needs an extruded mesh
-    with pytest.raises(NotImplementedError, match="item 16c.*item 18"):
+    assert comp._resolve_python_pc("firedrake.BDDCPC") is \
+        importlib.import_module("firedrake_tpu_torch.solvers.bddc").BDDCPC
+    with pytest.raises(NotImplementedError, match="'bddc'.*item 18"):
         comp.build_pc(ctx, {"pc_type": "bddc"})
     with pytest.raises(ValueError, match="extruded mesh"):
         comp.build_pc(ctx, {"pc_type": "linesmooth"})

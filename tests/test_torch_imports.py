@@ -54,9 +54,6 @@ def test_device_defaults_to_cuda():
 #: every public name of the JAX package that the port does not have yet,
 #: with the ROADMAP.md queue 1 item that brings it
 NOT_YET_PORTED = {
-    # item 16c: deflation, eigensolvers
-    16: ["Deflation", "DeflatedSNES", "LinearEigenproblem",
-         "LinearEigensolver"],
     # item 18: meshes, I/O and tooling
     18: ["Mesh", "VertexOnlyMesh", "PointNotInDomainError", "Interpolator",
          "CheckpointFile", "DumbCheckpoint", "FILE_CREATE", "FILE_READ",
@@ -106,10 +103,6 @@ def _mass_solve(V, params):
 @pytest.mark.parametrize("call, item", [
     (lambda V, u: _mass_solve(V, {
         "pc_type": "python", "pc_python_type": "firedrake.HiptmairPC"}), 18),
-    (lambda V, u: _mass_solve(V, {
-        "pc_type": "python", "pc_python_type": "firedrake.BDDCPC"}), 16),
-    (lambda V, u: T.solve((u * u - 1.0) * T.TestFunction(V) * T.dx == 0, u,
-                          appctx={"deflation": object()}), 16),
     (lambda V, u: u.at((0.5, 0.5)), 18),
     (lambda V, u: u((0.5, 0.5)), 18),
     (lambda V, u: u.vector(), 18),

@@ -271,11 +271,17 @@ def test_multiplicative_star_patch_raises():
 
 
 def test_k2_cap_names_the_patches():
-    """Above n = 128 the card's K2 raises at set-up, naming the cap and
-    the patch set (checked before any build or launch)."""
+    """K2 has no cap on n: the card's variant is the warp one to n = 32,
+    the large one to 128 and the huge one above (the 129-dof line
+    patches), and the kernel wrapper refuses a CPU tensor before any
+    build or launch (the CPU takes the plain version)."""
     from firedrake_tpu_torch.ops import batched_inverse as BI
-    with pytest.raises(ValueError, match=r"n <= 128.*3 blocks of n = 129"):
+    assert [BI.variant(n) for n in (4, 32, 33, 65, 128, 129, 2145)] == \
+        ["warp", "warp", "large", "large", "large", "huge", "huge"]
+    n0 = BI.kernel_launches
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
         BI._launch(torch.zeros((3, 129, 129), dtype=torch.float64))
+    assert BI.kernel_launches == n0
 
 
 # -------------------------------------------------------- nonlinear solves

@@ -287,7 +287,10 @@ def test_auxiliary_operator_snes_matches_jax():
 
 
 # nonlinear multigrid and the patch smoother are ported
-# (test_torch_multilevel.py); deflation is refused under each of them
+# (test_torch_multilevel.py), and so is deflation (test_torch_ddm.py):
+# under each of them it runs as in the JAX package: the FAS branches
+# return before Newton's loop and leave the deflation alone, Newton with
+# or without the patch smoother scales its steps and records the root
 @pytest.mark.parametrize("params, appctx", [
     ({"snes_type": "fas"}, {"deflation": object()}),
     ({"snes_type": "pfas"}, {"deflation": object()}),
@@ -296,10 +299,27 @@ def test_auxiliary_operator_snes_matches_jax():
     ({"npc_snes_type": "patch"}, {"deflation": object()}),
     ({}, {"deflation": object()}),
 ])
-def test_other_items_raise(params, appctx):
+def test_other_items_raise(params, appctx, monkeypatch):
+    from firedrake_tpu_torch.solvers import fas
     mesh = T.UnitSquareMesh(2, 2)
     V = T.FunctionSpace(mesh, "CG", 1)
     u, v = T.Function(V), T.TestFunction(V)
-    F = u * u * v * T.dx - v * T.dx
-    with pytest.raises(NotImplementedError, match="item 16"):
-        T.solve(F == 0, u, solver_parameters=params, appctx=appctx)
+    F = (u * u - 1.0) * v * T.dx
+    deflation = T.Deflation()
+    appctx = dict(appctx, deflation=deflation)
+    modes = []
+
+    class _FAS:
+        def __init__(self, *args, mode, **kw):
+            modes.append(mode)
+
+        def solve(self):
+            self.iterations, self.converged = 0, True
+    monkeypatch.setattr(fas, "FASSolver", _FAS)
+    u.dat = torch.full((V.dim,), 0.5, dtype=torch.float64)
+    T.solve(F == 0, u, solver_parameters=params, appctx=appctx)
+    if "snes_type" in params:
+        assert len(modes) == 1 and len(deflation) == 0
+    else:
+        assert not modes and len(deflation) == 1
+        assert float((deflation.roots[0].dat - 1.0).abs().max()) < 1e-8
