@@ -65,10 +65,11 @@
 // inverse's column L_k, L_k being the original index of the row swapped
 // into position k; each variant carries these labels with the rows and
 // writes column k to column L_k at the end.  A swap moves values without
-// rounding, so the pivoted mode too equals its plain version
-// (ops/batched_inverse.py: batched_inv_plain(A, pivot=True)) bit for bit,
-// signed zeros aside.  The unpivoted instantiations are the kernels as
-// they were.
+// rounding, so in the warp and large variants the pivoted mode too equals
+// its plain version (ops/batched_inverse.py: batched_inv_plain(A,
+// pivot=True)) bit for bit, signed zeros aside (the huge variant, blocked,
+// rounds in another order).  The unpivoted instantiations are the kernels
+// as they were.
 //
 // Interface: plain C, called through ctypes.  The launch goes on the
 // caller's stream and is not synchronised; the return value is
@@ -115,6 +116,9 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // 16-byte moves of a pivot row between registers and shared memory.
@@ -542,119 +546,490 @@ int launch_large(const void* a, void* out, long long nb, int n,
 // ------------------------------------------------------- n > 128: huge
 // A matrix no longer fits shared memory, so the huge variant keeps the
 // batch in global memory, in place in `out` (a copy of the input), and
-// launches two kernels per pivot step k (the simplest right design):
+// runs Gauss-Jordan blocked by panels of w = kHugeW = 64 columns
+// (Quintana-Orti, Quintana-Orti, Sun and van de Geijn, "A note on parallel
+// matrix inversion", SIAM J. Sci. Comput. 22(5), 2001).  Three launches per
+// panel [k, k + w):
 //
-// * gj_huge_prep, one block per matrix: pivoted, the block finds the
-//   first largest |M[i, k]| over i >= k by a reduction in shared memory
-//   and swaps rows k and p (and their labels) in global memory; then it
-//   writes the pivot row times the correctly rounded 1 / pivot (entry k:
-//   1 / pivot itself) to `piv` and column k to `col`, per matrix.
-// * gj_huge_update, a grid over (matrix, tile of 8 rows x 256 columns):
-//   each entry is updated exactly as in the other variants (row k takes
-//   the pivot row; entry (i, k) becomes 0 - c * inv; every other entry
-//   x - c * piv[j], each product and difference rounded on its own), so
-//   the result equals the plain version bit for bit, signed zeros aside.
-//   The update reads only its own entry and the two per-matrix vectors,
-//   so no block waits for another inside a step.
+// * gj_huge_panel, one block per matrix: Gauss-Jordan on the n x w column
+//   panel alone, in sub-panels of b = 8 columns held whole (all n rows)
+//   in shared memory (137 KB at n = 2145 in float64), or where n rows do
+//   not fit (n > ~3,490 in float64, ~6,970 in float32) in per-matrix
+//   global scratch that the block alone touches.  Pivoted, each step
+//   takes the first largest |M[i, j]| over the rows not yet pivoted, in
+//   the panel column as every earlier step left it, and swaps whole rows
+//   of the sub-panel; then the panel's other columns take the sub-panel's
+//   rank-b update, rows swapped, in global memory.  Stored back, the
+//   panel's columns hold their final values Q (n x w); pivoted, the block
+//   also writes the panel's swap record.
+// * gj_huge_rows, one block per (matrix, panel row l): copies to scratch
+//   R[l] = the row the swaps brought to position k + l, as it stood before
+//   the panel, and (pivoted) Ro[l] = row k + l as it stood, which the
+//   swaps sent outside the panel; the labels follow the swaps.
+// * gj_huge_update, one block per (matrix, 64 x 64 tile of the columns
+//   outside the panel): each entry becomes (its row in the panel ? 0 :
+//   A[i, j], or Ro for a row the swaps sent out of the panel) +
+//   sum_l Q[i, l] R[l, j], one rank-w product per matrix.  It reads Q from
+//   the panel's columns and R, Ro from scratch and writes only columns
+//   outside the panel, so no tile reads what another tile of the launch
+//   writes.  Float64 runs it on the FP64 tensor cores (mma.sync m16n8k4
+//   f64; Hopper's wgmma has no f64 type), float32 on register tiles that
+//   sum in float64 (not TF32, which keeps ~3 digits; not FFMA: summed in
+//   float32 the blocked order erred more than the plain version on
+//   pivoted random blocks, summed in float64 no more than twice as much,
+//   tests/test_torch_batched_inverse.py).  The panel's rank-b updates
+//   sum in float64 too.
 //
-// Pivoted, a last launch writes each row's column j to column L_j
-// through shared memory.  What bounds it: bytes, n^2 read and written per
-// matrix and step, so n times the byte bound of one read and one write
-// of the batch: 3.45 s at (64, 2145, 2145) float64 on an H100
-// (chip_smoke.py), 1.61 ms per step, 2.9 TB/s of that traffic, where
-// torch.linalg.inv takes 0.24 s.  A blocked trailing update (several
-// pivot steps per pass) would cut the traffic by its block width.
-constexpr int kHugeThreads = 256;
-constexpr int kHugeRows = 8;  // rows per update block
+// What bounds it: the unblocked elimination it replaces (two launches per
+// pivot step) read and wrote every matrix whole at each of its n steps,
+// 3.45 s at (64, 2145, 2145) float64 on an H100 where torch.linalg.inv
+// takes 0.24 s.  The operations bound, 2 n^3 per matrix at 67 TFLOP/s, is
+// 18.9 ms there; a rank-w update does w / 8 flops per byte in float64
+// against the card's ~20, so the update stays bound by bytes at w = 64:
+// ceil(n / w) passes over the batch (34 at n = 2145), ~50 ms of memory
+// time on those 64 blocks.  The panel costs w / b = 8 passes over its
+// n x w columns per panel, about 8 passes over each matrix in all, on one
+// SM per matrix; its pivot steps are latency (two or three block barriers
+// each).  Measured (scripts/torch_k2_huge.py, NVIDIA H100 80GB HBM3,
+// 700 W): at (512, 2145, 2145) the update moves 1.8 TB/s (a copy of the
+// batch 3.0 TB/s) and takes 74% of a call, the panel 23% (PERF.md).
+// Running the next panel on a second stream beside the update helped at
+// 64 blocks but not at BDDC's 512 and 1, and was taken out.  The products
+// sum in another order, with FMAs, so this variant does not equal
+// batched_inv_plain bit for bit; it is held to it relative to
+// torch.linalg.inv (chip_smoke.py, tests).  Pivoted, a first launch sets
+// the labels and a last one writes each row's column j to column L_j
+// through shared memory (global scratch where the sub-panel is there).
+// The call reports the kernels it launched (3 ceil(n / w), + 2 pivoted),
+// counted where each launch is made.
+constexpr int kHugeW = 64;               // panel width w = update tile
+constexpr int kHugeLds = kHugeW + 4;     // padded row stride of a tile
+constexpr int kHugeThreads = 256;        // row copies, unpermute
+constexpr int kPanelThreads = 512;
+constexpr int kPanelWarps = kPanelThreads / 32;
+constexpr int kSubMax = 8;               // sub-panel width b, at most
+constexpr int kPanelRows = 8;            // rows per warp and pass
+// pivoted, per matrix and panel: the swap record, the row at each panel
+// position (as it stood before the panel), the positions outside the
+// panel that took a panel row, the panel row each took, their count
+constexpr int kRec = 3 * kHugeW + 1;
 
-template <typename T, bool PIV>
-__global__ void __launch_bounds__(kHugeThreads)
-    gj_huge_prep(T* __restrict__ a, T* __restrict__ piv,
-                 T* __restrict__ col, int* __restrict__ lab, int n, int k) {
-  __shared__ T sv[kHugeThreads];
-  __shared__ int si[kHugeThreads];
-  const long long b = blockIdx.x;
-  const int t = threadIdx.x;
-  T* M = a + b * n * (long long)n;
-  if (PIV) {
-    T bv = T(-1);
-    int bi = n;
-    for (int i = k + t; i < n; i += kHugeThreads) {
-      const T v = absv(M[(long long)i * n + k]);
-      if (v > bv) {  // rows rise within a thread: the first largest stays
-        bv = v;
-        bi = i;
-      }
+template <typename T>
+__host__ __device__ constexpr int update_threads() {
+  return sizeof(T) == 8 ? 128 : 256;
+}
+
+// Shared memory of the panel kernel: the sub-panel (n x b, by columns;
+// in global scratch instead where it does not fit),
+// the sub-panel's pivot rows and its rows before its swaps (b x w each),
+// per-warp pivot candidates; then the swap records of the sub-panel and
+// of the panel.
+template <typename T>
+size_t panel_smem(int n, bool sub_in_smem) {
+  return ((sub_in_smem ? (size_t)n * kSubMax : 0) + 2 * kSubMax * kHugeW +
+          kPanelWarps) * sizeof(T) +
+         (size_t)(kPanelWarps + 3 * kSubMax + 3 * kHugeW + 2) * sizeof(int);
+}
+
+// Record the swap of positions kk and p (kk inside [base, base + size),
+// p >= kk) in a permutation kept as perm[kk - base] = the row (as it
+// stood when the record began) now at position kk, and a list of the
+// positions outside the range that now hold another row (opos) with the
+// row each holds (osrc).  Row swaps of Gauss-Jordan only ever send rows
+// of the range outside it, so osrc stays inside the range.
+__device__ void track_swap(int* perm, int* opos, int* osrc, int* cnt,
+                           int base, int size, int kk, int p) {
+  if (p < base + size) {
+    const int t = perm[kk - base];
+    perm[kk - base] = perm[p - base];
+    perm[p - base] = t;
+    return;
+  }
+  int j = 0;
+  while (j < *cnt && opos[j] != p) ++j;
+  if (j == *cnt) {
+    opos[j] = p;
+    osrc[j] = p;
+    ++*cnt;
+  }
+  const int t = perm[kk - base];
+  perm[kk - base] = osrc[j];
+  osrc[j] = t;
+}
+
+// QG: the sub-panel in global scratch `qg` (else in shared memory; a
+// template flag, so that the shared case keeps shared-memory addressing)
+template <typename T, bool PIV, bool QG>
+__global__ void __launch_bounds__(kPanelThreads)
+    gj_huge_panel(T* __restrict__ a, T* qg, int* __restrict__ rec, int n,
+                  int k, int wk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const long long ln = n, b = blockIdx.x;
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* Qs = QG ? qg + b * ln * kSubMax : sm;  // Qs[c * n + i]: sub-panel
+  T* Rb = QG ? sm : sm + ln * kSubMax;      // its pivot rows
+  T* Ro = Rb + kSubMax * kHugeW;           // its rows before its swaps
+  T* wv = Ro + kSubMax * kHugeW;           // per-warp pivot candidates
+  int* wi = reinterpret_cast<int*>(wv + kPanelWarps);
+  int* permB = wi + kPanelWarps;           // swap record of the sub-panel
+  int* oposB = permB + kSubMax;
+  int* osrcB = oposB + kSubMax;
+  int* permK = osrcB + kSubMax;            // swap record of the panel
+  int* oposK = permK + kHugeW;
+  int* osrcK = oposK + kHugeW;
+  int* cnt = osrcK + kHugeW;               // [sub-panel, panel]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  T* M = a + b * ln * ln;
+  if (tid < wk) permK[tid] = k + tid;
+  if (tid == 0) cnt[1] = 0;
+  for (int s = 0; s < wk; s += kSubMax) {
+    const int bs = min(kSubMax, wk - s), s0 = k + s;
+    for (int i = tid; i < n; i += kPanelThreads) {
+      T v[kSubMax];
+#pragma unroll
+      for (int l = 0; l < kSubMax; ++l)
+        if (l < bs) v[l] = M[i * ln + s0 + l];
+#pragma unroll
+      for (int l = 0; l < kSubMax; ++l)
+        if (l < bs) Qs[(size_t)l * n + i] = v[l];
     }
-    sv[t] = bv;
-    si[t] = bi;
+    if (tid < bs) permB[tid] = s0 + tid;
+    if (tid == 0) cnt[0] = 0;
     __syncthreads();
-    for (int h = kHugeThreads / 2; h > 0; h >>= 1) {
-      if (t < h) {
-        const T v = sv[t + h];
-        const int j = si[t + h];
-        if (v > sv[t] || (v == sv[t] && j < si[t])) {
-          sv[t] = v;
-          si[t] = j;
+    for (int c = 0; c < bs; ++c) {
+      const int kk = s0 + c;
+      const T* qc = Qs + (size_t)c * n;
+      int p = kk;
+      if (PIV) {
+        T bv = T(-1);
+        int bi = n;
+        for (int i = kk + tid; i < n; i += kPanelThreads) {
+          const T v = absv(qc[i]);
+          if (v > bv) {  // rows rise within a thread: the first largest
+            bv = v;
+            bi = i;
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const T ov = __shfl_down_sync(0xffffffffu, bv, off);
+          const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+          if (ov > bv || (ov == bv && oi < bi)) {
+            bv = ov;
+            bi = oi;
+          }
+        }
+        if (lane == 0) {
+          wv[warp] = bv;
+          wi[warp] = bi;
+        }
+        __syncthreads();
+        bv = wv[0];
+        bi = wi[0];
+        for (int w = 1; w < kPanelWarps; ++w) {
+          const T ov = wv[w];
+          const int oi = wi[w];
+          if (ov > bv || (ov == bv && oi < bi)) {
+            bv = ov;
+            bi = oi;
+          }
+        }
+        p = bi < n ? bi : kk;  // (a column of NaNs: no swap)
+        if (tid == 0 && p != kk) {
+          track_swap(permB, oposB, osrcB, cnt, s0, bs, kk, p);
+          track_swap(permK, oposK, osrcK, cnt + 1, k, wk, kk, p);
+        }
+      }
+      // row p, moved to position kk, times 1 / pivot (entry c: 1 / pivot);
+      // the thread of row p keeps row kk, which moves to position p
+      const T inv = T(1) / qc[p];
+      T pr[kSubMax], rk[kSubMax];
+#pragma unroll
+      for (int l = 0; l < kSubMax; ++l) {
+        pr[l] = l >= bs ? T(0) : (l == c ? inv : Qs[(size_t)l * n + p] * inv);
+        rk[l] = T(0);
+      }
+      T rkc = T(0);
+      if (PIV && p != kk && (p - tid) % kPanelThreads == 0) {
+#pragma unroll
+        for (int l = 0; l < kSubMax; ++l)
+          if (l < bs) rk[l] = Qs[(size_t)l * n + kk];
+        rkc = qc[kk];
+      }
+      __syncthreads();
+      for (int i = tid; i < n; i += kPanelThreads) {
+        if (i == kk) {
+#pragma unroll
+          for (int l = 0; l < kSubMax; ++l)
+            if (l < bs) Qs[(size_t)l * n + i] = pr[l];
+          continue;
+        }
+        const bool moved = PIV && i == p && p != kk;
+        const T ci = moved ? rkc : qc[i];
+#pragma unroll
+        for (int l = 0; l < kSubMax; ++l) {
+          if (l >= bs) break;
+          const T x = l == c ? T(0) : (moved ? rk[l] : Qs[(size_t)l * n + i]);
+          Qs[(size_t)l * n + i] = x - ci * pr[l];
         }
       }
       __syncthreads();
     }
-    const int p = si[0] < n ? si[0] : k;  // (a column of NaNs: no swap)
-    if (p != k) {
-      T* rk = M + (long long)k * n;
-      T* rp = M + (long long)p * n;
-      for (int j = t; j < n; j += kHugeThreads) {
-        const T x = rk[j];
-        rk[j] = rp[j];
-        rp[j] = x;
-      }
-      if (t == 0) {
-        int* L = lab + b * n;
-        const int x = L[k];
-        L[k] = L[p];
-        L[p] = x;
+    // the rest of the panel's columns take the sub-panel's rank-bs update
+    for (int e = tid; e < bs * kHugeW; e += kPanelThreads) {
+      const int l = e / kHugeW, jj = e - l * kHugeW;
+      if (jj < wk) {
+        Rb[e] = M[permB[l] * ln + k + jj];
+        Ro[e] = M[(s0 + l) * ln + k + jj];
       }
     }
     __syncthreads();
+    const int j1 = lane, j2 = lane + 32;
+    const bool u1 = j1 < wk && (j1 < s || j1 >= s + bs);
+    const bool u2 = j2 < wk && (j2 < s || j2 >= s + bs);
+    // the rank-bs update sums in float64 in both types (float32 too:
+    // the blocked order rounds worse than the plain version's otherwise)
+    double r1[kSubMax], r2[kSubMax];
+#pragma unroll
+    for (int l = 0; l < kSubMax; ++l) {
+      r1[l] = (l < bs && u1) ? Rb[l * kHugeW + j1] : 0.0;
+      r2[l] = (l < bs && u2) ? Rb[l * kHugeW + j2] : 0.0;
+    }
+    const int nsw = PIV ? cnt[0] : 0;
+    for (int i0 = warp * kPanelRows; i0 < n;
+         i0 += kPanelWarps * kPanelRows) {
+      double x1[kPanelRows], x2[kPanelRows];
+#pragma unroll
+      for (int q = 0; q < kPanelRows; ++q) {
+        const int i = i0 + q;
+        int src = -2;  // -2: its own row; -1: a row of the sub-panel (0)
+        if (i >= s0 && i < s0 + bs) src = -1;
+        for (int t = 0; t < nsw; ++t)
+          if (oposB[t] == i) src = osrcB[t] - s0;
+        x1[q] = x2[q] = 0.0;
+        if (i < n && src != -1) {
+          if (u1) x1[q] = src == -2 ? M[i * ln + k + j1]
+                                    : Ro[src * kHugeW + j1];
+          if (u2) x2[q] = src == -2 ? M[i * ln + k + j2]
+                                    : Ro[src * kHugeW + j2];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kPanelRows; ++q) {
+        const int i = i0 + q;
+        if (i >= n) break;
+#pragma unroll
+        for (int l = 0; l < kSubMax; ++l) {
+          if (l >= bs) break;
+          const double qv = Qs[(size_t)l * n + i];
+          x1[q] += qv * r1[l];
+          x2[q] += qv * r2[l];
+        }
+        if (u1) M[i * ln + k + j1] = T(x1[q]);
+        if (u2) M[i * ln + k + j2] = T(x2[q]);
+      }
+    }
+    for (int i = tid; i < n; i += kPanelThreads) {
+#pragma unroll
+      for (int l = 0; l < kSubMax; ++l)
+        if (l < bs) M[i * ln + s0 + l] = Qs[(size_t)l * n + i];
+    }
+    __syncthreads();
   }
-  const T* rk = M + (long long)k * n;
-  const T inv = rcp_rn(rk[k]);
-  T* pr = piv + b * n;
-  T* cl = col + b * n;
-  for (int j = t; j < n; j += kHugeThreads)
-    pr[j] = j == k ? inv : mul_rn(rk[j], inv);
-  for (int i = t; i < n; i += kHugeThreads) cl[i] = M[(long long)i * n + k];
+  // pivoted: the panel's swap record, for gj_huge_rows and the update
+  if (PIV) {
+    int* r = rec + b * kRec;
+    for (int e = tid; e < 3 * kHugeW; e += kPanelThreads) r[e] = permK[e];
+    if (tid == 0) r[3 * kHugeW] = cnt[1];
+  }
 }
 
-template <typename T>
+// The update's inputs, one block per (matrix, panel row l): R[l] = the
+// row that the panel's swaps brought to position k + l, as it stood
+// before the panel (unpivoted: row k + l); pivoted also Ro[l] = row k + l
+// as it stood, which the swaps sent to a row outside the panel (the
+// update reads such rows from Ro), and the labels follow the swaps.
+template <typename T, bool PIV>
 __global__ void __launch_bounds__(kHugeThreads)
-    gj_huge_update(T* __restrict__ a, const T* __restrict__ piv,
-                   const T* __restrict__ col, int n, int k, int col_tiles,
-                   int tiles) {
-  const long long b = blockIdx.x / tiles;
-  const int tile = (int)(blockIdx.x - b * tiles);
-  const int j = (tile % col_tiles) * kHugeThreads + threadIdx.x;
-  const int i0 = (tile / col_tiles) * kHugeRows;
-  if (j >= n) return;
-  T* M = a + b * n * (long long)n;
-  const T pj = piv[b * n + j];
-  const T* cl = col + b * n;
-  T x[kHugeRows];
-#pragma unroll
-  for (int r = 0; r < kHugeRows; ++r)
-    if (i0 + r < n) x[r] = M[(long long)(i0 + r) * n + j];
-#pragma unroll
-  for (int r = 0; r < kHugeRows; ++r) {
-    const int i = i0 + r;
-    if (i >= n) break;
-    if (i == k) {
-      x[r] = pj;
-    } else {
-      // column k holds the inverse's column from here on: 0 - c * inv
-      x[r] = sub_rn(j == k ? T(0) : x[r], mul_rn(cl[i], pj));
+    gj_huge_rows(const T* __restrict__ a, T* __restrict__ rsc,
+                 T* __restrict__ rold, const int* __restrict__ rec,
+                 int* __restrict__ lab, int n, int k, int wk) {
+  const long long ln = n, b = blockIdx.x / wk;
+  const int l = (int)(blockIdx.x - b * wk), tid = threadIdx.x;
+  const T* M = a + b * ln * ln;
+  const int* r = PIV ? rec + b * kRec : nullptr;
+  const T* src = M + (PIV ? r[l] : k + l) * ln;
+  T* R = rsc + (b * kHugeW + l) * ln;
+  for (int j = tid; j < n; j += kHugeThreads) R[j] = src[j];
+  if (!PIV) return;
+  const T* old = M + (k + l) * ln;
+  T* Ro = rold + (b * kHugeW + l) * ln;
+  for (int j = tid; j < n; j += kHugeThreads) Ro[j] = old[j];
+  if (l != 0) return;
+  const int ncnt = r[3 * kHugeW];
+  int* L = lab + b * ln;
+  int v = 0;
+  if (tid < wk)
+    v = L[r[tid]];
+  else if (tid < wk + ncnt)
+    v = L[r[2 * kHugeW + tid - wk]];
+  __syncthreads();
+  if (tid < wk)
+    L[k + tid] = v;
+  else if (tid < wk + ncnt)
+    L[r[kHugeW + tid - wk]] = v;
+}
+
+// d = a b + d on the FP64 tensor cores: a 16 x 4 (row), b 4 x 8 (col).
+// Fragments (PTX ISA, mma.m16n8k4 .f64): g = lane / 4, t = lane % 4;
+// a0 = A[g][t], a1 = A[g + 8][t]; b0 = B[t][g]; d0, d1 = D[g][2t, 2t + 1],
+// d2, d3 = D[g + 8][2t, 2t + 1].
+__device__ __forceinline__ void dmma_16x8x4(double (&d)[4], double a0,
+                                            double a1, double b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b0));
+}
+
+// cp.async of one value (4 or 8 bytes, any alignment of its size), zero
+// when !valid (src-size 0: nothing is read).
+template <typename T>
+__device__ __forceinline__ void cp_async_z(T* smem, const T* gmem,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(valid ? 8 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+// The trailing update, one block per (matrix, 64 x 64 tile of columns
+// outside the panel [k, k + wk)): the tile becomes (its row in the panel
+// ? 0 : A) + Q R, Q = A's panel columns for the tile's rows, R = the
+// scratch rows for its columns, both copied to shared memory by cp.async
+// (zero beyond n and wk) while the block loads A.  Pivoted, a row that the
+// panel's swaps sent out of the panel starts from its scratch copy (rold).
+template <typename T>
+__global__ void __launch_bounds__(sizeof(T) == 8 ? 128 : 256)
+    gj_huge_update(T* __restrict__ a, const T* __restrict__ rsc,
+                   const T* __restrict__ rold, const int* __restrict__ rec,
+                   int n, int k, int wk, int row_tiles, int ncols) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NT = update_threads<T>();
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // Qs[r * kHugeLds + l]
+  T* Rs = Qs + kHugeW * kHugeLds;          // Rs[l * kHugeLds + c]
+  int* src = reinterpret_cast<int*>(Rs + kHugeW * kHugeLds);
+  const int tiles = row_tiles * ncols, tid = threadIdx.x;
+  const long long ln = n, b = blockIdx.x / tiles;
+  const int tile = (int)(blockIdx.x - b * tiles), c0 = tile % ncols;
+  const int ct = c0 + (c0 < k / kHugeW ? 0 : 1);  // skip the panel's tile
+  const int i0 = (tile / ncols) * kHugeW, j0 = ct * kHugeW;
+  T* M = a + b * ln * ln;
+  const T* R = rsc + b * kHugeW * ln;
+  for (int e = tid; e < kHugeW * kHugeW; e += NT) {
+    const int r = e / kHugeW, c = e - r * kHugeW;
+    const bool qv = i0 + r < n && c < wk, rv = r < wk && j0 + c < n;
+    cp_async_z(Qs + r * kHugeLds + c, M + (qv ? (i0 + r) * ln + k + c : 0),
+               qv);
+    cp_async_z(Rs + r * kHugeLds + c, R + (rv ? r * ln + j0 + c : 0), rv);
+  }
+  cp_async_commit();
+  // where each row's A comes from: -1 zero (a panel row, or past n), -2
+  // its own row, l >= 0 the panel row l that the swaps moved here
+  if (tid < kHugeW) {
+    const int i = i0 + tid;
+    int from = (i >= n || (i >= k && i < k + wk)) ? -1 : -2;
+    if (rec != nullptr && from == -2) {
+      const int* r = rec + b * kRec;
+      for (int t = 0; t < r[3 * kHugeW]; ++t)
+        if (r[kHugeW + t] == i) from = r[2 * kHugeW + t] - k;
     }
-    M[(long long)i * n + j] = x[r];
+    src[tid] = from;
+  }
+  __syncthreads();
+  const T* Ro = rold + b * kHugeW * ln;
+  auto base = [&](int r, int j) {
+    const int from = src[r];
+    if (from == -1 || j >= n) return T(0);
+    return from == -2 ? M[(i0 + r) * ln + j] : Ro[from * ln + j];
+  };
+  if constexpr (sizeof(T) == 8) {
+    // four warps of 32 x 32: 2 x 4 tensor-core tiles of 16 x 8 each
+    // (eight warps of 16 x 32 were slower on the card)
+    const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, q = lane & 3;
+    const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
+    double acc[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          acc[mt][nt][h] = base(wr + mt * 16 + g + (h >> 1) * 8,
+                                j0 + wc + nt * 8 + 2 * q + (h & 1));
+    cp_async_wait_all();
+    __syncthreads();
+    const int wkp = (wk + 3) & ~3;
+    for (int l = 0; l < wkp; l += 4) {
+      double af[2][2], bf[4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        af[mt][0] = Qs[(wr + mt * 16 + g) * kHugeLds + l + q];
+        af[mt][1] = Qs[(wr + mt * 16 + g + 8) * kHugeLds + l + q];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        bf[nt] = Rs[(l + q) * kHugeLds + wc + nt * 8 + g];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          dmma_16x8x4(acc[mt][nt], af[mt][0], af[mt][1], bf[nt]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int i = i0 + wr + mt * 16 + g + (h >> 1) * 8;
+          const int j = j0 + wc + nt * 8 + 2 * q + (h & 1);
+          if (i < n && j < n) M[i * ln + j] = acc[mt][nt][h];
+        }
+  } else {
+    // 16 x 16 threads of 4 x 4 entries: rows 4 ty + r, columns tx + 16 c;
+    // summed in float64 (FMA on the CUDA cores) and rounded once
+    const int ty = tid >> 4, tx = tid & 15;
+    double acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[r][c] = base(4 * ty + r, j0 + tx + 16 * c);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int l = 0; l < wk; ++l) {
+      double qv[4], x[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) qv[r] = Qs[(4 * ty + r) * kHugeLds + l];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[c] = Rs[l * kHugeLds + tx + 16 * c];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fma(qv[r], x[c], acc[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = i0 + 4 * ty + r, j = j0 + tx + 16 * c;
+        if (i < n && j < n) M[i * ln + j] = T(acc[r][c]);
+      }
   }
 }
 
@@ -665,60 +1040,130 @@ __global__ void gj_huge_labels(int* __restrict__ lab, long long total,
     lab[e] = (int)(e % n);
 }
 
-// Pivoted: row r's stored column j is the result's column L_j.
-template <typename T>
+// Pivoted: row r's stored column j is the result's column L_j.  A block
+// stages a row in shared memory (SMEM) or, where the sub-panel too lives
+// in global memory, in its own row of `buf` (the update's R, free by
+// then), and walks the rows r = blockIdx.x, blockIdx.x + gridDim.x, ...
+template <typename T, bool SMEM>
 __global__ void __launch_bounds__(kHugeThreads)
     gj_huge_unpermute(T* __restrict__ a, const int* __restrict__ lab,
-                      int n) {
+                      T* __restrict__ buf, long long rows, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* row = reinterpret_cast<T*>(smem_raw);
-  const long long r = blockIdx.x;  // matrix * n + row
-  const int* L = lab + (r / n) * n;
-  T* x = a + r * n;
-  for (int j = threadIdx.x; j < n; j += kHugeThreads) row[j] = x[j];
-  __syncthreads();
-  for (int j = threadIdx.x; j < n; j += kHugeThreads) x[L[j]] = row[j];
+  T* row = SMEM ? reinterpret_cast<T*>(smem_raw)
+                : buf + (long long)blockIdx.x * n;
+  for (long long r = blockIdx.x; r < rows; r += gridDim.x) {
+    const int* L = lab + (r / n) * n;
+    T* x = a + r * n;
+    for (int j = threadIdx.x; j < n; j += kHugeThreads) row[j] = x[j];
+    __syncthreads();
+    for (int j = threadIdx.x; j < n; j += kHugeThreads) x[L[j]] = row[j];
+    __syncthreads();
+  }
 }
 
+int set_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// 1 where the panel kernel holds its sub-panel (n x b) in shared memory on
+// the current device, 0 where it keeps it in global scratch, < 0 where
+// the query fails.
 template <typename T>
-int launch_huge(const void* a, void* out, void* piv, void* col, int* lab,
-                long long nb, int n, int pivot, cudaStream_t stream) {
-  const int col_tiles = (n + kHugeThreads - 1) / kHugeThreads;
-  const int tiles = col_tiles * ((n + kHugeRows - 1) / kHugeRows);
-  if (nb > 0x7fffffffLL / tiles || nb * n > 0x7fffffffLL) return -3;
-  const size_t row_bytes = (size_t)n * sizeof(T);
+int sub_panel_in_smem(int n) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return -(int)e;
+  return panel_smem<T>(n, true) <= (size_t)optin;
+}
+
+// Values of scratch per matrix: R, pivoted Ro (kHugeW x n each), and the
+// sub-panel (kSubMax x n) where it does not fit shared memory.
+template <typename T>
+long long huge_scratch_values(int n, int pivot, int in_smem) {
+  return (1 + (pivot != 0)) * (long long)kHugeW * n +
+         (in_smem ? 0 : (long long)kSubMax * n);
+}
+
+// `rsc`: nb * huge_scratch_values values (R, then pivoted Ro, then the
+// sub-panels where they live in global memory); `iws` (pivoted): nb * n
+// labels, then nb * kRec ints of swap records.  `info` reports the call:
+// the kernels it launched, w, b, and 1 if the sub-panel sat in shared
+// memory.
+template <typename T>
+int launch_huge(const void* a, void* out, void* rsc, int* iws, long long nb,
+                int n, int pivot, cudaStream_t stream, int* info) {
+  info[0] = 0;
+  info[1] = kHugeW;
+  info[2] = kSubMax;
+  info[3] = 0;
+  const int tiles_1d = (n + kHugeW - 1) / kHugeW;
+  if (nb > 0x7fffffffLL / (tiles_1d * tiles_1d) || nb * n > 0x7fffffffLL)
+    return -3;
+  const int in_smem = sub_panel_in_smem<T>(n);
+  if (in_smem < 0) return -in_smem;
+  info[3] = in_smem;
+  const size_t psmem = panel_smem<T>(n, in_smem);
+  const size_t usmem =
+      2 * (size_t)kHugeW * kHugeLds * sizeof(T) + kHugeW * sizeof(int);
+  auto panel = pivot ? (in_smem ? gj_huge_panel<T, true, false>
+                                : gj_huge_panel<T, true, true>)
+                     : (in_smem ? gj_huge_panel<T, false, false>
+                                : gj_huge_panel<T, false, true>);
+  auto rows = pivot ? gj_huge_rows<T, true> : gj_huge_rows<T, false>;
+  int rc = set_smem((const void*)panel, psmem);
+  if (rc == 0) rc = set_smem((const void*)gj_huge_update<T>, usmem);
+  if (rc != 0) return rc;
   T* A = static_cast<T*>(out);
-  T* P = static_cast<T*>(piv);
-  T* C = static_cast<T*>(col);
-  cudaError_t e = cudaMemcpyAsync(out, a, (size_t)nb * n * row_bytes,
+  T* R = static_cast<T*>(rsc);
+  T* Ro = pivot ? R + nb * kHugeW * n : nullptr;
+  T* Qg = in_smem ? nullptr : R + (1 + (pivot != 0)) * nb * kHugeW * n;
+  int* lab = iws;
+  int* rec = pivot ? iws + nb * n : nullptr;
+  cudaError_t e = cudaMemcpyAsync(out, a, (size_t)nb * n * n * sizeof(T),
                                   cudaMemcpyDeviceToDevice, stream);
   if (e != cudaSuccess) return (int)e;
+  // counts a launch where it is made
+  auto launched = [&]() {
+    e = cudaGetLastError();
+    info[0] += e == cudaSuccess;
+    return e == cudaSuccess;
+  };
   if (pivot) {
-    if (row_bytes > 48 * 1024) {
-      e = cudaFuncSetAttribute(gj_huge_unpermute<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)row_bytes);
-      if (e != cudaSuccess) return (int)e;
-    }
     gj_huge_labels<<<1024, 256, 0, stream>>>(lab, nb * n, n);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if (!launched()) return (int)e;
   }
-  for (int k = 0; k < n; ++k) {
-    if (pivot)
-      gj_huge_prep<T, true><<<(unsigned)nb, kHugeThreads, 0, stream>>>(
-          A, P, C, lab, n, k);
-    else
-      gj_huge_prep<T, false><<<(unsigned)nb, kHugeThreads, 0, stream>>>(
-          A, P, C, lab, n, k);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    gj_huge_update<T><<<(unsigned)(nb * tiles), kHugeThreads, 0, stream>>>(
-        A, P, C, n, k, col_tiles, tiles);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int ncols = tiles_1d - 1;
+  for (int k = 0; k < n; k += kHugeW) {
+    const int wk = n - k < kHugeW ? n - k : kHugeW;
+    panel<<<(unsigned)nb, kPanelThreads, psmem, stream>>>(A, Qg, rec, n, k,
+                                                          wk);
+    if (!launched()) return (int)e;
+    rows<<<(unsigned)(nb * wk), kHugeThreads, 0, stream>>>(A, R, Ro, rec,
+                                                           lab, n, k, wk);
+    if (!launched()) return (int)e;
+    gj_huge_update<T><<<(unsigned)(nb * tiles_1d * ncols),
+                        update_threads<T>(), usmem, stream>>>(
+        A, R, Ro, rec, n, k, wk, tiles_1d, ncols);
+    if (!launched()) return (int)e;
   }
-  if (pivot) {
-    gj_huge_unpermute<T><<<(unsigned)(nb * n), kHugeThreads, row_bytes,
-                           stream>>>(A, lab, n);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (pivot && in_smem) {
+    // a row per block in shared memory (at most ~28 KB where the
+    // sub-panel fits there)
+    gj_huge_unpermute<T, true>
+        <<<(unsigned)(nb * n), kHugeThreads, n * sizeof(T), stream>>>(
+            A, lab, R, nb * n, n);
+    if (!launched()) return (int)e;
+  } else if (pivot) {
+    // a row of R per block (R holds nb * kHugeW rows of n values)
+    const long long grid = nb * kHugeW < 2048 ? nb * kHugeW : 2048;
+    gj_huge_unpermute<T, false><<<(unsigned)grid, kHugeThreads, 0, stream>>>(
+        A, lab, R, nb * n, n);
+    if (!launched()) return (int)e;
   }
   return 0;
 }
@@ -748,15 +1193,28 @@ extern "C" int fdt_batched_inv_large(int is_double, int pivot,
                    : launch_large<float, false>(a, out, nb, n, s);
 }
 
-// `piv` and `col` hold nb * n values each and `lab` nb * n ints (pivoted
-// only; may be null otherwise): scratch for the step vectors and labels.
 extern "C" int fdt_batched_inv_huge(int is_double, int pivot, const void* a,
-                                    void* out, void* piv, void* col,
-                                    int* lab, long long nb, int n,
-                                    void* stream) {
-  if (nb <= 0 || n <= kMaxLargeN || (pivot && lab == nullptr)) return -2;
+                                    void* out, void* rsc, int* iws,
+                                    long long nb, int n, void* stream,
+                                    int* info) {
+  if (nb <= 0 || n <= kMaxLargeN || (pivot && iws == nullptr) ||
+      info == nullptr)
+    return -2;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double
-             ? launch_huge<double>(a, out, piv, col, lab, nb, n, pivot, s)
-             : launch_huge<float>(a, out, piv, col, lab, nb, n, pivot, s);
+             ? launch_huge<double>(a, out, rsc, iws, nb, n, pivot, s, info)
+             : launch_huge<float>(a, out, rsc, iws, nb, n, pivot, s, info);
+}
+
+// Scratch of the huge variant per matrix of size n on the current device:
+// values (ints = 0) or ints (ints = 1), as launch_huge lays them out; < 0
+// where the device query fails.
+extern "C" long long fdt_batched_inv_huge_scratch(int is_double, int n,
+                                                  int pivot, int ints) {
+  if (ints) return pivot ? (long long)n + kRec : 0;
+  const int in_smem = is_double ? sub_panel_in_smem<double>(n)
+                                : sub_panel_in_smem<float>(n);
+  if (in_smem < 0) return in_smem;
+  return is_double ? huge_scratch_values<double>(n, pivot, in_smem)
+                   : huge_scratch_values<float>(n, pivot, in_smem);
 }

@@ -19,13 +19,21 @@ Role: the dense local inverses behind the patch smoothers
   floor(32 / n) matrices per warp); 33 <= n <= 128 the large variant (in
   place in shared memory, one thread per row, floor(128 / n) matrices per
   block; also counted in ``large_launches``); n > 128 the huge variant
-  (in place in global memory, two launches per pivot step; also counted
-  in ``huge_launches``).  Each takes the ``pivot`` flag (counted in
-  ``pivot_launches``).  Nothing falls back to another inverse: a failed
-  build or launch raises.
+  (in place in global memory, Gauss-Jordan blocked by panels of w = 64
+  columns: per panel one launch eliminates the panel's columns, one
+  copies its rows to scratch and one applies the rank-64 update to the
+  rest, on the FP64 tensor cores in float64; also counted in
+  ``huge_launches``, once per call, and its kernels, as the library
+  reports them, in ``huge_kernels``; ``huge_report`` holds the last
+  call's report).  Each takes the
+  ``pivot`` flag (counted in ``pivot_launches``).  Nothing falls back to
+  another inverse: a failed build or launch raises.
 
-Every variant rounds as ``batched_inv_plain`` does, pivoted or not, so each
-agrees with it bit for bit up to signed zeros.
+The warp and large variants round as ``batched_inv_plain`` does, pivoted
+or not, so each agrees with it bit for bit up to signed zeros.  The huge
+variant sums its panel products in another order, with FMAs, and is held
+to the plain version relative to ``torch.linalg.inv`` of the same blocks
+(chip_smoke.py ``huge_gate``).
 
 Unlike the JAX package there is no ``force_pallas``/``interpret`` switch and
 no padding of the batch to a multiple of 256: the kernel takes any batch.
@@ -46,9 +54,15 @@ __all__ = ["batched_inv", "batched_solve", "batched_inv_plain"]
 kernel_launches = 0
 #: launches of the large variant alone
 large_launches = 0
-#: launches of the huge variant alone (one per call: its pivot steps are
-#: launched together)
+#: launches of the huge variant alone (one per call: its panel launches
+#: are counted together)
 huge_launches = 0
+#: kernels the huge variant's calls launched, as the library counts them
+#: where it launches each
+huge_kernels = 0
+#: the last huge-variant call's report: kernels launched, panel width w,
+#: sub-panel width b, and whether the sub-panel sat in shared memory
+huge_report = {}
 #: launches in the pivoted mode, any variant
 pivot_launches = 0
 #: largest n of the warp variant (a lane holds a row, a warp has 32 lanes)
@@ -114,14 +128,17 @@ def build():
     lib.fdt_batched_inv_huge.restype = ctypes.c_int
     lib.fdt_batched_inv_huge.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    lib.fdt_batched_inv_huge_scratch.restype = ctypes.c_longlong
+    lib.fdt_batched_inv_huge_scratch.argtypes = [ctypes.c_int] * 4
     _lib = lib
     return nvcc.build_logs.get(_SRC, (0.0, ""))[0]
 
 
 def _launch(A, pivot=False):
     global kernel_launches, large_launches, huge_launches, pivot_launches
+    global huge_kernels, huge_report
     n = A.shape[-1]
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"batched_inv takes float32/float64, got {A.dtype}")
@@ -139,15 +156,25 @@ def _launch(A, pivot=False):
     with torch.cuda.device(A.device):
         stream = nvcc.current_stream(A.device)
         if kind == "huge":
-            # per matrix the pivot row and column of a step, and (pivoted)
-            # the row labels
-            step = torch.empty((2, nb, n), dtype=A.dtype, device=A.device)
-            lab = (torch.empty((nb, n), dtype=torch.int32, device=A.device)
-                   if pivot else None)
+            # per matrix a panel's rows R (pivoted: and the rows its swaps
+            # moved; beyond shared memory: the sub-panel), and pivoted the
+            # row labels and the swap record
+            vals, ints = (_lib.fdt_batched_inv_huge_scratch(
+                dbl, n, int(pivot), i) for i in (0, 1))
+            if vals < 0:
+                raise RuntimeError(f"batched_inv: device query failed: "
+                                   f"code {-vals}")
+            rsc = torch.empty((nb, vals), dtype=A.dtype, device=A.device)
+            iws = (torch.empty((nb, ints), dtype=torch.int32,
+                               device=A.device) if ints else None)
+            info = (ctypes.c_int * 4)()
             rc = _lib.fdt_batched_inv_huge(
                 dbl, int(pivot), A2.data_ptr(), out.data_ptr(),
-                step[0].data_ptr(), step[1].data_ptr(),
-                None if lab is None else lab.data_ptr(), nb, n, stream)
+                rsc.data_ptr(), None if iws is None else iws.data_ptr(),
+                nb, n, stream, info)
+            huge_kernels += info[0]
+            huge_report = dict(kernels=info[0], w=info[1], b=info[2],
+                               sub_panel="shared" if info[3] else "global")
         else:
             fn = (_lib.fdt_batched_inv_large if kind == "large"
                   else _lib.fdt_batched_inv)

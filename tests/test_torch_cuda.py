@@ -213,26 +213,64 @@ def _needs_pivots(nb, n, seed, dtype):
     return torch.as_tensor(A, dtype=dtype, device="cuda")
 
 
+def _huge_gate(A, out, plain):
+    """The huge variant's gate (chip_smoke.py's huge_gate: its blocked
+    products sum in another order), asserted."""
+    from chip_smoke import huge_gate
+    g = huge_gate(A, out, plain, torch.linalg.inv(A))
+    assert g["ok"], g
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_batched_inv_huge_variant_matches_plain_on_card(on_cuda, dtype):
-    """The huge variant (n > 128, global memory) on SPD batches at
-    ragged batch sizes, bit for bit with the plain version up to signed
-    zeros, one launch counted per call."""
-    for n, nb in ((129, 3), (256, 2), (513, 1), (200, 5)):
+    """The huge variant (n > 128, blocked by panels of 64 columns) on SPD
+    batches at ragged batch sizes, n one column past 4 w (257) and a batch
+    of one at n = 700, held to the plain version by the library-relative
+    gate, one launch counted per call."""
+    for n, nb in ((129, 3), (256, 2), (257, 2), (513, 1), (200, 5),
+                  (700, 1)):
         B = np.random.default_rng(n * nb).standard_normal((nb, n, n))
         A = torch.as_tensor(B @ B.transpose(0, 2, 1) + n * np.eye(n),
                             dtype=dtype, device="cuda")
         h0, k0 = BI.huge_launches, BI.kernel_launches
-        out = BI.batched_inv(A) + 0.0
+        out = BI.batched_inv(A)
         assert (BI.huge_launches, BI.kernel_launches) == (h0 + 1, k0 + 1)
-        assert torch.equal(out, BI.batched_inv_plain(A) + 0.0), (n, nb)
+        # per panel of 64 columns: the panel, the row copies, the update
+        assert BI.huge_report == dict(kernels=3 * -(-n // 64), w=64, b=8,
+                                      sub_panel="shared")
+        _huge_gate(A, out, BI.batched_inv_plain(A))
+
+
+@pytest.mark.parametrize("pivot", [False, True])
+def test_batched_inv_huge_sub_panel_in_global_memory_on_card(on_cuda,
+                                                             pivot):
+    """Past n ~ 3,490 in float64 the panel's n x 8 sub-panel no longer
+    fits shared memory and lives in global scratch: a batch of one at
+    n = 3,600, SPD unpivoted and with a zero leading entry pivoted, held
+    to the plain version by the gate; pivoted, the labels and the final
+    relabelling add two kernels."""
+    n = 3600
+    rng = np.random.default_rng(n + pivot)
+    B = rng.standard_normal((1, n, n))
+    if pivot:
+        B[:, 0, 0] = 0.0
+    else:
+        B = B @ B.transpose(0, 2, 1) + n * np.eye(n)
+    A = torch.as_tensor(B, device="cuda")
+    h0 = BI.huge_launches
+    out = BI.batched_inv(A, pivot=pivot)
+    assert BI.huge_launches == h0 + 1
+    assert BI.huge_report == dict(kernels=3 * -(-n // 64) + 2 * pivot, w=64,
+                                  b=8, sub_panel="global")
+    _huge_gate(A, out, BI.batched_inv_plain(A, pivot=pivot))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_batched_inv_pivoted_matches_plain_on_card(on_cuda, dtype):
     """The pivoted mode of each variant on blocks that need pivots (a
-    zero leading diagonal entry), bit for bit with the pivoted plain
-    version up to signed zeros, and within 1e-9 (f64) of
+    zero leading diagonal entry): the warp and large variants bit for bit
+    with the pivoted plain version up to signed zeros, the huge variant
+    (n = 130, 300) by its library-relative gate; within 1e-9 (f64) of
     torch.linalg.inv."""
     for n in (4, 7, 19, 32, 33, 65, 128, 130, 300):
         for nb in (1, 5):
@@ -241,7 +279,10 @@ def test_batched_inv_pivoted_matches_plain_on_card(on_cuda, dtype):
             out = BI.batched_inv(A, pivot=True) + 0.0
             assert BI.pivot_launches == p0 + 1
             ref = BI.batched_inv_plain(A, pivot=True) + 0.0
-            assert torch.equal(out, ref), (n, nb)
+            if BI.variant(n) == "huge":
+                _huge_gate(A, out, ref)
+            else:
+                assert torch.equal(out, ref), (n, nb)
             if dtype == torch.float64:
                 lib = torch.linalg.inv(A)
                 err = float((out - lib).abs().max())
