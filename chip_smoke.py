@@ -14,13 +14,13 @@
                                           # extruded GMG and spectral
                                           # cases', pmg_p4_256's,
                                           # fdm_q4_256's and
-                                          # eigen_p1_1024's CPU
+                                          # eigen_p1_512's CPU
                                           # convergence study (bounds)
     python3 chip_smoke.py --only slate    # device, build and the named
                                           # phases alone (main, slate,
                                           # dg_mixed, gather, nonlinear,
                                           # extruded, fieldsplit,
-                                          # multilevel, ddm)
+                                          # multilevel, ddm, adjoint)
     python3 chip_smoke.py --only ml_rounding
                                           # pmg_p4_256's and fdm_q4_256's
                                           # errornorms taken apart: card
@@ -267,9 +267,9 @@ failure raises and the exit code is non-zero):
              held to its plain versions by the huge variant's gate, and
              timed on 64 of them beside the plain version,
              torch.linalg.inv and the bound, with w, the launches per
-             call, both distances and the residuals); eigen_p1_1024
+             call, both distances and the residuals); eigen_p1_512
              (test_aux_components.py's Dirichlet Laplacian with mass at
-             1024^2, the 4 smallest eigenvalues
+             512^2, the 4 smallest eigenvalues
              by host ARPACK on the card's matrices, the card's assembly
              and ARPACK timed apart; each within EIGEN_ERR of pi^2 (i^2 +
              j^2)); deflation_bratu_p1_1024 (Bratu, -lap u = 2 exp(u), on
@@ -283,7 +283,38 @@ failure raises and the exit code is non-zero):
              129-dof lines, on K2's huge variant), each held to the same
              solve on the CPU in this process (within 1e-10, equal
              counts).  `--only ddm` runs it alone.
-13. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
+13. adjoint — the port's adjoint (firedrake_tpu_torch/adjoint/), every
+             solve by CG + GMG on a MeshHierarchy of UnitSquareMesh(32),
+             each case with every launch count set to 0 before its
+             counted runs and read after: inversion_p1_1024
+             (demos/poisson_inversion.py's problem at 1,050,625 P1 dofs,
+             J = 1/2 ||u(f) - u_obs||^2 + 1e-6/2 ||f||^2, every solve to
+             ksp_rtol 1e-10: the forward solve, the gradient with its
+             adjoint solve's iterations and ms per iteration, a 4-step
+             Taylor test, one Hessian action against grad J(f + d) -
+             grad J(f) (J is quadratic: within 1e-7), 5 L-BFGS-B
+             iterations of minimize with J falling, the device peak; then
+             K1 held to its plain version and the lowerer on every form
+             of its family that the case assembled on the fine mesh);
+             heat_adjoint_p1_512 (263,169 dofs, ten backward-Euler steps
+             by solve(F == 0) and assign, the initial condition the
+             control: the gradient, its L2 Riesz map by host LU, Taylor
+             rates); covariance_p1_1024 (AutoregressiveCovariance, m = 4,
+             K solves by CG + GMG: B (M x) within 1e-4 of its closed
+             form x / c on x = cos(pi x) cos(pi y),
+             apply_action(apply_inverse(x)) back to x within 1e-10 times
+             max|B^-1 x| / max|x|, CG with CovariancePC in at most 3
+             iterations, one white-noise sample whose B^-1 norm is
+             within 5% of dim); in both, K1 held to its plain version as
+             in the inversion; gates: Taylor rates >= 1.9, every Krylov
+             solve converged (a tape solve that does not converge
+             raises), K1 launched; then adjoint_64: the three cases at
+             64^2 with every solve to ksp_rtol 1e-12 on the card and on
+             the CPU in this process, the gradients, the Hessian action,
+             the heat gradient and the covariance's B x, B^-1 x, norm
+             and first seeded sample within 1e-10 of max|CPU|.
+             `--only adjoint` runs it alone.
+14. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
              -lap u = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on the
              boundary, P2 on MeshHierarchy(UnitCubeMesh(8), 4) (12,582,912
              tets, 16,974,593 dofs), CG + GMG (Chebyshev(2) + Jacobi) with
@@ -303,6 +334,7 @@ The second-to-last line is the kernel table as JSON; the last line is
 """
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -960,9 +992,9 @@ class _StageTimes:
     """Seconds spent in named stages during one solve: each named module
     function (or class attribute, or dict entry) is wrapped, synchronised
     on both sides;
-    `secs` sums each stage, `calls` lists its calls' seconds in order,
-    over every block the object is entered for.  The default stages are
-    the GMG set-up's."""
+    `secs` sums each stage, `calls` lists its calls' seconds and
+    `results` their return values, in order, over every block the object
+    is entered for.  The default stages are the GMG set-up's."""
 
     STAGES = (("pc_setup", "firedrake_tpu_torch.mg.vcycle",
                "GMGPreconditioner"),
@@ -980,6 +1012,7 @@ class _StageTimes:
         self.stages = stages or self.STAGES
         self.secs = {name: 0.0 for name, _, _ in self.stages}
         self.calls = {name: [] for name, _, _ in self.stages}
+        self.results = {name: [] for name, _, _ in self.stages}
 
     def __enter__(self):
         import importlib
@@ -1004,6 +1037,7 @@ class _StageTimes:
             out, s = _sync_time(lambda: fn(*a, **kw))
             self.secs[name] += s
             self.calls[name].append(s)
+            self.results[name].append(out)
             return out
         return run
 
@@ -1933,7 +1967,7 @@ def cpu_study(labels):
     labels = labels or list(GATHER) + ["newton_p1_1m", "krylov_p1_1m",
                                        "poisson_mixed_rt1_256"] \
         + list(SLATE_LABELS) + list(EXTRUDED_STUDY) \
-        + ["stokes_th_schur_256"] + list(ML_STUDY) + ["eigen_p1_1024"]
+        + ["stokes_th_schur_256"] + list(ML_STUDY) + ["eigen_p1_512"]
     multilevel_cpu([lb for lb in ML_STUDY if lb in labels], "cpu_study",
                    study=True)
     ddm_cpu(labels, "cpu_study", study=True)
@@ -4320,19 +4354,22 @@ BDDC_ERR = 5e-5
 BDDC_PREDICTED_ITS = 13
 # K2's huge variant timed on this many of the path's own M_int and K blocks
 HUGE_TIMED_BLOCKS = 64
-# eigen_p1_1024: tests/regression/test_aux_components.py:47-57 (the
+# eigen_p1_512: tests/regression/test_aux_components.py:47-57 (the
 # Dirichlet Laplacian with the consistent mass, the 4 smallest
-# eigenvalues) at UnitSquareMesh(1024), the default backend (host ARPACK
-# on the matrices assembled on the card).  Bounds: twice the P1 errors
-# extrapolated from the CPU study (python3 chip_smoke.py --cpu-study
-# eigen_p1_1024: n = 64, 128, 256) to n = 1024 at the last ratio.
+# eigenvalues) at UnitSquareMesh(EIGEN_N), the default backend (host
+# ARPACK on the matrices assembled on the card).  512^2, not DDM_N: at
+# 1024^2 the case took 65-80 s, all but ~3 s of it host ARPACK, no card
+# work.  Bounds: twice the P1 errors extrapolated from the CPU study
+# (python3 chip_smoke.py --cpu-study eigen_p1_512: n = 64, 128, 256) to
+# n = EIGEN_N at the last ratio.
+EIGEN_N = 512
 EIGEN_K = 4
 EIGEN_EXACT = tuple(np.pi ** 2 * np.array([2.0, 5.0, 5.0, 8.0]))
 EIGEN_STUDY = (64, 128, 256)
 # the study's errors at 256^2: 7.431774e-4, 3.195020e-3, 4.980035e-3,
 # 1.189033e-2, ratios 4.0001, 4.0000, 4.0004, 3.9996; extrapolated to
-# 1024^2: 4.6447e-5, 1.9969e-4, 3.1119e-4, 7.4331e-4
-EIGEN_ERR = (9.289e-5, 3.994e-4, 6.224e-4, 1.487e-3)
+# 512^2: 1.8579e-4, 7.9875e-4, 1.2449e-3, 2.9729e-3
+EIGEN_ERR = (3.7158e-4, 1.5975e-3, 2.4898e-3, 5.9458e-3)
 # deflation_bratu_p1_1024: Bratu, -lap u = 2 exp(u), u = 0 on the
 # boundary, P1 on gmg_p1_1m's hierarchy (UnitSquareMesh(32) + 5 levels),
 # Newton with backtracking, Deflation() and GMRES + GMG at ksp_rtol 1e-8
@@ -4647,11 +4684,11 @@ def bddc_run(fd, label="bddc_p1_1024"):
     return counts, rows
 
 
-def eigen_run(fd, label="eigen_p1_1024"):
-    """eigen_p1_1024: the matrices assembled on the card, ARPACK on the
+def eigen_run(fd, label="eigen_p1_512"):
+    """eigen_p1_512: the matrices assembled on the card, ARPACK on the
     host, each stage timed; the eigenvalues against pi^2 (i^2 + j^2)."""
     from firedrake_tpu_torch import eigensolver
-    V, es = _eigen_problem(fd, DDM_N)
+    V, es = _eigen_problem(fd, EIGEN_N)
     stages = (("assembly", _TP + "eigensolver", "assemble"),)
     import scipy.sparse.linalg as spla
     eigsh = spla.eigsh
@@ -4773,13 +4810,13 @@ def _small_ddm_run(fd, label):
 
 
 def ddm_phase():
-    """bddc_p1_1024, eigen_p1_1024, deflation_bratu_p1_1024 and the small
+    """bddc_p1_1024, eigen_p1_512, deflation_bratu_p1_1024 and the small
     cases against the CPU."""
     t0 = phase("ddm")
     import firedrake_tpu_torch as fd
     fd.set_device(torch.device("cuda"))
     used, rows, failed = {}, {}, []
-    runs = [("bddc_p1_1024", bddc_run), ("eigen_p1_1024", eigen_run),
+    runs = [("bddc_p1_1024", bddc_run), ("eigen_p1_512", eigen_run),
             ("deflation_bratu_p1_1024", deflation_run)] \
         + [(label, _small_ddm_run) for label in SMALL_DDM]
     for label, run in runs:
@@ -4800,8 +4837,8 @@ def ddm_phase():
 
 def ddm_cpu(labels, tag, study=False):
     """deflation_bratu_p1_1024 on the CPU at 512^2 (the counts the card
-    must match), or with `study` the eigenvalue errors of eigen_p1_1024 at
-    EIGEN_STUDY and their extrapolation to DDM_N."""
+    must match), or with `study` the eigenvalue errors of eigen_p1_512 at
+    EIGEN_STUDY and their extrapolation to EIGEN_N."""
     import firedrake_tpu_torch as fd
     fd.set_device("cpu")
     if "deflation_bratu_p1_1024" in labels and not study:
@@ -4815,7 +4852,7 @@ def ddm_cpu(labels, tag, study=False):
               f"{fd.norm(p['deflation'].roots[0] - p['deflation'].roots[1])!r}"
               f" seconds {time.perf_counter() - t0:.1f} host_max_rss_gib "
               f"{_max_rss_gib():.2f}", flush=True)
-    if "eigen_p1_1024" in labels and study:
+    if "eigen_p1_512" in labels and study:
         prev = None
         for n in EIGEN_STUDY:
             t0 = time.perf_counter()
@@ -4823,17 +4860,514 @@ def ddm_cpu(labels, tag, study=False):
             es.solve()
             errs = np.array([es.eigenvalue(i) for i in range(EIGEN_K)]) \
                 - np.array(EIGEN_EXACT)
-            line = (f"{tag} eigen_p1_1024 n {n}: errors "
+            line = (f"{tag} eigen_p1_512 n {n}: errors "
                     + " ".join(f"{e:.6e}" for e in errs))
             if prev is not None:
                 ratio = prev / errs
-                ext = errs / ratio ** np.log2(DDM_N / n)
+                ext = errs / ratio ** np.log2(EIGEN_N / n)
                 line += (" ratios " + " ".join(f"{r:.4f}" for r in ratio)
-                         + f" extrapolated to {DDM_N}: "
+                         + f" extrapolated to {EIGEN_N}: "
                          + " ".join(f"{e:.4e}" for e in ext))
             prev = errs
             print(f"{line} seconds {time.perf_counter() - t0:.1f}",
                   flush=True)
+
+
+# ------------------------------------------------------------ adjoint phase
+# demos/poisson_inversion.py's problem, a heat loop and the covariance
+# operators on the port's adjoint (firedrake_tpu_torch/adjoint/): every
+# solve by CG + GMG on a MeshHierarchy of UnitSquareMesh(ADJ_BASE), K1 on
+# every grad.grad, mass and source form of the primal, adjoint, tangent
+# and second-order systems.
+ADJ_BASE = 32
+ADJ_ALPHA = 1e-6
+ADJ_SP = {"ksp_type": "cg", "ksp_rtol": 1e-10, "pc_type": "mg"}
+ADJ_SMALL_SP = dict(ADJ_SP, ksp_rtol=1e-12)
+# refinements of UnitSquareMesh(ADJ_BASE): 1024^2, 512^2; the card-vs-CPU
+# cases at 64^2
+ADJ_LEVELS = {"inversion_p1_1024": 5, "heat_adjoint_p1_512": 4,
+              "covariance_p1_1024": 5}
+ADJ_SMALL_LEVELS = 1
+HEAT_STEPS, HEAT_DT = 10, 0.05
+TAYLOR_MIN = 1.9                   # the JAX tests' bound
+HESSIAN_RTOL = 1e-7
+ADJ_CARD_CPU_RTOL = 1e-10
+COVARIANCE = dict(L=0.2, sigma=1.3, m=4, seed=3)   # the JAX test's
+COVARIANCE_PC_ITS = 3              # the JAX test's bound
+# the round trip's error, relative to max|x|, within this times
+# max|B^-1 x| / max|x| (the magnification of the solves' errors): the
+# ratio read 1.9e-11 to 3.2e-11 on the CPU at 64^2 to 256^2 with the K
+# solves to rtol 1e-12, 4.5e-12 on the card at 1024^2 with them to 1e-10
+COVARIANCE_RT = 1e-10
+# B (M x) against its closed form x / c for x = cos(pi x) cos(pi y), an
+# eigenfunction of the Neumann Laplacian (eigenvalue 2 pi^2): c = (1 +
+# 2 pi^2 kappa)^m / (sigma^2 lambda), with kappa and lambda the published
+# formulas (Mirouze & Weaver 2010), not the port's.  The P1 error, max
+# relative, read 5.4e-2, 1.7e-2, 4.9e-3, 1.4e-3, 3.9e-4 on the CPU at 8^2
+# to 128^2 (x3.5 per halving of h): ~9e-6 at 1024^2.  A kappa 1% off moves
+# c by 5.5e-3.
+COVARIANCE_CLOSED_FORM = 1e-4
+LBFGS_ITS = 5
+
+
+def _ksp_runs():
+    """Every Krylov solve made through solving._run_ksp while entered
+    (the forward solves and the tape's adjoint, tangent and second-order
+    solves): its result (iterations, convergence) and synchronised
+    seconds."""
+    return _StageTimes((("solve", "firedrake_tpu_torch.solving",
+                         "_run_ksp"),))
+
+
+def _ksp_line(st):
+    its = [int(r.iterations) for r in st.results["solve"]]
+    return (f"krylov_solves {len(its)} iterations {its} ksp_s "
+            f"{st.secs['solve']:.4f} ms_per_iteration "
+            f"{1e3 * st.secs['solve'] / max(sum(its), 1):.4f}")
+
+
+def _all_converged(*sts):
+    return all(bool(r.converged) for st in sts for r in st.results["solve"])
+
+
+#: the finest mesh of each hierarchy the adjoint phase built, by (levels,
+#: device): inversion_p1_1024 and covariance_p1_1024 share one
+_ADJ_MESHES = {}
+
+
+def _adj_mesh(fd, levels):
+    key = (levels, str(fd.get_device()))
+    if key not in _ADJ_MESHES:
+        _ADJ_MESHES[key] = fd.MeshHierarchy(
+            fd.UnitSquareMesh(ADJ_BASE, ADJ_BASE), levels)[-1]
+    return _ADJ_MESHES[key]
+
+
+def _inversion_problem(fd, levels, params):
+    """demos/poisson_inversion.py's problem on the finest mesh of a
+    hierarchy: J = 1/2 ||u(f) - u_obs||^2 + alpha/2 ||f||^2, -lap u = f,
+    u = 0 on the boundary, f = x y the initial guess (the demo's is 0,
+    a forward solve with nothing to do); ``record()`` tapes the forward
+    solve and J on a fresh tape."""
+    import firedrake_tpu_torch.adjoint as adj
+    mesh = _adj_mesh(fd, levels)
+    V = fd.FunctionSpace(mesh, "CG", 1)
+    X = fd.SpatialCoordinate(mesh)
+    bcs = [fd.DirichletBC(V, 0.0, "on_boundary")]
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    a = fd.inner(fd.grad(u), fd.grad(v)) * fd.dx
+    f_true = fd.Function(V).interpolate(
+        fd.sin(fd.pi * X[0]) * fd.sin(2 * fd.pi * X[1]))
+    u_obs = fd.Function(V)
+    fd.solve(a == f_true * v * fd.dx, u_obs, bcs=bcs,
+             solver_parameters=params)
+    p = dict(V=V, f=fd.Function(V).interpolate(X[0] * X[1]), u_obs=u_obs,
+             f_true=f_true,
+             # the Taylor and Hessian directions
+             h=fd.Function(V).interpolate(X[0] * (1 - X[0]) * X[1]),
+             d=fd.Function(V).interpolate(fd.cos(fd.pi * X[0]) * X[1]))
+
+    def record():
+        tape = adj.set_working_tape(adj.Tape())
+        adj.continue_annotation()
+        w = fd.Function(V)
+        fd.solve(a == p["f"] * v * fd.dx, w, bcs=bcs,
+                 solver_parameters=params)
+        J = fd.assemble(0.5 * (w - u_obs) ** 2 * fd.dx
+                        + 0.5 * ADJ_ALPHA * p["f"] ** 2 * fd.dx)
+        adj.pause_annotation()
+        p.update(w=w, J=J, tape=tape,
+                 rf=adj.ReducedFunctional(J, adj.Control(p["f"]),
+                                          tape=tape))
+    p["record"] = record
+    return p
+
+
+def _hessian_fd(fd, p):
+    """(H d, grad J(f + d) - grad J(f)): J is quadratic in f, so the two
+    differ by the solves' tolerance alone; the tape is left at f."""
+    rf, f0 = p["rf"], p["f"].dat.clone()
+    Hd = rf.hessian(p["d"]).dat.clone()
+    rf(fd.Function(p["V"], val=f0 + p["d"].dat))
+    g1 = rf.derivative().dat.clone()
+    rf(fd.Function(p["V"], val=f0))
+    return Hd, g1 - rf.derivative().dat
+
+
+def _heat_problem(fd, levels, params, steps=HEAT_STEPS):
+    """tests/adjoint/test_adjoint.py::test_time_dependent_adjoint's loop:
+    backward Euler (dt 0.05) by solve(F == 0) and assign, J = ||u_N||^2,
+    the initial condition the control; ``record()`` tapes it.  The
+    residual is the test's times dt."""
+    import firedrake_tpu_torch.adjoint as adj
+    mesh = _adj_mesh(fd, levels)
+    V = fd.FunctionSpace(mesh, "CG", 1)
+    X = fd.SpatialCoordinate(mesh)
+    v = fd.TestFunction(V)
+    bcs = [fd.DirichletBC(V, 0.0, "on_boundary")]
+    p = dict(V=V, u0=fd.Function(V).interpolate(
+        fd.sin(fd.pi * X[0]) * fd.sin(fd.pi * X[1])),
+        h=fd.Function(V).interpolate(
+            0.1 * X[0] * (1 - X[0]) * X[1] * (1 - X[1])))
+
+    def record():
+        tape = adj.set_working_tape(adj.Tape())
+        adj.continue_annotation()
+        u_prev = fd.Function(V)
+        u_prev.assign(p["u0"])
+        u = fd.Function(V)
+        # the JAX test's residual times dt: mass + dt stiffness, in K1's
+        # family (a division by dt is not)
+        F = ((u - u_prev) * v
+             + HEAT_DT * fd.inner(fd.grad(u), fd.grad(v))) * fd.dx
+        for _ in range(steps):
+            fd.solve(F == 0, u, bcs=bcs, solver_parameters=params)
+            u_prev.assign(u)
+        J = fd.assemble(u * u * fd.dx)
+        adj.pause_annotation()
+        p.update(J=J, tape=tape,
+                 rf=adj.ReducedFunctional(J, adj.Control(p["u0"]),
+                                          tape=tape))
+    p["record"] = record
+    return p
+
+
+def _covariance_problem(fd, levels, params):
+    """AutoregressiveCovariance (the JAX test's L, sigma, m and seed) with
+    its K solves by CG + GMG, and x = cos(pi x) cos(pi y), which meets
+    K's natural boundary condition (B^-1 = K (M^-1 K)^3 / lam^2 magnifies
+    whatever of x the discrete operator sees as rough by up to
+    (1 + kappa lambda_max)^4, ~1e19 at 1024^2)."""
+    import firedrake_tpu_torch.adjoint as adj
+    mesh = _adj_mesh(fd, levels)
+    V = fd.FunctionSpace(mesh, "CG", 1)
+    X = fd.SpatialCoordinate(mesh)
+    B = adj.AutoregressiveCovariance(V, solver_parameters=params,
+                                     **COVARIANCE)
+    x = fd.Function(V).interpolate(
+        fd.cos(fd.pi * X[0]) * fd.cos(fd.pi * X[1]))
+    return dict(V=V, B=B, x=x)
+
+
+def _round_trip(p):
+    """(y, error, gain): y = apply_action(apply_inverse(x)), its max error
+    relative to max|x|, and max|B^-1 x| / max|x|, the magnification that
+    the solves' errors meet on the way back."""
+    bx = p["B"].apply_inverse(p["x"])
+    y = p["B"].apply_action(bx).dat
+    xmax = p["x"].dat.abs().max()
+    return (y, float((y - p["x"].dat).abs().max() / xmax),
+            float(bx.dat.abs().max() / xmax))
+
+
+def _closed_form_action(fd, p):
+    """max|B (M x) - x / c| / max|x / c| (COVARIANCE_CLOSED_FORM)."""
+    L, sigma, m = COVARIANCE["L"], COVARIANCE["sigma"], COVARIANCE["m"]
+    kappa = L ** 2 / (2 * m - 3)
+    lam = (L / math.sqrt(2 * m - 3) * 2 ** (2 * m - 1)
+           * math.factorial(m - 1) ** 2 / math.factorial(2 * m - 2))
+    c = (1 + 2 * math.pi ** 2 * kappa) ** m / (sigma ** 2 * lam)
+    u, v = fd.TrialFunction(p["V"]), fd.TestFunction(p["V"])
+    mx = fd.Cofunction(p["V"])
+    mx.dat = fd.assemble(u * v * fd.dx).matvec(p["x"].dat)
+    want = p["x"].dat / c
+    return float((p["B"].apply_action(mx).dat - want).abs().max()
+                 / want.abs().max())
+
+
+def _covariance_pc(p):
+    """CG on B y = x with CovariancePC (B^-1), by name: the KSP result."""
+    import firedrake_tpu_torch.adjoint as adj
+    from firedrake_tpu_torch.solvers.composition import OpCtx, build_ksp
+    solve = build_ksp(
+        OpCtx(mat=adj.CovarianceMat(p["B"], adj.CovarianceMat.ACTION),
+              space=p["V"]),
+        {"ksp_type": "cg", "ksp_rtol": 1e-10, "pc_type": "python",
+         "pc_python_type": "firedrake.CovariancePC"})
+    return solve._full(p["x"].dat)
+
+
+def _adj_k1_checks(V, label):
+    """K1 against its plain version and the lowerer on the inputs of
+    every form of K1's family that the case assembled on its finest mesh
+    (the assembler cache's stencil-route entries; their coefficients hold
+    the last values the path gave them)."""
+    from firedrake_tpu_torch.assemble import _assembler_cache, FormAssembler
+    from firedrake_tpu_torch.compiler import cell_eval as K
+    n = 0
+    for asm in list(_assembler_cache.values()):
+        if not isinstance(asm, FormAssembler) or asm._stencil is None \
+                or asm.mesh is not V.mesh() \
+                or any(K.family_spec(ci) is None for ci in asm._compiled):
+            continue
+        _stencil_k1_checks(asm, f"{label} form {n}")
+        n += 1
+    if not n:
+        raise AssertionError(f"{label}: no form of K1's family assembled")
+    torch.cuda.empty_cache()
+    return n
+
+
+def inversion_run(fd, label="inversion_p1_1024"):
+    """The demo's problem at 1,050,625 dofs: forward, gradient (one
+    adjoint CG + GMG solve), a 4-step Taylor test, one Hessian action
+    against a gradient difference, 5 L-BFGS-B iterations; then K1 held to
+    its plain version on the path's inputs."""
+    import firedrake_tpu_torch.adjoint as adj
+    from firedrake_tpu_torch.adjoint.tape import taylor_rates
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(
+        lambda: _inversion_problem(fd, ADJ_LEVELS[label], ADJ_SP))
+    counts = _Counts()
+    with counts, _ksp_runs() as fwd:
+        _, fwd_s = _sync_time(p["record"])
+    with counts, _ksp_runs() as adj_ks:
+        g, grad_s = _sync_time(p["rf"].derivative)
+    print(f"{label}: dofs {p['V'].dim} setup_s {setup_s:.3f} (hierarchy, "
+          f"shared with covariance_p1_1024; the u_obs solve) forward_s "
+          f"{fwd_s:.4f} {_ksp_line(fwd)} J {float(p['J'])!r}", flush=True)
+    print(f"{label}: gradient_s {grad_s:.4f} adjoint {_ksp_line(adj_ks)} "
+          f"max|g| {float(g.dat.abs().max())!r} on {g.dat.device}",
+          flush=True)
+    with counts:
+        rates, taylor_s = _sync_time(
+            lambda: taylor_rates(p["rf"], p["f"], p["h"]))
+    with counts, _ksp_runs() as hk:
+        (Hd, dg), hess_s = _sync_time(lambda: _hessian_fd(fd, p))
+    hrel = float((Hd - dg).abs().max() / dg.abs().max())
+    print(f"{label}: taylor_s {taylor_s:.3f} rates "
+          + " ".join(f"{r:.6f}" for r in rates)
+          + f" hessian_s {hess_s:.3f} (H d, two replays, two gradients; "
+          f"{_ksp_line(hk)}) max|H d - (g(f + d) - g(f))| / max "
+          f"{hrel:.3e}", flush=True)
+    traced = _Traced(p["rf"])
+    J0 = float(p["J"])
+    with counts:
+        mopt, opt_s = _sync_time(lambda: adj.minimize(
+            traced, method="L-BFGS-B",
+            # no stopping test but the iteration count (the gradient's
+            # entries are mass-weighted, ~h^2: below scipy's gtol)
+            options={"maxiter": LBFGS_ITS, "gtol": 0.0, "ftol": 0.0}))
+    res, J_end = mopt._opt_result, traced.evals[-1]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: minimize_s {opt_s:.3f} L-BFGS-B nit {res.nit} nfev "
+          f"{res.nfev} J {J0!r} -> {J_end!r} evaluations "
+          + " ".join(f"{e:.6e}" for e in traced.evals)
+          + f" k1_launches {counts.k1} k1_by_variant "
+          f"{counts.k1_by_variant} lowerer_evals {counts.lowerer} "
+          f"max_memory_allocated {peak} ({peak / 2 ** 30:.3f} GiB)",
+          flush=True)
+    nforms = _adj_k1_checks(p["V"], label)
+    print(f"{label}: K1 held to its plain version on {nforms} forms",
+          flush=True)
+    failed = []
+    if not g.dat.is_cuda:
+        failed.append("the gradient is not on the card")
+    if not _all_converged(fwd, adj_ks, hk):
+        failed.append("a Krylov solve did not converge")
+    if not min(rates) >= TAYLOR_MIN:
+        failed.append(f"Taylor rates {list(rates)}")
+    if not hrel <= HESSIAN_RTOL:
+        failed.append(f"Hessian action {hrel} from the gradient difference")
+    if res.nit != LBFGS_ITS or not J_end < J0:
+        failed.append(f"L-BFGS-B: {res.nit} iterations, J {J0} -> {J_end}")
+    if counts.k1 <= 0:
+        failed.append("K1 was not launched")
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    del p, g, Hd, dg, mopt, traced
+    _release(label)
+    return counts
+
+
+class _Traced:
+    """A ReducedFunctional whose values are recorded in the order
+    minimize asks for them."""
+
+    def __init__(self, rf):
+        self.rf, self.evals = rf, []
+
+    @property
+    def controls(self):
+        return self.rf.controls
+
+    def __call__(self, values):
+        self.evals.append(self.rf(values))
+        return self.evals[-1]
+
+    def derivative(self, adj_input=1.0):
+        return self.rf.derivative(adj_input)
+
+
+def heat_run(fd, label="heat_adjoint_p1_512"):
+    """Ten backward-Euler steps at 263,169 dofs (SolveBlock and
+    AssignBlock snapshots at width): forward, gradient (ten adjoint
+    solves), the gradient's L2 Riesz map (host LU, as in the JAX
+    package), a 4-step Taylor test; then K1 held to its plain version on
+    the path's inputs."""
+    from firedrake_tpu_torch.adjoint.tape import taylor_rates
+    p, setup_s = _sync_time(
+        lambda: _heat_problem(fd, ADJ_LEVELS[label], ADJ_SP))
+    counts = _Counts()
+    with counts, _ksp_runs() as fwd:
+        _, fwd_s = _sync_time(p["record"])
+    with counts, _ksp_runs() as adj_ks:
+        g, grad_s = _sync_time(p["rf"].derivative)
+    riesz, riesz_s = _sync_time(lambda: g.riesz_representation("L2"))
+    with counts:
+        rates, taylor_s = _sync_time(
+            lambda: taylor_rates(p["rf"], p["u0"], p["h"]))
+    print(f"{label}: dofs {p['V'].dim} steps {HEAT_STEPS} setup_s "
+          f"{setup_s:.3f} forward_s {fwd_s:.4f} ({_ksp_line(fwd)}) J "
+          f"{float(p['J'])!r} gradient_s {grad_s:.4f} (adjoint "
+          f"{_ksp_line(adj_ks)}) riesz_L2_s {riesz_s:.3f} (host LU) "
+          f"taylor_s {taylor_s:.3f} rates "
+          + " ".join(f"{r:.6f}" for r in rates)
+          + f" k1_launches {counts.k1} lowerer_evals {counts.lowerer}",
+          flush=True)
+    nforms = _adj_k1_checks(p["V"], label)
+    print(f"{label}: K1 held to its plain version on {nforms} forms",
+          flush=True)
+    failed = []
+    if not g.dat.is_cuda or not riesz.dat.is_cuda:
+        failed.append("the gradient is not on the card")
+    n_adj = len(adj_ks.results["solve"])
+    if n_adj != HEAT_STEPS or not _all_converged(fwd, adj_ks):
+        failed.append(f"{n_adj} adjoint solves, or one did not converge")
+    if not min(rates) >= TAYLOR_MIN:
+        failed.append(f"Taylor rates {list(rates)}")
+    if not bool(torch.isfinite(riesz.dat).all()):
+        failed.append("the Riesz map is not finite")
+    if counts.k1 <= 0:
+        failed.append("K1 was not launched")
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    del p, g, riesz
+    _release(label)
+    return counts
+
+
+def covariance_run(fd, label="covariance_p1_1024"):
+    """AutoregressiveCovariance (m = 4) at 1,050,625 dofs: B (M x) against
+    its closed form, the round trip apply_action(apply_inverse(x)), CG
+    with CovariancePC, one sample and its B^-1 norm (expected dim, std
+    sqrt(2 dim)); then K1 held to its plain version on the path's
+    inputs."""
+    counts = _Counts()
+    with counts:
+        p, setup_s = _sync_time(
+            lambda: _covariance_problem(fd, ADJ_LEVELS[label], ADJ_SP))
+        cf, cf_s = _sync_time(lambda: _closed_form_action(fd, p))
+        (_, rt, gain), rt_s = _sync_time(lambda: _round_trip(p))
+        res, pc_s = _sync_time(lambda: _covariance_pc(p))
+        s, sample_s = _sync_time(lambda: p["B"].sample())
+        ratio = p["B"].norm(s) / p["V"].dim
+    print(f"{label}: dofs {p['V'].dim} setup_s {setup_s:.3f} action_s "
+          f"{cf_s:.3f} max|B M x - x / c| / max|x / c| {cf:.3e} "
+          f"round_trip_s "
+          f"{rt_s:.3f} max|B B^-1 x - x| / max|x| {rt:.3e} (max|B^-1 x| "
+          f"/ max|x| {gain:.3e}) "
+          f"covariance_pc cg iterations {res.iterations} converged "
+          f"{res.converged} solve_s {pc_s:.3f} sample_s {sample_s:.3f} "
+          f"|sample|^2_(B^-1) / dim {ratio:.6f} k1_launches {counts.k1} "
+          f"lowerer_evals {counts.lowerer}", flush=True)
+    nforms = _adj_k1_checks(p["V"], label)
+    print(f"{label}: K1 held to its plain version on {nforms} forms",
+          flush=True)
+    failed = []
+    if not s.dat.is_cuda:
+        failed.append("the sample is not on the card")
+    if not cf <= COVARIANCE_CLOSED_FORM:
+        failed.append(f"B M x {cf} from its closed form")
+    if not rt <= COVARIANCE_RT * gain:
+        failed.append(f"round trip {rt}, {gain} times the solves' errors")
+    if not (res.converged and res.iterations <= COVARIANCE_PC_ITS):
+        failed.append(f"CovariancePC: {res.iterations} iterations")
+    if not abs(ratio - 1) < 0.05:
+        failed.append(f"sample norm / dim {ratio}")
+    if counts.k1 <= 0:
+        failed.append("K1 was not launched")
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    del p, s
+    _release(label)
+    return counts
+
+
+def _adjoint_small(fd):
+    """The three cases at 64^2, every solve to ksp_rtol 1e-12: the
+    inversion's gradient and Hessian action, the heat gradient, and the
+    covariance's B x, B^-1 x, x^T B^-1 x and first seeded sample (host
+    arrays)."""
+    p = _inversion_problem(fd, ADJ_SMALL_LEVELS, ADJ_SMALL_SP)
+    p["record"]()
+    out = dict(inversion_gradient=p["rf"].derivative().dat.cpu(),
+               inversion_hessian=p["rf"].hessian(p["d"]).dat.cpu())
+    q = _heat_problem(fd, ADJ_SMALL_LEVELS, ADJ_SMALL_SP)
+    q["record"]()
+    out["heat_gradient"] = q["rf"].derivative().dat.cpu()
+    c = _covariance_problem(fd, ADJ_SMALL_LEVELS, ADJ_SMALL_SP)
+    B, x = c["B"], c["x"]
+    out.update(covariance_action=B.apply_action(x).dat.cpu(),
+               covariance_inverse=B.apply_inverse(x).dat.cpu(),
+               covariance_norm=torch.tensor([B.norm(x)]),
+               covariance_sample=B.sample().dat.cpu())
+    return out
+
+
+def adjoint_small_run(fd, label="adjoint_64"):
+    """_adjoint_small on the card, then on the CPU in this process:
+    within ADJ_CARD_CPU_RTOL of max|CPU|."""
+    card, card_s = _sync_time(lambda: _adjoint_small(fd))
+    fd.set_device("cpu")
+    t0 = time.perf_counter()
+    try:
+        cpu = _adjoint_small(fd)
+    finally:
+        fd.set_device(torch.device("cuda"))
+    cpu_s = time.perf_counter() - t0
+    diffs = {k: float((card[k] - cpu[k]).abs().max() / cpu[k].abs().max())
+             for k in card}
+    print(f"{label}: card_s {card_s:.3f} cpu_s {cpu_s:.3f} card_vs_cpu "
+          + " ".join(f"{k} {v:.3e}" for k, v in diffs.items()), flush=True)
+    bad = {k: v for k, v in diffs.items() if not v <= ADJ_CARD_CPU_RTOL}
+    if bad:
+        raise AssertionError(f"{label}: card and CPU apart: {bad}")
+    _release(label)
+
+
+ADJOINT_RUNS = (("inversion_p1_1024", inversion_run),
+                ("heat_adjoint_p1_512", heat_run),
+                ("covariance_p1_1024", covariance_run))
+
+
+def adjoint_phase():
+    """inversion_p1_1024, heat_adjoint_p1_512, covariance_p1_1024 and the
+    same three at 64^2 on the card against the CPU."""
+    t0 = phase("adjoint")
+    import firedrake_tpu_torch as fd
+    fd.set_device(torch.device("cuda"))
+    used, failed = {}, []
+    for label, run in ADJOINT_RUNS + (("adjoint_64", adjoint_small_run),):
+        t1 = time.perf_counter()
+        try:
+            with warnings.catch_warnings():
+                # a forward solve that does not converge warns: fail it
+                warnings.filterwarnings("error",
+                                        message=".*did not converge")
+                c = run(fd, label)
+            if c is not None:
+                used[label] = c
+        except (AssertionError, RuntimeError, UserWarning) as exc:
+            # the later cases still run and print; the phase fails below
+            failed.append(f"{label}: {exc}")
+            _release(label)
+        print(f"{label}: case_s {time.perf_counter() - t1:.1f}", flush=True)
+    _ADJ_MESHES.clear()
+    if failed:
+        raise AssertionError("adjoint phase: " + "; ".join(failed))
+    phase_done("adjoint", t0)
+    return used
 
 
 def main():
@@ -4856,6 +5390,7 @@ def main():
     used.update(ml_used)
     ddm_used, huge_rows = ddm_phase()
     used.update(ddm_used)
+    used.update(adjoint_phase())
     used["gmg_p2_tet_16m"], k1_action = north_star_phase()
     for label, c in used.items():
         print(f"launches {label}: k1 {c.k1} k2 {c.k2} k2_large "
@@ -4964,7 +5499,7 @@ def only(names):
               "gather": gather_phase, "nonlinear": nonlinear_phase,
               "extruded": extruded_phase, "fieldsplit": fieldsplit_phase,
               "multilevel": multilevel_phase, "pcd_limit": pcd_limit,
-              "ddm": ddm_phase,
+              "ddm": ddm_phase, "adjoint": adjoint_phase,
               "ml_rounding": ml_rounding}
     for name in names:
         phases[name]()

@@ -761,7 +761,16 @@ def assemble(form, tensor=None, bcs=None, mat_type="aij",
             assembler.diagonal_space())
         out.dat = d
         return out
-    return assembler.assemble(tensor=tensor)
+    result = assembler.assemble(tensor=tensor)
+    if isinstance(result, float):
+        # a functional, taped while annotating (JAX assemble.py:899-906)
+        from .adjoint.tape import (annotate_tape, get_working_tape,
+                                   FunctionalBlock, AdjFloat)
+        if annotate_tape():
+            block = FunctionalBlock(form, result)
+            get_working_tape().add_block(block)
+            return AdjFloat(result, block)
+    return result
 
 
 class MixedFormAssembler:

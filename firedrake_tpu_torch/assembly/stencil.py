@@ -465,6 +465,23 @@ class StencilMatrix:
 
     __matmul__ = matvec
 
+    def transpose_matvec(self, y):
+        """(A^T y)[p] = sum_off A[off][p - off] * y[p - off]: each channel
+        plane and y shifted back by the channel's offset, still
+        gather-free (the JAX package's StencilMatrix.transpose_matvec)."""
+        m = self._margins()
+        Yp = self._pad(y.reshape(self.plane_shape), m)
+        Cp = self._pad(self.channels, (0,) + m)
+        out = None
+        for ch, off in enumerate(self.offsets):
+            a = self._shifted(Cp[ch], m, off, -1)
+            v = self._shifted(Yp, m, off, -1)
+            if out is None:
+                out = a * v
+            else:
+                out.addcmul_(a, v)
+        return out.reshape(-1)
+
     def diagonal(self):
         return self.channels[self.plan.diag_channel].reshape(-1)
 

@@ -81,6 +81,11 @@ class Function(Coefficient):
                                   dtype=torch.float64, device=get_device())
         else:
             self.dat = val
+        # tape the state hand-off of time loops (pyadjoint assign block)
+        from .adjoint.tape import annotate_tape
+        if annotate_tape() and isinstance(expr, Function):
+            from .adjoint.tape import AssignBlock, get_working_tape
+            get_working_tape().add_block(AssignBlock(self, expr))
         return self
 
     def interpolate(self, expr):
@@ -122,7 +127,33 @@ class Function(Coefficient):
         _unported("Function.vector", 18)
 
     def riesz_representation(self, riesz_map="L2"):
-        _unported("Function.riesz_representation", 17)
+        """Primal/dual conversion (reference: cofunction.py:412
+        RieszMap): 'l2' copies the dat; 'L2' and 'H1' apply the Gram
+        matrix of the mass (+ stiffness) inner product to a Function, and
+        solve with it (host sparse LU, as the JAX package) for a
+        Cofunction."""
+        if riesz_map == "l2":
+            out = (Function if isinstance(self, Cofunction)
+                   else Cofunction)(self.space)
+            out.dat = self.dat.clone()
+            return out
+        if riesz_map not in ("L2", "H1"):
+            raise NotImplementedError(f"riesz map {riesz_map!r}")
+        from .assemble import assemble
+        from .language import TestFunction, TrialFunction, inner, dx, grad
+        u, v = TrialFunction(self.space), TestFunction(self.space)
+        a = inner(u, v) * dx
+        if riesz_map == "H1":
+            a = a + inner(grad(u), grad(v)) * dx
+        M = assemble(a)
+        if isinstance(self, Cofunction):
+            from .solving import direct_solve
+            out = Function(self.space)
+            out.dat = direct_solve(M, self.dat)
+        else:
+            out = Cofunction(self.space)
+            out.dat = M.matvec(self.dat)
+        return out
 
     def __repr__(self):
         return f"Function({self.name!r}, {self.space!r})"

@@ -170,9 +170,7 @@ def _gateaux_impl(e, u, du, memo):
         dbase, dexpo = g(base), g(expo)
         terms = []
         if not dbase.is_zero():
-            terms.append(Product(Product(expo,
-                                         Power(base, Sum(expo,
-                                                         ScalarValue(-1.0)))),
+            terms.append(Product(Product(expo, _lowered_power(base, expo)),
                                  dbase))
         if not dexpo.is_zero():
             terms.append(Product(Product(Power(base, expo),
@@ -234,6 +232,18 @@ def _gateaux_impl(e, u, du, memo):
              ListTensor):
         return reconstruct(e, [g(o) for o in a])
     raise NotImplementedError(f"derivative of {t.__name__}")
+
+
+def _lowered_power(base, expo):
+    """base ** (expo - 1), written as base where that exponent is the
+    literal 1 and as 1 where it is 0 (the same values: so the derivative
+    of a square, (u - d)**2, stays a product that K1's family takes)."""
+    e1 = Sum(expo, ScalarValue(-1.0))
+    if type(e1) is ScalarValue and e1.value == 1.0:
+        return base
+    if type(e1) is ScalarValue and e1.value == 0.0:
+        return ScalarValue(1.0)
+    return Power(base, e1)
 
 
 def derivative(form, u, du=None):

@@ -17,9 +17,10 @@ A PC is built once at solver set-up; `apply` is a callable on device
 tensors.  FDMPC and P1PC (solvers/fdm.py), ASMLinesmoothPC,
 ASMExtrudedStarPC and ASMGridLinePC (solvers/asm.py) and FacetSplitPC
 (solvers/facet_split.py) and BDDCPC (solvers/bddc.py) are resolved here
-by name, as in the JAX package.  Its other python PCs (HiptmairPC,
-GTMGPC, CovariancePC) raise NotImplementedError naming their ROADMAP.md
-queue 1 item.
+by name, as in the JAX package.  CovariancePC (preconditioners/
+covariance.py) pairs with adjoint/covariance.py's CovarianceMat.  The
+JAX package's other python PCs (HiptmairPC, GTMGPC) raise
+NotImplementedError naming their ROADMAP.md queue 1 item.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from ..device import as_tensor
 
 __all__ = ["PCBase", "AssembledPC", "AuxiliaryOperatorPC", "MassInvPC",
            "PCDPC", "FDMPC", "P1PC", "ASMLinesmoothPC",
-           "ASMExtrudedStarPC", "ASMGridLinePC", "FacetSplitPC", "BDDCPC"]
+           "ASMExtrudedStarPC", "ASMGridLinePC", "FacetSplitPC", "BDDCPC",
+           "CovariancePC"]
 
 #: python PCs of the other solver modules, bound on first use (those
 #: modules import PCBase from here)
@@ -41,7 +43,7 @@ _LATE = {"FDMPC": "fdm", "P1PC": "fdm", "ASMLinesmoothPC": "asm",
 
 #: the JAX package's python PCs not ported yet, and their ROADMAP.md
 #: queue 1 items
-_UNPORTED = {"HiptmairPC": 18, "GTMGPC": 18, "CovariancePC": 17}
+_UNPORTED = {"HiptmairPC": 18, "GTMGPC": 18}
 
 
 def __getattr__(name):
@@ -191,3 +193,36 @@ class PCDPC(PCBase):
 
     def apply(self, r):
         return self._Kp_solve(self._Fp.matvec(self._Mp_solve(r)))
+
+
+class CovariancePC(PCBase):
+    """Apply the opposite of a CovarianceMat's operation — the
+    action/inverse pairing makes a Krylov solve over a covariance
+    operator converge in O(1) iterations (reference:
+    preconditioners/covariance.py:6-119).
+
+    The CovarianceMat is found on ctx.mat, or under appctx
+    {"covariance": <CovarianceOperatorBase>} (then the Mat operation
+    defaults to ACTION and this PC applies the INVERSE)."""
+
+    def initialize_ctx(self, ctx, params, prefix):
+        from ..adjoint.covariance import CovarianceMat
+        mat = ctx.mat if isinstance(ctx.mat, CovarianceMat) else None
+        if mat is None:
+            cov = ctx.appctx.get("covariance")
+            if cov is None:
+                raise TypeError(
+                    "CovariancePC needs a CovarianceMat operator or "
+                    "appctx={'covariance': <operator>}")
+            mat = CovarianceMat(cov, CovarianceMat.ACTION)
+        cov = mat.covariance
+        self.covariance = cov
+        if mat.operation == CovarianceMat.ACTION:
+            self.operation = CovarianceMat.INVERSE
+            self._apply = cov._inverse
+        else:
+            self.operation = CovarianceMat.ACTION
+            self._apply = cov._action
+
+    def apply(self, r):
+        return self._apply(r)

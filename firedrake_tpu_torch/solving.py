@@ -554,7 +554,8 @@ def solve(*args, **kwargs):
     bcs = kwargs.get("bcs")
     sp = kwargs.get("solver_parameters")
     appctx = kwargs.get("appctx")
-    if {a.number for a in eq.lhs.arguments()} == {0, 1}:
+    is_linear = {a.number for a in eq.lhs.arguments()} == {0, 1}
+    if is_linear:
         problem = LinearVariationalProblem(eq.lhs, eq.rhs, u, bcs=bcs)
         solver = LinearVariationalSolver(
             problem, solver_parameters=sp, appctx=appctx,
@@ -568,4 +569,12 @@ def solve(*args, **kwargs):
         solver = NonlinearVariationalSolver(problem, solver_parameters=sp,
                                             appctx=appctx)
     solver.solve()
+    from .adjoint.tape import annotate_tape, get_working_tape, SolveBlock
+    if annotate_tape():
+        # the residual form F(u) = 0 (JAX solving.py:678-690)
+        if is_linear:
+            from .language.calculus import action
+            F = action(eq.lhs, u) - (eq.rhs if isinstance(eq.rhs, Form)
+                                     else Form(()))
+        get_working_tape().add_block(SolveBlock(F, u, bcs, sp, appctx))
     return u

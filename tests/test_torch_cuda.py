@@ -4,8 +4,9 @@ PyTorch version, the launch counts, and the matrix-free operator, the
 gather route's matrix and vectors, Newton (assembled and matrix-free
 Jacobians), the Krylov methods, the slope limiter, an RT1 x DG0 block
 assembly and a hybridized and an SCPC solve (K2 on the Slate path),
-Stokes by Vanka (K2's large variant) and by a Schur fieldsplit, and line
-smoothers on 65- and 129-dof columns on the card against the CPU.
+Stokes by Vanka (K2's large variant) and by a Schur fieldsplit, line
+smoothers on 65- and 129-dof columns and the adjoint's gradient and
+Hessian action on the card against the CPU.
 Marked `cuda`; skips where torch
 has no CUDA device.  Run on a machine with an NVIDIA GPU with
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
@@ -666,3 +667,48 @@ def test_line_patches_on_card_match_plain_and_cpu(on_cuda):
     wg, launches, huge = _line_solve_on("cuda", 128)
     assert (launches, huge) == (0, 1)
     assert float((wg - wc).abs().max()) <= 1e-10 * float(wc.abs().max())
+
+
+def _inversion_on(device, n=32):
+    """demos/poisson_inversion.py's functional at f = x y on the finest
+    mesh of a two-level hierarchy, every solve CG + GMG to rtol 1e-12:
+    (gradient, Hessian action, K1 launches during the gradient), on
+    ``device``."""
+    import firedrake_tpu_torch.adjoint as adj
+    T.set_device(device)
+    mesh = T.MeshHierarchy(T.UnitSquareMesh(n // 2, n // 2), 1)[-1]
+    V = T.FunctionSpace(mesh, "CG", 1)
+    X = T.SpatialCoordinate(mesh)
+    bcs = [T.DirichletBC(V, 0.0, "on_boundary")]
+    u, v = T.TrialFunction(V), T.TestFunction(V)
+    a = T.inner(T.grad(u), T.grad(v)) * T.dx
+    sp = {"ksp_type": "cg", "ksp_rtol": 1e-12, "pc_type": "mg"}
+    u_obs = T.Function(V)
+    T.solve(a == T.sin(3 * X[0]) * X[1] * v * T.dx, u_obs, bcs=bcs,
+            solver_parameters=sp)
+    f = T.Function(V).interpolate(X[0] * X[1])
+    tape = adj.set_working_tape(adj.Tape())
+    adj.continue_annotation()
+    w = T.Function(V)
+    T.solve(a == f * v * T.dx, w, bcs=bcs, solver_parameters=sp)
+    J = T.assemble(0.5 * (w - u_obs) ** 2 * T.dx + 5e-7 * f ** 2 * T.dx)
+    adj.pause_annotation()
+    rf = adj.ReducedFunctional(J, adj.Control(f), tape=tape)
+    n0 = K.kernel_launches
+    g = rf.derivative().dat
+    k1 = K.kernel_launches - n0
+    H = rf.hessian(T.Function(V).interpolate(T.cos(X[1]))).dat
+    assert g.device.type == H.device.type == torch.device(device).type
+    return g.cpu(), H.cpu(), k1
+
+
+def test_adjoint_gradient_and_hessian_on_card_match_cpu(on_cuda):
+    """The tape on the card (device snapshots, the adjoint, tangent and
+    second-order solves by CG + GMG, K1 on their forms) within 1e-10 of
+    the same tape on the CPU."""
+    gc, Hc, _ = _inversion_on("cpu")
+    gg, Hg, k1 = _inversion_on("cuda")
+    assert k1 > 0
+    for ours, ref in ((gg, gc), (Hg, Hc)):
+        assert float((ours - ref).abs().max()) <= 1e-10 * float(
+            ref.abs().max())

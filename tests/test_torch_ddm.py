@@ -8,7 +8,7 @@ test_deflation.py and test_aux_components.py at their sizes.
   CG iteration counts equal (rtol 1e-10): P1 and P2 Poisson at 16^2 with
   16 subdomains, elasticity with 9, the cube with 8, primal_markers (the
   JAX package's BDDC compiled with XLA's optimisations on, as its own
-  tests compile it; see _jax_bddc).
+  tests compile it; see jax_bddc).
 - BDDC's saddle blocks K need pivots: K2's pivoted plain version within
   1e-13 max|inv| of torch.linalg.inv there, the unpivoted one off by more
   than 1e-3.
@@ -17,9 +17,12 @@ test_deflation.py and test_aux_components.py at their sizes.
 - Eigenvalues: the scipy backend within 1e-10 relative of the JAX
   package's, the device LOBPCG within 1e-6.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 import jax
 import jax.numpy as jnp
 
@@ -40,7 +43,11 @@ def _cpu():
     T.set_device("cpu")
     opt = jax.config.read(NO_OPT)
     jax.config.update(NO_OPT, True)
-    yield
+    # one BLAS thread: with six test workers, numpy's OpenBLAS threads
+    # (one per host core in each worker) made its dense linear algebra
+    # ~20x slower
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     jax.config.update(NO_OPT, opt)
     jax.clear_caches()
     torch.set_num_threads(n)
@@ -116,23 +123,36 @@ def _bddc_run(fd, name):
     return pc, z, int(res.iterations)
 
 
-_JAX_BDDC = {}
-
-
-def _jax_bddc(name):
-    """The JAX package's run of a case, compiled as tests/regression/
+@pytest.fixture(scope="module")
+def jax_bddc(_cpu):
+    """{case: the JAX package's run}, compiled as tests/regression/
     test_bddc.py compiles it (XLA's optimisations on): BDDC's late CG
     residuals move with the rounding (elasticity's residual after 27
     iterations is 1.004e-10 with them and 5.5e-11 without, so the count
-    is 28 or 27; the port's is 1.43e-10, 28)."""
-    if name not in _JAX_BDDC:
-        opt = jax.config.read(NO_OPT)
-        jax.config.update(NO_OPT, False)
-        try:
-            _JAX_BDDC[name] = _bddc_run(J, name)
-        finally:
-            jax.config.update(NO_OPT, opt)
-    return _JAX_BDDC[name]
+    is 28 or 27; the port's is 1.43e-10, 28).  The five runs go side by
+    side in big-stack threads (XLA:CPU's compiler recurses deeply, as
+    tests/conftest.py says of the main thread); nothing else runs
+    meanwhile, since the optimisation switch is global."""
+    out = {}
+
+    def run(name):
+        out[name] = _bddc_run(J, name)
+    opt = jax.config.read(NO_OPT)
+    jax.config.update(NO_OPT, False)
+    old = threading.stack_size(512 * 1024 * 1024)
+    try:
+        threads = [threading.Thread(target=run, args=(name,))
+                   for name in BDDC_CASES]
+        for t in threads:
+            t.start()
+    finally:
+        threading.stack_size(old)
+        for t in threads:
+            t.join()
+        jax.config.update(NO_OPT, opt)
+    missing = set(BDDC_CASES) - set(out)
+    assert not missing, f"{missing} raised (see the threads' tracebacks)"
+    return out
 
 
 @pytest.mark.parametrize("mesh", ["square", "cube"])
@@ -147,9 +167,9 @@ def test_sfc_cell_order_bit_for_bit(mesh):
 
 
 @pytest.mark.parametrize("name", BDDC_CASES)
-def test_bddc_host_tables_bit_for_bit(name):
+def test_bddc_host_tables_bit_for_bit(name, jax_bddc):
     from firedrake_tpu_torch.solvers.bddc import _host_tables
-    jpc = _jax_bddc(name)[0]
+    jpc = jax_bddc[name][0]
     V, _, bcs, ns, appctx = _bddc_case(T, name)
     t = _host_tables(V, bcs, ns, appctx.get("primal_markers"))
     assert t.n_pi == jpc._npi and t.ndof == jpc._ndof
@@ -162,8 +182,8 @@ def test_bddc_host_tables_bit_for_bit(name):
 
 
 @pytest.mark.parametrize("name", BDDC_CASES)
-def test_bddc_application_and_cg_iterations(name):
-    _, zj, itj = _jax_bddc(name)
+def test_bddc_application_and_cg_iterations(name, jax_bddc):
+    _, zj, itj = jax_bddc[name]
     _, zt, itt = _bddc_run(T, name)
     _close(zt, zj, 1e-12)
     assert itt == itj

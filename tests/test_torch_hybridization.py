@@ -4,7 +4,8 @@ RT1 x DG0 x HDiv Trace 0) through Slate's one-sided facet localisation,
 and demos/hybridized_poisson.py (RT2 x DG1), all on UnitSquareMesh(16),
 each run once through each package in a module-scoped fixture shared by
 the asserts.  A JAX hybridized solve costs ~20 s of compilation on the
-CPU; on one mesh the three share much of it.  The source term of the RT1
+CPU; the JAX package's three runs go side by side in threads started
+with the module (~24 s for the three against ~43 s one after another).  The source term of the RT1
 case is the JAX package's, carried into the port by interop, as are a
 trace and a broken Function; the JAX solution is carried back into a
 port MixedFunction.
@@ -14,11 +15,13 @@ of the port's monolithic LU; local tensors within 1e-12; the demo's L2
 error within 1e-10 of the JAX demo's."""
 import math
 import os
+import threading
 from importlib import import_module
 
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 import jax
 
 import firedrake_tpu as J
@@ -52,7 +55,11 @@ def _cpu():
     T.set_device("cpu")
     opt = jax.config.read(NO_OPT)
     jax.config.update(NO_OPT, True)
-    yield
+    # one BLAS thread: with six test workers, numpy's OpenBLAS threads
+    # (one per host core in each worker) made its dense linear algebra
+    # ~20x slower
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     jax.config.update(NO_OPT, opt)
     jax.clear_caches()
     torch.set_num_threads(n)
@@ -90,14 +97,62 @@ def _rt1(fd, n=N):
     return W, f, a, -fd.inner(f, v) * fd.dx
 
 
-@pytest.fixture(scope="module")
-def rt1_pair():
+def _jax_rt1():
     Wj, fj, aj, Lj = _rt1(J)
     X = J.SpatialCoordinate(Wj.mesh())
     fj.interpolate(2 * math.pi ** 2 * J.sin(math.pi * X[0])
                    * J.sin(math.pi * X[1]))
     wj = J.Function(Wj)
     J.solve(aj == Lj, wj, solver_parameters=HYB)
+    return Wj, fj, wj
+
+
+def _jax_hybrid():
+    """The JAX package's hybrid system with seeded trace and broken
+    Functions, and the local tensors of every expression, evaluated
+    with one shared cache."""
+    pj = _hybrid_system(J)
+    rng = np.random.default_rng(3)
+    pj["lam"].dat = rng.standard_normal(pj["Tr"].dim)
+    pj["sig"].dat = rng.standard_normal(pj["Sb"].dim)
+    cache = {}
+    return pj, {k: JS._eval_local(e, cache).cell
+                for k, e in pj["exprs"].items()}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_runs(_cpu):
+    """jax_runs(name) -> the JAX package's side of a fixture below (waits
+    for it); each runs in a big-stack thread started with the module
+    (XLA:CPU's compiler recurses deeply, as tests/conftest.py says of the
+    main thread)."""
+    tasks = {"rt1": _jax_rt1, "hybrid": _jax_hybrid,
+             "demo": lambda: run_demo(J)}
+    out = {}
+
+    def run(name):
+        out[name] = tasks[name]()
+    old = threading.stack_size(512 * 1024 * 1024)
+    try:
+        threads = {name: threading.Thread(target=run, args=(name,))
+                   for name in tasks}
+        for t in threads.values():
+            t.start()
+    finally:
+        threading.stack_size(old)
+
+    def get(name):
+        threads[name].join()
+        assert name in out, f"{name} raised (see its thread's traceback)"
+        return out[name]
+    yield get
+    for t in threads.values():
+        t.join()
+
+
+@pytest.fixture(scope="module")
+def rt1_pair(jax_runs):
+    Wj, fj, wj = jax_runs("rt1")
     Wt, ft, at, Lt = _rt1(T)
     load_reference_state({ft: np.asarray(fj.dat)},
                          cell_node_maps={Wt.subspaces[1]:
@@ -176,20 +231,16 @@ def _hybrid_system(fd, n=N):
 
 
 @pytest.fixture(scope="module")
-def hybrid_pair():
+def hybrid_pair(jax_runs):
     """Both packages' hybrid systems, the trace and broken Functions of
     the JAX package carried into the port by interop, and the JAX local
-    tensors of every expression, evaluated with one shared cache."""
-    pj, pt = _hybrid_system(J), _hybrid_system(T)
-    rng = np.random.default_rng(3)
-    pj["lam"].dat = rng.standard_normal(pj["Tr"].dim)
-    pj["sig"].dat = rng.standard_normal(pj["Sb"].dim)
+    tensors of every expression (_jax_hybrid)."""
+    pj, ref = jax_runs("hybrid")
+    pt = _hybrid_system(T)
     load_reference_state(
         {pt[k]: np.asarray(pj[k].dat) for k in ("lam", "sig")},
         cell_node_maps={pt["Tr"]: pj["Tr"].cell_node_map,
                         pt["Sb"]: pj["Sb"].cell_node_map})
-    cache = {}
-    ref = {k: JS._eval_local(e, cache).cell for k, e in pj["exprs"].items()}
     return pt, ref
 
 
@@ -234,8 +285,8 @@ def run_demo(fd):
 
 
 @pytest.fixture(scope="module")
-def demo_pair():
-    return run_demo(J), run_demo(T)
+def demo_pair(jax_runs):
+    return jax_runs("demo"), run_demo(T)
 
 
 def test_hybridized_demo_error_matches_jax(demo_pair):

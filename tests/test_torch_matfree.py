@@ -8,9 +8,13 @@ float64 1e-12 relative to the largest entry; float32 kernels (FDTPU_PREC
 solve is MeshHierarchy(UnitCubeMesh(2), 2), P2 (4,913 dofs), with
 mg_matfree_threshold 200: levels 1 and 2 (729 and 4,913 dofs) are
 matrix-free, level 0 (125 dofs) is assembled for the LU coarse solve."""
+import os
+import threading
+
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 import jax
 import jax.numpy as jnp
 
@@ -40,7 +44,11 @@ def _cpu():
     T.set_device("cpu")
     opt = jax.config.read(NO_OPT)
     jax.config.update(NO_OPT, True)
-    yield
+    # one BLAS thread: with six test workers, numpy's OpenBLAS threads
+    # (one per host core in each worker) made its dense linear algebra
+    # ~20x slower
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     jax.config.update(NO_OPT, opt)
     jax.clear_caches()
     torch.set_num_threads(n)
@@ -250,24 +258,65 @@ def _solve(fd, problem, params):
     return s, uh
 
 
-def test_north_star_miniature_matches_jax(monkeypatch):
-    params = {"mg_matfree_threshold": 200}
-    pj = _north_star(J, 2, 2, 2)
+NORTH_STAR = {"mg_matfree_threshold": 200}
+
+
+class _JaxNorthStar(threading.Thread):
+    """The JAX package's miniature solve, computed in a thread started
+    with the module's first test (XLA compiles it beside the other
+    tests), with a big stack (XLA:CPU's compiler recurses deeply, as
+    tests/conftest.py says of the main thread); ``get()`` waits for it:
+    (iterations, converged, u)."""
+
+    def __init__(self):
+        super().__init__()
+        self.out = None
+        old = threading.stack_size(512 * 1024 * 1024)
+        try:
+            self.start()
+        finally:
+            threading.stack_size(old)
+
+    def run(self):
+        sj, uj = _solve(J, _north_star(J, 2, 2, 2), NORTH_STAR)
+        self.out = (int(sj.ksp_iterations), bool(sj.converged),
+                    np.asarray(uj.dat))
+
+    def get(self):
+        self.join()
+        assert self.out is not None, "the JAX solve raised (see above)"
+        return self.out
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_north_star(_cpu):
+    # the JAX solve as one jitted program (its path at 16M dofs): fewer
+    # compilations than op by op.  Of this module's JAX solves only the
+    # miniature's 4,913 dofs reach the threshold.
+    old = os.environ.get("FDTPU_HOIST_MIN")
+    os.environ["FDTPU_HOIST_MIN"] = "1000"
+    run = _JaxNorthStar()
+    yield run.get
+    run.join()
+    if old is None:
+        os.environ.pop("FDTPU_HOIST_MIN")
+    else:
+        os.environ["FDTPU_HOIST_MIN"] = old
+
+
+def test_north_star_miniature_matches_jax(jax_north_star):
     pt = _north_star(T, 2, 2, 2)
     assert pt[0].dim == 4913
-    # the JAX solve as one jitted program (its path at 16M dofs): fewer
-    # compilations than op by op
-    monkeypatch.setenv("FDTPU_HOIST_MIN", "1000")
-    sj, uj = _solve(J, pj, params)
     K.lowerer_evals = 0
-    st, ut = _solve(T, pt, params)
+    st, ut = _solve(T, pt, NORTH_STAR)
     assert K.lowerer_evals == 0              # every form through K1
     levels = st._gmg.levels
     assert [type(lv["A"]).__name__ for lv in levels] == [
         "StencilMatrix", "DirichletMatrixFree", "DirichletMatrixFree"]
-    assert st.converged and bool(sj.converged)
-    assert st.ksp_iterations == int(sj.ksp_iterations)
-    _close(ut.dat, np.asarray(uj.dat), 1e-10)
+    its, converged, uj = jax_north_star()
+    assert st.converged and converged
+    assert st.ksp_iterations == its
+    _close(ut.dat, uj, 1e-10)
 
 
 def test_matfree_gmg_matches_assembled():

@@ -106,13 +106,17 @@ def test_unported_solver_options_raise():
     u, v = T.TrialFunction(V), T.TestFunction(V)
     a, L = u * v * T.dx, v * T.dx
     for params, item in (({"ksp_type": "cg", "pc_type": "python",
-                           "pc_python_type": "firedrake.CovariancePC"}, 17),
-                         ({"ksp_type": "cg", "pc_type": "python",
                            "pc_python_type": "firedrake.GTMGPC"}, 18),
                          ({"ksp_type": "cg", "pc_type": "hybridization",
                            "distributed": 2}, 20)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             T.solve(a == L, T.Function(V), solver_parameters=params)
+    # CovariancePC is ported: it resolves, and asks for a covariance
+    # operator (held in tests/test_torch_adjoint.py)
+    with pytest.raises(TypeError, match="CovarianceMat"):
+        T.solve(a == L, T.Function(V), solver_parameters={
+            "ksp_type": "cg", "pc_type": "python",
+            "pc_python_type": "firedrake.CovariancePC"})
     # fieldsplit is ported: a plain space is refused as in the JAX package
     with pytest.raises(ValueError, match="mixed space"):
         T.solve(a == L, T.Function(V), solver_parameters={

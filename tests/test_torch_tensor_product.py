@@ -13,6 +13,7 @@ from importlib import import_module
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 import jax
 
 import firedrake_tpu as J
@@ -30,7 +31,11 @@ def _cpu():
     T.set_device("cpu")
     opt = jax.config.read(NO_OPT)
     jax.config.update(NO_OPT, True)
-    yield
+    # one BLAS thread: with six test workers, numpy's OpenBLAS threads
+    # (one per host core in each worker) made its dense linear algebra
+    # ~20x slower
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     jax.config.update(NO_OPT, opt)
     jax.clear_caches()
     torch.set_num_threads(n)
