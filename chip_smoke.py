@@ -57,8 +57,12 @@ failure raises and the exit code is non-zero):
              launch), `call_ms` the time per call of back-to-back calls
              (host and card together); the plain version and (K2)
              torch.linalg.inv by call time.  K2's large variant
-             (33 <= n <= 128) at (65,536, 40, 40) and (16,384, 64, 64), bit
-             for bit with its plain version, timed the same way.  K2's
+             (33 <= n <= 128) at (65,536, 40, 40) and (16,384, 64, 64),
+             float64 and float32, (16,641, 65, 65) and (81, 117, 117), and
+             pivoted at (16,384, 64, 64) float64, bit for bit with its
+             plain version, timed the same way, each row with its launch
+             plan and its exact-arithmetic floor beside the bound (2 n^3
+             nb unfused operations at the vector pipe's rate).  K2's
              huge variant (n > 128, blocked by panels of w = 64 columns)
              on random SPD blocks at n = 129, 256, 513 and the pivoted
              mode of each variant on blocks with a zero leading pivot at
@@ -350,6 +354,10 @@ TET_N = 64                         # UnitCubeMesh of the timed P2-tet K1 row
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = 67e12                 # f32 outside the tensor cores, and f64
                                    # on the tensor cores (data sheet)
+# The FP64 and FP32 vector pipes in unfused operations per second (data
+# sheet: 33.5 and 67 TFLOP/s outside the tensor cores, an FMA counted as
+# two): the floor of a kernel that rounds each product and sum apart.
+VECTOR_OPS_PER_S = {torch.float64: 33.5e12 / 2, torch.float32: 67e12 / 2}
 
 # The GMG solves of the main phase, as built by _gmg_problem.
 GMG = {
@@ -687,14 +695,20 @@ def k1_checks(fd, sp):
 
 
 def _spd(nb, n, seed, dtype):
-    B = np.random.default_rng(seed).standard_normal((nb, n, n))
-    return torch.as_tensor(B @ B.transpose(0, 2, 1) + n * np.eye(n),
-                           dtype=dtype, device="cuda")
+    """B B^T + n I in float64 on the card (B seeded standard normal),
+    then cast."""
+    B = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (nb, n, n)), device="cuda")
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")
+    return (B @ B.transpose(1, 2) + n * eye).to(dtype)
 
 
-def _k2_compare(BI, label, A):
-    out = BI.batched_inv(A)
-    plain = BI.batched_inv_plain(A)
+def _k2_compare(BI, label, A, pivot=False):
+    """K2 against its plain version on A: within F64_TOL (K2_F32_RTOL)
+    max|plain|, and in float64 max|A X - I| < 1e-9 (unpivoted: SPD
+    blocks; pivoted blocks are random, the residual only printed)."""
+    out = BI.batched_inv(A, pivot)
+    plain = BI.batched_inv_plain(A, pivot)
     torch.cuda.synchronize()
     ref = float(plain.abs().max())
     err = float((out - plain).abs().max())
@@ -702,7 +716,7 @@ def _k2_compare(BI, label, A):
     tol = F64_TOL * ref if f64 else K2_F32_RTOL * ref
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     res = float((A @ out - eye).abs().max()) if f64 else float("nan")
-    ok = err <= tol and (not f64 or res < 1e-9)
+    ok = err <= tol and (not f64 or pivot or res < 1e-9)
     print(f"K2 {label:28s} {str(A.dtype)[6:]:8s} shape "
           f"{tuple(A.shape)} err_vs_plain {err:.3e} max|ref| {ref:.3e} "
           f"tol {tol:.3e} max|A X - I| {res:.3e} {'ok' if ok else 'FAIL'}")
@@ -762,47 +776,70 @@ def k2_checks(fd, sp):
     return rows[("P2 star patches 512^2", "float64")]
 
 
+#: the rows of K2's large variant in the kernels phase: (batch, n, dtype,
+#: pivoted); random SPD blocks, pivoted ones random with a zero leading
+#: entry.  (16,641, 65) and (81, 117) are the shapes of the line and
+#: extruded-star patches of the multilevel phase.
+K2_LARGE_ROWS = ((65536, 40, torch.float64, False),
+                 (65536, 40, torch.float32, False),
+                 (16384, 64, torch.float64, False),
+                 (16384, 64, torch.float32, False),
+                 (16641, 65, torch.float64, False),
+                 (81, 117, torch.float64, False),
+                 (16384, 64, torch.float64, True))
+
+
+def _floor_ms(nb, n, dtype):
+    """The exact-arithmetic floor of a batched Gauss-Jordan inverse that
+    rounds every product and difference apart: 2 n^3 nb unfused
+    operations at the vector pipe's rate."""
+    return 1e3 * 2 * n ** 3 * nb / VECTOR_OPS_PER_S[dtype]
+
+
 def k2_large_checks():
     """K2's large variant (33 <= n <= 128) against its plain version on
-    random SPD batches, bit for bit up to signed zeros, and timed beside
-    torch.linalg.inv and its bound.  Returns the (65,536, 40, 40) float64
-    row."""
+    K2_LARGE_ROWS, bit for bit up to signed zeros, and timed beside
+    torch.linalg.inv, its bound and its exact-arithmetic floor.  Returns
+    the (65,536, 40, 40) float64 row."""
     from firedrake_tpu_torch.ops import batched_inverse as BI
     rows = []
-    for nb, n in ((65536, 40), (16384, 64)):
-        for dt in (torch.float64, torch.float32):
-            A = _spd(nb, n, n, dt)
-            err = _k2_compare(BI, f"large n={n}", A)
-            exact = torch.equal(BI.batched_inv(A) + 0.0,
-                                BI.batched_inv_plain(A) + 0.0)
-            print(f"  bit for bit with the plain version: {exact}")
-            if not exact:
-                raise AssertionError(f"K2 large n={n}: not bit for bit")
-            tm = _pair_ms(lambda: BI.batched_inv(A),
-                          lambda: BI.batched_inv_plain(A),
-                          reps=5, plain_reps=2)
-            runs = tm.pop("runs")
-            lib1 = _cuda_ms(lambda: torch.linalg.inv(A), 3, 1)
-            lib2 = _cuda_ms(lambda: torch.linalg.inv(A), 3, 1)
-            bytes_ms = 1e3 * 2 * A.numel() * A.element_size() \
-                / HBM_BYTES_PER_S
-            ops_ms = 1e3 * 2 * n ** 3 * nb / PEAK_FLOPS
-            row = dict(shape=[nb, n, n], dtype=str(dt)[6:], **tm,
-                       library_ms=(lib1 + lib2) / 2,
-                       bound_ms=max(bytes_ms, ops_ms),
-                       bound_by="bytes" if bytes_ms >= ops_ms
-                       else "operations", max_abs_err=err)
-            rows.append(row)
-            print(f"  time K2 large device {tm['ms']:.4f} ms  call "
-                  f"{tm['call_ms']:.4f} ms  plain {tm['plain_ms']:.4f} ms  "
-                  f"torch.linalg.inv {row['library_ms']:.4f} ms  bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})  share "
-                  f"{row['bound_ms'] / tm['ms']:.3f} (runs device/device/"
-                  "call/call/plain/plain/lib/lib "
-                  + "/".join(f"{x:.4f}" for x in runs + (lib1, lib2))
-                  + ")")
-            del A
-            torch.cuda.empty_cache()
+    for nb, n, dt, pivot in K2_LARGE_ROWS:
+        A = _needs_pivots(nb, n, n, dt) if pivot else _spd(nb, n, n, dt)
+        mode = "pivoted " if pivot else ""
+        err = _k2_compare(BI, f"large {mode}n={n}", A, pivot)
+        exact = torch.equal(BI.batched_inv(A, pivot) + 0.0,
+                            BI.batched_inv_plain(A, pivot) + 0.0)
+        plan = dict(BI.large_report)
+        print(f"  bit for bit with the plain version: {exact}; plan {plan}")
+        if not exact:
+            raise AssertionError(f"K2 large {mode}n={n}: not bit for bit")
+        tm = _pair_ms(lambda: BI.batched_inv(A, pivot),
+                      lambda: BI.batched_inv_plain(A, pivot),
+                      reps=5, plain_reps=2)
+        runs = tm.pop("runs")
+        lib1 = _cuda_ms(lambda: torch.linalg.inv(A), 3, 1)
+        lib2 = _cuda_ms(lambda: torch.linalg.inv(A), 3, 1)
+        bytes_ms = 1e3 * 2 * A.numel() * A.element_size() / HBM_BYTES_PER_S
+        ops_ms = 1e3 * 2 * n ** 3 * nb / PEAK_FLOPS
+        row = dict(shape=[nb, n, n], dtype=str(dt)[6:], pivot=pivot, **tm,
+                   library_ms=(lib1 + lib2) / 2,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   floor_ms=_floor_ms(nb, n, dt), max_abs_err=err,
+                   plan=plan)
+        rows.append(row)
+        print(f"  time K2 large {mode}device {tm['ms']:.4f} ms  call "
+              f"{tm['call_ms']:.4f} ms  plain {tm['plain_ms']:.4f} ms  "
+              f"torch.linalg.inv {row['library_ms']:.4f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})  share "
+              f"{row['bound_ms'] / tm['ms']:.3f}  floor "
+              f"{row['floor_ms']:.4f} ms (unfused) share "
+              f"{row['floor_ms'] / tm['ms']:.3f} (runs device/device/"
+              "call/call/plain/plain/lib/lib "
+              + "/".join(f"{x:.4f}" for x in runs + (lib1, lib2))
+              + ")")
+        del A
+        torch.cuda.empty_cache()
     print("k2_large_timings " + json.dumps(rows))
     return rows[0]
 
@@ -2698,19 +2735,23 @@ def _k2_path_row(label, A):
                **tm, library_ms=(lib1 + lib2) / 2,
                bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               max_abs_err=err, max_abs_inv=ref, bit_for_bit=bitwise)
+               floor_ms=_floor_ms(nb, n, A.dtype), max_abs_err=err,
+               max_abs_inv=ref, bit_for_bit=bitwise)
     print(f"K2 on {label}'s blocks {tuple(A.shape)}: err_vs_plain "
           f"{err:.3e} max|inv| {ref:.3e} tol {K2_PATH_RTOL * ref:.3e} "
           f"bit_for_bit {bitwise}; device {tm['ms']:.4f} ms call "
           f"{tm['call_ms']:.4f} ms plain {tm['plain_ms']:.4f} ms "
           f"torch.linalg.inv {row['library_ms']:.4f} ms bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}) share "
-          f"{row['bound_ms'] / tm['ms']:.3f} (runs device/device/call/call/"
-          "plain/plain/lib/lib "
+          f"{row['bound_ms'] / tm['ms']:.3f} floor {row['floor_ms']:.4f} ms "
+          "(unfused) (runs device/device/call/call/plain/plain/lib/lib "
           + "/".join(f"{x:.4f}" for x in runs + (lib1, lib2)) + ")")
     if not err <= K2_PATH_RTOL * ref:
         raise AssertionError(f"K2 on {label}'s blocks disagrees with its "
                              "plain version")
+    if BI.variant(n) == "large" and not bitwise:
+        raise AssertionError(f"K2's large variant on {label}'s blocks is "
+                             "not bit for bit with its plain version")
     return row
 
 
@@ -5449,6 +5490,10 @@ def main():
          "bound_ms": k2_large["bound_ms"],
          "bound_by": k2_large["bound_by"],
          "library_ms": k2_large["library_ms"],
+         # 2 n^3 nb unfused operations at the FP64 pipe's rate, and the
+         # launch plan (R, r, threads, shared memory, blocks per SM)
+         "floor_ms": k2_large["floor_ms"],
+         "plan": k2_large["plan"],
          # on the Vanka patches: stokes_th_vanka_24's solve, and
          # stokes_th_schur_256's operator at full width; on the line
          # patches of linesmooth_q1_ext_128's finest level and the star

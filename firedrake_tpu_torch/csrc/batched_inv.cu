@@ -381,146 +381,297 @@ int launch_bucket(const void* a, void* out, long long nb, int n,
   }
 }
 
-// ------------------------------------------------ 33 <= n <= 128: blocks
-// A row no longer fits a lane's registers, so the large variant keeps
-// the matrices in shared memory, in place as above: one thread per row,
-// floor(128 / n) matrices per block of 128 threads (3 at n = 40, 1 at
-// n = 128; 133 KB of shared memory in float64 at n = 128).  A matrix is
-// stored by columns with a padded stride n + 1, so the threads of a
-// matrix, one per row, touch consecutive words when they sweep a column.
-// Step k has two phases between __syncthreads(): thread i forms entry i
-// of the pivot row times the correctly rounded 1 / pivot and saves entry
-// i of column k; then every thread i != k updates its row with the
-// pivot row (read as a broadcast) and thread k stores it.  Each product
-// and difference is rounded on its own, so the result equals the plain
-// version bit for bit, signed zeros aside.  What bounds it: bytes on
-// paper (each matrix read and written once); in practice shared memory,
-// which every step reads and writes whole (two 8-byte loads and a store
-// per entry in float64, ~5 cycles of the SM's shared-memory bandwidth
-// per warp and entry against ~2 of issue): 4.26 ms at (65,536, 40, 40)
-// float64 on an H100 (chip_smoke.py), against a 0.50 ms byte bound.
-// Grouping each thread's updates by four, loads before stores, gave 4.19
-// ms in another call: not kept.  The first version of this variant, one matrix per block
-// of 256 threads over its n^2 entries, spent its issue slots on index
-// arithmetic and took 8.19 ms.  Rows held in registers, as in the warp
-// variant, would read only the broadcast pivot row.
-// Pivoted mode: a third phase before the two, in which each thread posts
-// |M[i, k]| and every thread of the matrix scans them for the pivot row
-// p; phase one then forms the pivot row from row p and keeps row k, and
-// in phase two thread p eliminates the kept row k into position p.
+// ------------------------------------------------- 33 <= n <= 128: teams
+// A row no longer fits a lane's registers, so the large variant spreads
+// one matrix over a team of P = R^2 threads (one block), each thread an
+// r x r tile in registers, laid out cyclically: thread (tr, tc), tid =
+// tr R + tc, holds rows tr + R a and columns tc + R b (a, b < r).  The
+// launch plan is ops/batched_inverse.py's large_plan: R = 8 (P = 64) for
+// n <= 72, R = 16 (P = 256) above, r = ceil(n / R); the entries past n
+// are zeros that never meet a real one.
+//
+// * One barrier per pivot step.  Step k touches shared memory only for
+//   column k and row k: their owners (the R threads with tc = k mod R,
+//   the R with tr = k mod R) post them to buffers that alternate with
+//   the parity of k, one __syncthreads() orders the posts before the
+//   reads, and every thread reads the pivot, forms the correctly rounded
+//   inv = 1 / pivot and its own r entries of the scaled pivot row, reads
+//   its r entries of column k and updates its tile: 2 n values written
+//   and 2 n^2 / R read per step, where one thread per row over a matrix
+//   in shared memory read and wrote it whole (~3 n^2 accesses).
+// * The plain version's roundings.  Each entry becomes S - c_i piv_j,
+//   the product and the difference rounded apart (no FMA).  Row k takes
+//   c = -1 on a zeroed row (0 - (-1 piv_j) = piv_j exactly) and column k
+//   a zeroed column (0 - c_i inv), so one loop updates the whole tile
+//   and the result equals batched_inv_plain bit for bit, signed zeros
+//   aside.
+// * Registers cannot be indexed at run time, so the tile rotates: after
+//   each pass of R steps every value moves one slot up in both its row
+//   and its column (cyclically), which keeps row k and column k in slot
+//   0, known at compile time; r passes bring the tile back.  The whole
+//   team rotates at once, so the post buffers are indexed by slot and
+//   owner (R slot + tr for column k, R slot + tc for row k) and need no
+//   row numbers.
+// * Loads overlap the elimination.  The grid is persistent (as many
+//   blocks as fit on the SMs); each block walks the batch and copies its
+//   next matrix into shared memory with cp.async (16-byte pieces where
+//   the batch and n^2 values are 16-byte aligned, else one value each)
+//   while it eliminates the current one from registers.  Results leave
+//   from registers: a warp stores R consecutive values of each of 32 / R
+//   rows per instruction, whole 32-byte sectors.
+//
+// Pivoted mode: before the posts of step k the owners of column k each
+// take the first largest |M[i, k]| of their rows k <= i < n, a shuffle
+// reduces it over the warp, and a second barrier orders the warps'
+// candidates before every thread picks p, the first largest (the tie
+// rule of torch.argmax).  The owners of row p post it as the pivot row
+// and those of row k post the old row k, which after the barrier the
+// owners of row p take in place of theirs (its slot is known only at
+// run time: a branch per slot, one taken); thread 0 swaps the row
+// labels, and column j of the result is stored to column lab[j].
+//
+// What bounds it: on paper bytes (each matrix read and written once:
+// 0.50 ms at (65,536, 40, 40) float64 on an H100); with every product and
+// difference rounded apart, also the 2 n^3 unfused float64 operations per
+// matrix at the FP64 pipe's rate (~1.67e13 per second, 0.50 ms there as
+// well).  This design takes 1.17 ms there, where one thread per row over
+// a matrix in shared memory, 128 threads per block, took 4.24 ms, bound by
+// shared memory (scripts/torch_k2_large.py, both in one run).  What holds
+// it now is the chain of each step (barrier, pivot read, reciprocal,
+// scaled row) that eight teams per SM hide only in part: float32, on a
+// pipe twice as fast, is only 1.46x faster, and forming 1 / pivot once
+// in its owner before the barrier (fewer operations, a longer chain) was
+// slower at every shape.
 constexpr int kMaxLargeN = 128;
-constexpr int kLargeThreads = 128;
 
-// The per-matrix values in shared memory: the matrix, the pivot row and
-// column k; pivoted also the magnitudes, the kept row k, the row labels
-// and their inverse.
-__host__ __device__ constexpr int large_msize(int n, bool piv) {
-  return n * (n + 1) + (piv ? 6 : 2) * n;
+// Values of shared memory that hold the staged matrix: n^2 rounded up to
+// whole 16-byte pieces.
+template <typename T>
+__host__ __device__ constexpr int large_stage_len(int n) {
+  return (n * n + 16 / (int)sizeof(T) - 1) / (16 / (int)sizeof(T)) *
+         (16 / (int)sizeof(T));
 }
 
-template <typename T, bool PIV>
-__global__ void __launch_bounds__(kLargeThreads)
-    gj_large_kernel(const T* __restrict__ a, T* __restrict__ out,
-                    long long nb, int n, int per_block) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = n + 1;                     // padded column stride
-  const int msize = large_msize(n, PIV);
-  const int nn = n * n;
-  T* base = reinterpret_cast<T*>(smem_raw);
-  const int m = threadIdx.x / n, i = threadIdx.x - (threadIdx.x / n) * n;
-  const bool active = m < per_block;
-  T* S = base + (size_t)(active ? m : 0) * msize;  // S[j * ld + i] = A_ij
-  T* piv = S + n * ld;                      // pivot row times 1 / pivot
-  T* col = piv + n;                         // column k before step k
-  T* pa = col + n;                          // pivoted: |M[i, k]|
-  T* rowk = pa + n;                         // pivoted: row k before step k
-  T* lab = rowk + n;                        // pivoted: row labels
-  T* ilab = lab + n;                        // pivoted: their inverse
-  for (long long b0 = (long long)blockIdx.x * per_block; b0 < nb;
-       b0 += (long long)gridDim.x * per_block) {
-    const int count = nb - b0 < per_block ? (int)(nb - b0) : per_block;
-    const T* src = a + b0 * nn;
-    for (int e = threadIdx.x; e < count * nn; e += kLargeThreads) {
-      const int mm = e / nn, r = e - mm * nn, ii = r / n, jj = r - ii * n;
-      base[(size_t)mm * msize + jj * ld + ii] = src[e];
-    }
-    if (PIV && active) lab[i] = T(i);
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      int p = k;
-      if (PIV) {
-        if (active) pa[i] = i >= k ? absv(S[k * ld + i]) : T(-1);
-        __syncthreads();
-        if (active) {
-          T bv = pa[k];
-          for (int j = k + 1; j < n; ++j) {
-            const T v = pa[j];
-            if (v > bv) {
-              bv = v;
-              p = j;
-            }
-          }
-        }
-      }
-      if (active) {
-        const T inv = rcp_rn(S[k * ld + p]);
-        // (k, k) of the inverse is 1 * inv
-        piv[i] = i == k ? inv : mul_rn(S[i * ld + p], inv);
-        col[i] = S[k * ld + i];
-        if (PIV && p != k) {
-          rowk[i] = S[i * ld + k];
-          if (i == k) {
-            const T t = lab[k];
-            lab[k] = lab[p];
-            lab[p] = t;
-          }
-        }
-      }
-      __syncthreads();
-      if (active && i == k) {
-        for (int j = 0; j < n; ++j) S[j * ld + i] = piv[j];
-      } else if (PIV && active && i == p) {
-        // row k, swapped into position p, eliminated
-        const T c = col[k];
-        for (int j = 0; j < n; ++j)
-          S[j * ld + i] = sub_rn(j == k ? T(0) : rowk[j], mul_rn(c, piv[j]));
-      } else if (active) {
-        const T c = col[i];
-        // column k holds the inverse's column k from here on: 0 - c * inv
-        S[k * ld + i] = T(0);
-#pragma unroll 4
-        for (int j = 0; j < n; ++j)
-          S[j * ld + i] = sub_rn(S[j * ld + i], mul_rn(c, piv[j]));
-      }
-      __syncthreads();
-    }
-    T* dst = out + b0 * nn;
-    if (PIV) {
-      // column j of the result is the stored column ilab[j]
-      if (active) ilab[(int)lab[i]] = T(i);
-      __syncthreads();
-      for (int e = threadIdx.x; e < count * nn; e += kLargeThreads) {
-        const int mm = e / nn, r = e - mm * nn, ii = r / n, jj = r - ii * n;
-        const T* Sm = base + (size_t)mm * msize;
-        dst[e] = Sm[(int)Sm[n * ld + 5 * n + jj] * ld + ii];
-      }
-    } else {
-      for (int e = threadIdx.x; e < count * nn; e += kLargeThreads) {
-        const int mm = e / nn, r = e - mm * nn, ii = r / n, jj = r - ii * n;
-        dst[e] = base[(size_t)mm * msize + jj * ld + ii];
-      }
-    }
-    __syncthreads();
+// Bytes of shared memory of the large variant (as large_plan computes
+// them): the staged next matrix, column k and row k in two buffers each;
+// pivoted also the old row k, the warps' candidates (values, then rows)
+// in two buffers, and the row labels.
+template <typename T>
+constexpr size_t large_smem(int n, int R, int RT, bool piv) {
+  return (size_t)(large_stage_len<T>(n) + 4 * R * RT +
+                  (piv ? R * RT + R * R / 16 : 0)) * sizeof(T) +
+         (piv ? (size_t)(R * R / 16 + R * RT) * sizeof(int) : 0);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Copy one n x n matrix into shared memory; every thread of the block
+// takes part.
+template <typename T, int P>
+__device__ __forceinline__ void stage_matrix(T* dst, const T* src, int nn,
+                                             int vec16) {
+  constexpr int V = 16 / (int)sizeof(T);
+  if (vec16) {
+    for (int e = threadIdx.x * V; e < nn; e += P * V)
+      cp_async16(dst + e, src + e);
+  } else {
+    for (int e = threadIdx.x; e < nn; e += P)
+      cp_async(dst + e, src + e, (int)sizeof(T));
   }
 }
 
-template <typename T, bool PIV>
-int launch_large(const void* a, void* out, long long nb, int n,
-                 cudaStream_t stream) {
-  const int per_block = kLargeThreads / n;
-  const size_t smem =
-      (size_t)per_block * (size_t)large_msize(n, PIV) * sizeof(T);
-  auto kernel = gj_large_kernel<T, PIV>;
+// Every value one slot up in its row and its column, cyclically.
+template <typename T, int RT>
+__device__ __forceinline__ void rotate_tile(T (&S)[RT][RT]) {
+  T t[RT][RT];
+#pragma unroll
+  for (int x = 0; x < RT; ++x)
+#pragma unroll
+    for (int y = 0; y < RT; ++y)
+      t[x][y] = S[x + 1 < RT ? x + 1 : 0][y + 1 < RT ? y + 1 : 0];
+#pragma unroll
+  for (int x = 0; x < RT; ++x)
+#pragma unroll
+    for (int y = 0; y < RT; ++y) S[x][y] = t[x][y];
+}
+
+template <typename T, int R, int RT, bool PIV>
+__global__ void __launch_bounds__(R * R, R == 8 ? 4 : 1)
+    gj_team_kernel(const T* __restrict__ a, T* __restrict__ out,
+                   long long nb, int n, int vec16) {
+  constexpr int P = R * R, W = P / 32, NBK = R * RT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nn = n * n;
+  T* stage = reinterpret_cast<T*>(smem_raw);
+  T* colb = stage + large_stage_len<T>(n);  // column k, by R slot + tr
+  T* rowb = colb + 2 * NBK;                 // pivot row, by R slot + tc
+  T* rkb = rowb + 2 * NBK;                  // pivoted: the old row k
+  T* candv = rkb + NBK;                     // pivoted: warp candidates
+  int* candi = reinterpret_cast<int*>(candv + 2 * W);
+  int* lab = candi + 2 * W;                 // pivoted: row labels
+  const int tid = threadIdx.x, tr = tid / R, tc = tid - tr * R;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  long long m = blockIdx.x;  // < nb: the grid has at most nb blocks
+  stage_matrix<T, P>(stage, a + m * nn, nn, vec16);
+  cp_async_commit();
+  for (; m < nb; m += gridDim.x) {
+    cp_async_wait_all();
+    __syncthreads();
+    T S[RT][RT];
+#pragma unroll
+    for (int x = 0; x < RT; ++x)
+#pragma unroll
+      for (int y = 0; y < RT; ++y) {
+        const int i = tr + R * x, j = tc + R * y;
+        S[x][y] = i < n && j < n ? stage[i * n + j] : T(0);
+      }
+    if (PIV)
+      for (int j = tid; j < NBK; j += P) lab[j] = j;
+    __syncthreads();  // the matrix is in registers: stage the next one
+    if (m + gridDim.x < nb)
+      stage_matrix<T, P>(stage, a + (m + gridDim.x) * nn, nn, vec16);
+    cp_async_commit();
+
+    int k = 0;
+#pragma unroll 1
+    for (int q = 0; q < RT; ++q) {
+      // in pass q slot s holds rows (columns) tr + R ((s + q) mod RT):
+      // row k and column k sit in slot 0 of their owners
+#pragma unroll 1
+      for (int t = 0; t < R && k < n; ++t, ++k) {
+        T* cb = colb + (k & 1) * NBK;
+        T* rb = rowb + (k & 1) * NBK;
+        const bool rowk = tr == t, colk = tc == t;
+        if (colk) {
+#pragma unroll
+          for (int x = 0; x < RT; ++x) cb[R * x + tr] = S[x][0];
+        }
+        int p = k, xp = 0;  // pivoted: the pivot row and its slot
+        if (PIV) {
+          T* cv = candv + (k & 1) * W;
+          int* ci = candi + (k & 1) * W;
+          T bv = T(-1);
+          int bi = n;
+          if (colk) {
+#pragma unroll
+            for (int x = 0; x < RT; ++x) {
+              const int i = tr + R * (x + q < RT ? x + q : x + q - RT);
+              const T v = absv(S[x][0]);
+              if (i >= k && i < n && (v > bv || (v == bv && i < bi))) {
+                bv = v;
+                bi = i;
+              }
+            }
+          }
+#pragma unroll
+          for (int off = R; off < 32; off <<= 1) {
+            const T ov = __shfl_xor_sync(0xffffffffu, bv, off);
+            const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+            if (ov > bv || (ov == bv && oi < bi)) {
+              bv = ov;
+              bi = oi;
+            }
+          }
+          if (lane == t) {
+            cv[warp] = bv;
+            ci[warp] = bi;
+          }
+          __syncthreads();
+          bv = cv[0];
+          p = ci[0];
+#pragma unroll
+          for (int w = 1; w < W; ++w) {
+            const T v = cv[w];
+            const int i = ci[w];
+            if (v > bv || (v == bv && i < p)) {
+              bv = v;
+              p = i;
+            }
+          }
+          if (p >= n) p = k;  // no candidate (a NaN column): no swap
+          xp = p / R - q;
+          if (xp < 0) xp += RT;
+          if (tid == 0 && p != k) {
+            const int l = lab[k];
+            lab[k] = lab[p];
+            lab[p] = l;
+          }
+          if (tr == p % R) {
+#pragma unroll
+            for (int x = 0; x < RT; ++x)
+              if (x == xp) {
+#pragma unroll
+                for (int y = 0; y < RT; ++y) rb[R * y + tc] = S[x][y];
+              }
+          }
+          if (rowk && p != k) {
+#pragma unroll
+            for (int y = 0; y < RT; ++y) rkb[R * y + tc] = S[0][y];
+          }
+        } else if (rowk) {
+#pragma unroll
+          for (int y = 0; y < RT; ++y) rb[R * y + tc] = S[0][y];
+        }
+        __syncthreads();
+        const T inv = rcp_rn(rb[t]);  // the pivot: column slot 0 of tc = t
+        T piv[RT];
+#pragma unroll
+        for (int y = 0; y < RT; ++y) piv[y] = mul_rn(rb[R * y + tc], inv);
+        if (colk) piv[0] = inv;  // 1 * inv: the inverse's entry (k, k)
+        const bool rowp = PIV && p != k && tr == p % R;
+        if (rowp) {
+          // row p takes the old row k (column k: zeroed below)
+#pragma unroll
+          for (int x = 0; x < RT; ++x)
+            if (x == xp) {
+#pragma unroll
+              for (int y = 0; y < RT; ++y) S[x][y] = rkb[R * y + tc];
+            }
+        }
+        if (rowk) {
+#pragma unroll
+          for (int y = 0; y < RT; ++y) S[0][y] = T(0);
+        }
+        if (colk) {
+#pragma unroll
+          for (int x = 0; x < RT; ++x) S[x][0] = T(0);
+        }
+#pragma unroll
+        for (int x = 0; x < RT; ++x) {
+          // row k: c = -1 on a zeroed row gives the pivot row; row p
+          // (pivoted): the old row k's entry in column k
+          T c = cb[R * x + tr];
+          if (rowp && x == xp) c = cb[t];
+          if (x == 0 && rowk) c = T(-1);
+#pragma unroll
+          for (int y = 0; y < RT; ++y)
+            S[x][y] = sub_rn(S[x][y], mul_rn(c, piv[y]));
+        }
+      }
+      rotate_tile(S);
+    }
+
+    T* dst = out + m * nn;
+#pragma unroll
+    for (int x = 0; x < RT; ++x)
+#pragma unroll
+      for (int y = 0; y < RT; ++y) {
+        const int i = tr + R * x, j = tc + R * y;
+        if (i < n && j < n) dst[i * n + (PIV ? lab[j] : j)] = S[x][y];
+      }
+  }
+}
+
+template <typename T, int R, int RT, bool PIV>
+int launch_team(const void* a, void* out, long long nb, int n, size_t smem,
+                cudaStream_t stream, int* info) {
+  if (smem != large_smem<T>(n, R, RT, PIV)) return -5;
+  auto kernel = gj_team_kernel<T, R, RT, PIV>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -532,15 +683,44 @@ int launch_large(const void* a, void* out, long long nb, int n,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kLargeThreads, smem);
+                                                      R * R, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return -4;
-  const long long chunks = (nb + per_block - 1) / per_block;
   long long blocks = (long long)sms * per_sm;
-  if (blocks > chunks) blocks = chunks;
-  kernel<<<(unsigned)blocks, kLargeThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<T*>(out), nb, n, per_block);
+  if (blocks > nb) blocks = nb;
+  const int vec16 =
+      reinterpret_cast<unsigned long long>(a) % 16 == 0 &&
+      (size_t)n * n * sizeof(T) % 16 == 0;
+  info[0] = per_sm;
+  info[1] = (int)blocks;
+  kernel<<<(unsigned)blocks, R * R, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<T*>(out), nb, n, vec16);
   return (int)cudaGetLastError();
+}
+
+// The plans that large_plan gives: R = 8 with 5 <= r <= 9 (33 <= n <= 72),
+// R = 16 with 5 <= r <= 8 (73 <= n <= 128); any other is refused (-5).
+template <typename T, bool PIV>
+int launch_large(const void* a, void* out, long long nb, int n, int R,
+                 int RT, size_t smem, cudaStream_t s, int* info) {
+  if (R * RT < n) return -5;
+  if (R == 8) {
+    switch (RT) {
+      case 5: return launch_team<T, 8, 5, PIV>(a, out, nb, n, smem, s, info);
+      case 6: return launch_team<T, 8, 6, PIV>(a, out, nb, n, smem, s, info);
+      case 7: return launch_team<T, 8, 7, PIV>(a, out, nb, n, smem, s, info);
+      case 8: return launch_team<T, 8, 8, PIV>(a, out, nb, n, smem, s, info);
+      case 9: return launch_team<T, 8, 9, PIV>(a, out, nb, n, smem, s, info);
+    }
+  } else if (R == 16) {
+    switch (RT) {
+      case 5: return launch_team<T, 16, 5, PIV>(a, out, nb, n, smem, s, info);
+      case 6: return launch_team<T, 16, 6, PIV>(a, out, nb, n, smem, s, info);
+      case 7: return launch_team<T, 16, 7, PIV>(a, out, nb, n, smem, s, info);
+      case 8: return launch_team<T, 16, 8, PIV>(a, out, nb, n, smem, s, info);
+    }
+  }
+  return -5;
 }
 
 // ------------------------------------------------------- n > 128: huge
@@ -1181,16 +1361,25 @@ extern "C" int fdt_batched_inv(int is_double, int pivot, const void* a,
                    : launch_bucket<float, false>(a, out, nb, n, s);
 }
 
+// The large variant under a launch plan (ops/batched_inverse.py:
+// large_plan): R, r and the shared memory in bytes; `info` reports the
+// blocks per SM and the blocks of the grid.
 extern "C" int fdt_batched_inv_large(int is_double, int pivot,
                                      const void* a, void* out, long long nb,
-                                     int n, void* stream) {
-  if (nb <= 0 || n <= kMaxN || n > kMaxLargeN) return -2;
+                                     int n, int R, int RT, long long smem,
+                                     void* stream, int* info) {
+  if (nb <= 0 || n <= kMaxN || n > kMaxLargeN || info == nullptr ||
+      smem <= 0)
+    return -2;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t sm = (size_t)smem;
   if (pivot)
-    return is_double ? launch_large<double, true>(a, out, nb, n, s)
-                     : launch_large<float, true>(a, out, nb, n, s);
-  return is_double ? launch_large<double, false>(a, out, nb, n, s)
-                   : launch_large<float, false>(a, out, nb, n, s);
+    return is_double
+               ? launch_large<double, true>(a, out, nb, n, R, RT, sm, s, info)
+               : launch_large<float, true>(a, out, nb, n, R, RT, sm, s, info);
+  return is_double
+             ? launch_large<double, false>(a, out, nb, n, R, RT, sm, s, info)
+             : launch_large<float, false>(a, out, nb, n, R, RT, sm, s, info);
 }
 
 extern "C" int fdt_batched_inv_huge(int is_double, int pivot, const void* a,

@@ -16,9 +16,14 @@ Role: the dense local inverses behind the patch smoothers
 * CUDA tensors: the hand-written kernel (``csrc/batched_inv.cu``), counted
   in ``kernel_launches``, in one of three variants by n (``variant``):
   4 <= n <= 32 the warp variant (in-place elimination, one row per lane,
-  floor(32 / n) matrices per warp); 33 <= n <= 128 the large variant (in
-  place in shared memory, one thread per row, floor(128 / n) matrices per
-  block; also counted in ``large_launches``); n > 128 the huge variant
+  floor(32 / n) matrices per warp); 33 <= n <= 128 the large variant (one
+  matrix per block of R^2 threads, each thread an r x r tile of it in
+  registers, laid out cyclically; only column k and row k of pivot step
+  k pass through shared memory, with one barrier per step; a persistent
+  grid stages each block's next matrix with cp.async while it eliminates
+  the current one; the plan, R, r and the shared memory, is
+  ``large_plan``'s; also counted in ``large_launches``, the last call's
+  occupancy in ``large_report``); n > 128 the huge variant
   (in place in global memory, Gauss-Jordan blocked by panels of w = 64
   columns: per panel one launch eliminates the panel's columns, one
   copies its rows to scratch and one applies the rank-64 update to the
@@ -63,12 +68,16 @@ huge_kernels = 0
 #: the last huge-variant call's report: kernels launched, panel width w,
 #: sub-panel width b, and whether the sub-panel sat in shared memory
 huge_report = {}
+#: the last large-variant call's plan and occupancy: R, r, threads and
+#: shared memory per block (``large_plan``), blocks per SM, grid blocks
+large_report = {}
 #: launches in the pivoted mode, any variant
 pivot_launches = 0
 #: largest n of the warp variant (a lane holds a row, a warp has 32 lanes)
 WARP_N = 32
-#: largest n of the large variant (its n x (n + 1) block in shared
-#: memory: 133 KB in float64); above it the huge variant
+#: largest n of the large variant (a matrix in the registers of one
+#: block, staged whole in shared memory: 128 KB in float64); above it the
+#: huge variant
 LARGE_N = 128
 
 _SRC = nvcc.source("batched_inv.cu")
@@ -82,6 +91,32 @@ def variant(n):
     if n <= WARP_N:
         return "warp"
     return "large" if n <= LARGE_N else "huge"
+
+
+def large_plan(n, dtype, pivot=False):
+    """The large variant's launch for blocks of size n (33 <= n <= 128):
+    one block of ``threads`` = R^2 threads per matrix, thread (tr, tc)
+    holding the r x r tile of rows tr + R a and columns tc + R b (entries
+    past n are padding), R = 8 to n = 72 and 16 above, r = ceil(n / R);
+    ``smem`` bytes of shared memory (the staged next matrix, n^2 values
+    in whole 16-byte pieces, column k and row k twice; pivoted also the
+    old row k, two sets of warp candidates and the row labels), and
+    ``tile_regs`` 32-bit registers for a thread's tile beside the kernel's
+    ``reg_cap`` (its launch bounds)."""
+    if not WARP_N < n <= LARGE_N:
+        raise ValueError(f"large_plan: n = {n} is outside "
+                         f"{WARP_N + 1}..{LARGE_N}")
+    size = torch.empty((), dtype=dtype).element_size()
+    R = 8 if n <= 72 else 16
+    r = -(-n // R)
+    nbk, threads = R * r, R * R
+    per16 = 16 // size
+    stage = -(-n * n // per16) * per16
+    cand = 2 * threads // 32
+    vals = stage + 4 * nbk + (nbk + cand if pivot else 0)
+    ints = cand + nbk if pivot else 0
+    return dict(R=R, r=r, threads=threads, smem=vals * size + ints * 4,
+                tile_regs=r * r * size // 4, reg_cap=255)
 
 
 def batched_inv_plain(A, pivot=False):
@@ -120,11 +155,15 @@ def build():
     if _lib is not None:
         return 0.0
     lib = nvcc.load(_SRC)
-    for fn in (lib.fdt_batched_inv, lib.fdt_batched_inv_large):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_void_p]
+    lib.fdt_batched_inv.restype = ctypes.c_int
+    lib.fdt_batched_inv.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.fdt_batched_inv_large.restype = ctypes.c_int
+    lib.fdt_batched_inv_large.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.fdt_batched_inv_huge.restype = ctypes.c_int
     lib.fdt_batched_inv_huge.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -138,7 +177,7 @@ def build():
 
 def _launch(A, pivot=False):
     global kernel_launches, large_launches, huge_launches, pivot_launches
-    global huge_kernels, huge_report
+    global huge_kernels, huge_report, large_report
     n = A.shape[-1]
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"batched_inv takes float32/float64, got {A.dtype}")
@@ -175,11 +214,18 @@ def _launch(A, pivot=False):
             huge_kernels += info[0]
             huge_report = dict(kernels=info[0], w=info[1], b=info[2],
                                sub_panel="shared" if info[3] else "global")
+        elif kind == "large":
+            plan = large_plan(n, A.dtype, pivot)
+            info = (ctypes.c_int * 2)()
+            rc = _lib.fdt_batched_inv_large(
+                dbl, int(pivot), A2.data_ptr(), out.data_ptr(), nb, n,
+                plan["R"], plan["r"], plan["smem"], stream, info)
+            large_report = dict(R=plan["R"], r=plan["r"],
+                                threads=plan["threads"], smem=plan["smem"],
+                                blocks_per_sm=info[0], blocks=info[1])
         else:
-            fn = (_lib.fdt_batched_inv_large if kind == "large"
-                  else _lib.fdt_batched_inv)
-            rc = fn(dbl, int(pivot), A2.data_ptr(), out.data_ptr(), nb, n,
-                    stream)
+            rc = _lib.fdt_batched_inv(dbl, int(pivot), A2.data_ptr(),
+                                      out.data_ptr(), nb, n, stream)
     if rc != 0:
         raise RuntimeError(f"batched_inv kernel ({kind} variant, {nb} "
                            f"blocks of n = {n}) launch failed: code {rc}")

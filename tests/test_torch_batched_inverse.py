@@ -221,6 +221,123 @@ def test_pivoted_in_place_order_equals_plain_bit_for_bit(dt):
         assert torch.equal(ours, ref), n
 
 
+#: shared memory a block can have on an H100 (227 KB)
+SMEM_PER_BLOCK = 232448
+
+
+@pytest.mark.parametrize("pivot", [False, True])
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_large_plan_covers_every_n(dt, pivot):
+    """The large variant's launch plan for every n it takes: R^2 threads
+    (whole warps) whose cyclic r x r tiles give each entry (i, j) of the
+    n x n matrix exactly one owner (thread and slot), the fewest passes
+    of R pivot steps that reach n, shared memory that holds the staged
+    matrix and stays within the 227 KB a block can have, and a tile
+    that leaves room for the scaled pivot row within the register cap."""
+    size = torch.empty((), dtype=dt).element_size()
+    for n in range(BI.WARP_N + 1, BI.LARGE_N + 1):
+        plan = BI.large_plan(n, dt, pivot)
+        R, r, P = plan["R"], plan["r"], plan["threads"]
+        assert P == R * R and P % 32 == 0 and P <= 1024, n
+        assert R * (r - 1) < n <= R * r, n
+        # the entry of every (thread, slot a, slot b): (tr, tc, a, b)
+        tr, tc, a, b = np.meshgrid(*(np.arange(m) for m in (R, R, r, r)),
+                                   indexing="ij")
+        i, j = tr + R * a, tc + R * b
+        inside = (i < n) & (j < n)
+        owners = np.bincount((i * n + j)[inside], minlength=n * n)
+        assert (owners == 1).all(), n
+        assert n * n * size < plan["smem"] <= SMEM_PER_BLOCK, n
+        assert plan["tile_regs"] == r * r * size // 4
+        assert plan["tile_regs"] + r * size // 4 <= plan["reg_cap"] - 32, n
+    with pytest.raises(ValueError, match="outside"):
+        BI.large_plan(BI.LARGE_N + 1, dt)
+
+
+def _tiled_gj(A, pivot=False):
+    """One team of the large variant in torch, for every matrix of the
+    batch: thread (tr, tc) holds the tile S[:, tr, tc] of rows tr + R x
+    and columns tc + R y (``large_plan``), rotated one slot up in both
+    after each pass of R steps, so that row k and column k sit in slot
+    0.  At step k the owners of column k post it (by R x + tr) and those
+    of row k, pivoted of row p, post it (by R y + tc); each thread reads
+    the pivot, forms inv = 1 / pivot and its own entries of the pivot row
+    times inv, then updates its tile with c = -1 on a zeroed row k and a
+    zeroed column k.  Pivoted, p is the first largest |M[i, k]| over
+    k <= i < n, row p's owners take the posted old row k with c the old
+    M[k, k], the row labels swap, and stored column j is the result's
+    column of label j."""
+    nb, n = A.shape[0], A.shape[-1]
+    plan = BI.large_plan(n, A.dtype, pivot)
+    R, r = plan["R"], plan["r"]
+    nbk = R * r
+    Mp = torch.zeros(nb, nbk, nbk, dtype=A.dtype)
+    Mp[:, :n, :n] = A
+    # S[m, tr, tc, x, y] = M[m, tr + R x, tc + R y]
+    S = Mp.reshape(nb, r, R, r, R).permute(0, 2, 4, 1, 3).clone()
+    bi = torch.arange(nb)
+    lab = torch.arange(nbk).repeat(nb, 1)
+    k = 0
+    for q in range(r):
+        for t in range(min(R, n - k)):
+            cb = S[:, :, t, :, 0].transpose(1, 2).reshape(nb, nbk)
+            p = torch.full((nb,), k)
+            if pivot:
+                rows = torch.arange(R)[:, None] \
+                    + R * ((torch.arange(r)[None, :] + q) % r)
+                v = torch.where((rows >= k) & (rows < n),
+                                S[:, :, t, :, 0].abs(), -1.0)
+                best = v.reshape(nb, -1).max(dim=1).values
+                p = torch.where(v == best[:, None, None], rows, n) \
+                    .reshape(nb, -1).min(dim=1).values
+                tp, xp = p % R, (p // R - q) % r
+                lk = lab[:, k].clone()
+                lab[:, k] = lab[bi, p]
+                lab[bi, p] = lk
+                rb = S[bi, tp, :, xp, :].transpose(1, 2).reshape(nb, nbk)
+                rkb = S[:, t, :, 0, :].clone()
+            else:
+                rb = S[:, t, :, 0, :].transpose(1, 2).reshape(nb, nbk)
+            inv = 1.0 / rb[:, t]
+            piv = rb.reshape(nb, r, R).transpose(1, 2) * inv[:, None, None]
+            piv[:, t, 0] = inv
+            c = cb.reshape(nb, r, R).transpose(1, 2).clone()
+            if pivot:
+                sw = bi[p != k]
+                S[sw, tp[sw], :, xp[sw], :] = rkb[sw]
+                c[sw, tp[sw], xp[sw]] = cb[sw, t]
+            c[:, t, 0] = -1.0
+            S[:, t, :, 0, :] = 0.0
+            S[:, :, t, :, 0] = 0.0
+            S = S - c[:, :, None, :, None] * piv[:, None, :, None, :]
+            k += 1
+        S = S.roll(shifts=(-1, -1), dims=(3, 4))
+    M = S.permute(0, 3, 1, 4, 2).reshape(nb, nbk, nbk)[:, :n, :n]
+    if not pivot:
+        return M
+    out = torch.empty_like(M)
+    out[bi[:, None], :, lab[:, :n]] = M.transpose(1, 2)
+    return out
+
+
+@pytest.mark.parametrize("pivot", [False, True])
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_tiled_team_equals_plain_bit_for_bit(dt, pivot):
+    """The large variant's tiled steps (``_tiled_gj``) give the plain
+    version's numbers bit for bit, signed zeros aside: at n = 33 and 65
+    (R = 8, r = 5 and 9: the last pass cut short) and 117 (R = 16, r =
+    8), on SPD blocks unpivoted and on blocks that need pivots."""
+    for n in (33, 65, 117):
+        if pivot:
+            A = torch.as_tensor(_needs_pivots((3,), n, seed=500 + n),
+                                dtype=dt)
+        else:
+            A = torch.as_tensor(_spd((3,), n, seed=500 + n), dtype=dt)
+        ours = _tiled_gj(A, pivot) + 0.0
+        ref = BI.batched_inv_plain(A, pivot) + 0.0
+        assert torch.equal(ours, ref), n
+
+
 def _rank_update(S, rows, cols, Q, R):
     """Columns ``cols`` of S become (S with ``rows`` zeroed) + Q R, summed
     in float64 and rounded once (the kernel sums its rank updates in

@@ -162,19 +162,48 @@ def test_batched_inv_matches_plain_on_card(on_cuda, dtype, rtol, atol):
         assert err <= rtol * float(ref.abs().max()) + atol, err
 
 
+def _ragged(n):
+    """Batch sizes that fill no warp, team, block or grid: 1 and 3, and
+    for the warp variant 4097; for the large variant three blocks past a
+    full grid (the blocks per SM that its last launch, at this n and
+    dtype, reported, times the SMs)."""
+    yield 1
+    yield 3
+    if BI.variant(n) == "warp":
+        yield 4097
+    else:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        yield BI.large_report["blocks_per_sm"] * sms + 3
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_batched_inv_every_n_and_ragged_batches_on_card(on_cuda, dtype):
-    """Every n of the warp variant and some of the large one, at batch
-    sizes that fill no warp, chunk or grid: the kernel rounds as the plain
-    version does, so the two are equal (signed zeros cleared by adding
-    0.0)."""
-    for n in list(range(4, 33)) + [33, 40, 64, 100, 128]:
-        for nb in (1, 3, 4097):
+    """Every n of the warp and large variants (4 to 128), at batch sizes
+    that fill no warp, team, block or grid: the kernel rounds as the
+    plain version does, so the two are equal (signed zeros cleared by
+    adding 0.0)."""
+    for n in range(4, BI.LARGE_N + 1):
+        for nb in _ragged(n):
             B = np.random.default_rng(n * nb).standard_normal((nb, n, n))
             A = torch.as_tensor(B @ B.transpose(0, 2, 1) + n * np.eye(n),
                                 dtype=dtype, device="cuda")
             out = BI.batched_inv(A) + 0.0
             ref = BI.batched_inv_plain(A) + 0.0
+            assert torch.equal(out, ref), (n, nb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_inv_large_pivoted_every_n_on_card(on_cuda, dtype):
+    """The large variant's pivoted mode at every n from 33 to 128, on
+    blocks with a zero leading entry at the same ragged batch sizes: bit
+    for bit with the pivoted plain version, signed zeros aside."""
+    for n in range(BI.WARP_N + 1, BI.LARGE_N + 1):
+        for nb in _ragged(n):
+            A = _needs_pivots(nb, n, n * nb + 1, dtype)
+            p0 = BI.pivot_launches
+            out = BI.batched_inv(A, pivot=True) + 0.0
+            assert BI.pivot_launches == p0 + 1
+            ref = BI.batched_inv_plain(A, pivot=True) + 0.0
             assert torch.equal(out, ref), (n, nb)
 
 
