@@ -417,7 +417,10 @@ CPU_REHEARSAL_ITS = {"gmg_p1_1m": 10, "gmg_star_p2_1m": 6,
                      # FAS cycles at 64^2 (the card's at 1024^2 at most
                      # 3 more)
                      "pmg_p4_256": 12, "linesmooth_q1_ext_128": 5,
-                     "fdm_q4_256": 10, "fas_bratu_p1_1024": 11}
+                     "fdm_q4_256": 10, "fas_bratu_p1_1024": 11,
+                     # the meshio phase: CG iterations on the gmsh file's
+                     # mesh (within 1%)
+                     "gmsh_helmholtz_p1_1024": 5712}
 
 
 def phase(name):
@@ -1322,7 +1325,11 @@ def _neumann_problem(fd, level):
     """-lap u + u = f on UnitDiskMesh(level), du/dn = g: exact u =
     cos(pi x) cos(pi y), f = (1 + 2 pi^2) u interpolated into P1, g =
     grad(u) . n with the discrete normal (exact on the polygon)."""
-    mesh = fd.UnitDiskMesh(level)
+    return _neumann_on(fd, fd.UnitDiskMesh(level))
+
+
+def _neumann_on(fd, mesh):
+    """The Neumann Helmholtz problem of _neumann_problem on `mesh`."""
     V = fd.FunctionSpace(mesh, "CG", 1)
     u, v = fd.TrialFunction(V), fd.TestFunction(V)
     x, y = fd.SpatialCoordinate(mesh)
@@ -2004,7 +2011,9 @@ def cpu_study(labels):
     labels = labels or list(GATHER) + ["newton_p1_1m", "krylov_p1_1m",
                                        "poisson_mixed_rt1_256"] \
         + list(SLATE_LABELS) + list(EXTRUDED_STUDY) \
-        + ["stokes_th_schur_256"] + list(ML_STUDY) + ["eigen_p1_512"]
+        + ["stokes_th_schur_256"] + list(ML_STUDY) + ["eigen_p1_512",
+                                                       "gmsh_helmholtz_p1_1024"]
+    meshio_cpu(labels, "cpu_study", study=True)
     multilevel_cpu([lb for lb in ML_STUDY if lb in labels], "cpu_study",
                    study=True)
     ddm_cpu(labels, "cpu_study", study=True)
@@ -2049,7 +2058,8 @@ def cpu_rehearsal(labels):
     labels = labels or list(GMG) + list(GATHER) + list(NONLINEAR_LABELS) \
         + ["dg_advection_512"] + list(SLATE_LABELS) + list(EXTRUDED_LABELS) \
         + list(FIELDSPLIT_LABELS) + list(MULTILEVEL_LABELS) \
-        + ["deflation_bratu_p1_1024"]
+        + ["deflation_bratu_p1_1024", "gmsh_helmholtz_p1_1024"]
+    meshio_cpu(labels, "cpu_rehearsal")
     multilevel_cpu([lb for lb in labels if lb in MULTILEVEL_LABELS],
                    "cpu_rehearsal")
     ddm_cpu(labels, "cpu_rehearsal")
@@ -2064,7 +2074,8 @@ def cpu_rehearsal(labels):
         if label in NONLINEAR_LABELS or label in SLATE_LABELS \
                 or label in EXTRUDED_LABELS or label in FIELDSPLIT_LABELS \
                 or label in MULTILEVEL_LABELS \
-                or label == "deflation_bratu_p1_1024":
+                or label in ("deflation_bratu_p1_1024",
+                             "gmsh_helmholtz_p1_1024"):
             continue
         if label == "dg_advection_512":
             t0 = time.perf_counter()
@@ -2483,6 +2494,8 @@ HYB_N, SCPC_N, SCPC_DEG = 256, 128, 5
 # 126.6 s on two card hosts (my chip runs, PR 13), too much of the
 # script's time limit
 SCPC_CPU_N = 64
+# the hybridized LU solve held to the CPU in this process at this size
+HYB_CPU_N = 128
 HYB_LU = {"ksp_type": "preonly", "pc_type": "hybridization",
           "hybridization": {"ksp_type": "preonly"}}
 HYB_CG = {"ksp_type": "preonly", "pc_type": "hybridization",
@@ -2759,7 +2772,7 @@ def hybridized_run(fd):
     """hybridized_rt2_256 on the card: the demo's preonly + lu solve, then
     CG + Jacobi on the trace system, each timed by stage with CUDA events;
     K2 held to its plain version on the path's own blocks; the LU solve
-    repeated on the CPU in this process."""
+    at HYB_CPU_N^2 on the card held to the CPU in this process."""
     label = "hybridized_rt2_256"
     torch.cuda.reset_peak_memory_stats()
     p, setup_s = _sync_time(lambda: _hybrid_problem(fd, HYB_N))
@@ -2785,23 +2798,25 @@ def hybridized_run(fd):
     err = _slate_error(fd, label, p)
     ref = float(lu["w"].dat.abs().max())
     cg_diff = float((cg["w"].dat - lu["w"].dat).abs().max()) / ref
-    # the same LU solve on the CPU, in this process
+    # the LU solve at HYB_CPU_N on the card and on the CPU, in this process
+    w_small, _ = _hybrid_solve(fd, _hybrid_problem(fd, HYB_CPU_N), HYB_LU)
     fd.set_device("cpu")
     t0 = time.perf_counter()
     try:
-        w_cpu, _ = _hybrid_solve(fd, _hybrid_problem(fd, HYB_N), HYB_LU)
+        w_cpu, _ = _hybrid_solve(fd, _hybrid_problem(fd, HYB_CPU_N), HYB_LU)
     finally:
         fd.set_device(torch.device("cuda"))
     cpu_s = time.perf_counter() - t0
-    cpu_diff = float((lu["w"].dat.cpu() - w_cpu.dat).abs().max()) / float(
+    cpu_diff = float((w_small.dat.cpu() - w_cpu.dat).abs().max()) / float(
         w_cpu.dat.abs().max())
     its, want = cg["solver"].ksp_iterations, CPU_REHEARSAL_ITS[label]
     print(f"{label}: dofs {W.subspaces[0].dim} + {W.subspaces[1].dim} = "
           f"{W.dim} setup_s {setup_s:.3f} first_solve_s {lu['secs']:.3f} "
           f"second_solve_s {cg['secs']:.3f} cg_iterations {its} (CPU "
           f"rehearsal {want}) l2_err_u {err:.4e} (bound "
-          f"{SLATE_ERR[label]}) cg_vs_lu {cg_diff:.3e} card_vs_cpu "
-          f"{cpu_diff:.3e} (cpu solve_s {cpu_s:.1f}) device_peak {peak} "
+          f"{SLATE_ERR[label]}) cg_vs_lu {cg_diff:.3e} card_vs_cpu at "
+          f"{HYB_CPU_N}^2 {cpu_diff:.3e} (cpu solve_s {cpu_s:.1f}) "
+          f"device_peak {peak} "
           f"k1_launches {counts.k1} k2_launches {counts.k2} lowerer_evals "
           f"{counts.lowerer}")
     if not lu["w"].dat.is_cuda:
@@ -5411,6 +5426,411 @@ def adjoint_phase():
     return used
 
 
+# ------------------------------------------------------------ the meshio phase
+# gmsh_helmholtz_p1_1024: the unit square cut into MESHIO_N^2 squares of two
+# triangles each, the interior vertices moved by up to MESHIO_JITTER h in
+# each coordinate (a seeded generator), so the mesh takes the gather route;
+# written as an ASCII gmsh v4.1 file and read back through Mesh().  The
+# Neumann Helmholtz problem of neumann_helmholtz_disk is solved on it; the
+# bounds on its nodal and L2 errors are twice the --cpu-study extrapolation
+# (from 64 to 512 the nodal error falls 3.71-3.81x per level, the L2 error
+# 3.99-4.02x; PERF.md).  Then
+# the same mesh as an Exodus II file; points_1m: a million seeded points
+# located and evaluated, a VertexOnlyMesh on them and a cross-mesh
+# interpolation onto P1 of UnitSquareMesh(XMESH_N).
+MESHIO_N = 1024
+MESHIO_JITTER = 0.2
+MESHIO_SEED = 17
+MESHIO = dict(study=(64, 128, 256, 512), nodal=3.2e-5, l2=1.4e-5)
+POINTS_N = 1_000_000
+POINTS_CPU = 10_000                # the subset also located on the CPU
+XMESH_N = 512
+POINT_STAGES = (("host_candidates", "firedrake_tpu_torch.pointeval",
+                 "_candidates"),
+                ("host_ball", "firedrake_tpu_torch.pointeval",
+                 "_ball_candidates"),
+                ("device_inversion", "firedrake_tpu_torch.pointeval",
+                 "_containing"),
+                ("evaluate", "firedrake_tpu_torch.pointeval", "evaluate"))
+
+
+def _jittered_square(n, jitter=MESHIO_JITTER, seed=MESHIO_SEED):
+    """(vertices, cells, cell tags, boundary edge blocks) of the unit square
+    cut into n^2 squares of two triangles: the interior vertices moved by
+    up to jitter/n in each coordinate, a cell tagged 1 where its centroid
+    has x < 0.5 and 2 elsewhere (region 1's cells first), the boundary
+    edges in blocks tagged as UnitSquareMesh's (1: x = 0, 2: x = 1, 3: y =
+    0, 4: y = 1)."""
+    h = 1.0 / n
+    ix, iy = (a.ravel() for a in np.meshgrid(np.arange(n + 1),
+                                             np.arange(n + 1)))
+    xy = np.stack([ix * h, iy * h], axis=1)
+    inner = (ix > 0) & (ix < n) & (iy > 0) & (iy < n)
+    rng = np.random.default_rng(seed)
+    xy[inner] += rng.uniform(-jitter * h, jitter * h, (int(inner.sum()), 2))
+    vid = lambda i, j: j * (n + 1) + i
+    a, b = (t.ravel() for t in np.meshgrid(np.arange(n), np.arange(n)))
+    v00, v10, v11, v01 = vid(a, b), vid(a + 1, b), vid(a + 1, b + 1), \
+        vid(a, b + 1)
+    cells = np.stack([np.stack([v00, v10, v11], 1),
+                      np.stack([v00, v11, v01], 1)], 1).reshape(-1, 3)
+    tags = np.where(xy[cells].mean(axis=1)[:, 0] < 0.5, 1, 2)
+    order = np.argsort(tags, kind="stable")
+    k = np.arange(n)
+    edges = [(np.stack([vid(0, k), vid(0, k + 1)], 1), 1),
+             (np.stack([vid(n, k), vid(n, k + 1)], 1), 2),
+             (np.stack([vid(k, 0), vid(k + 1, 0)], 1), 3),
+             (np.stack([vid(k, n), vid(k + 1, n)], 1), 4)]
+    return xy, cells[order], tags[order], edges
+
+
+def _write_rows(fh, fmt, rows, chunk=1 << 16):
+    """Rows of a 2D array through one %-format per row, in chunks."""
+    for s in range(0, len(rows), chunk):
+        r = rows[s:s + chunk]
+        fh.write((fmt * len(r)) % tuple(r.ravel().tolist()))
+
+
+def _write_gmsh41(path, xy, cells, tags, edges):
+    """An ASCII gmsh v4.1 file: curves 1-4 and surfaces 1-2, each its own
+    physical group; one node block; the boundary lines, then each region's
+    triangles."""
+    nn, nc = len(xy), len(cells)
+    nb = sum(len(e) for e, _ in edges)
+    with open(path, "w") as fh:
+        fh.write("$MeshFormat\n4.1 0 8\n$EndMeshFormat\n$Entities\n0 4 2 0\n")
+        for k in (1, 2, 3, 4):
+            fh.write(f"{k} 0 0 0 1 1 0 1 {k} 0\n")
+        for k in (1, 2):
+            fh.write(f"{k} 0 0 0 1 1 0 1 {k} 0\n")
+        fh.write(f"$EndEntities\n$Nodes\n1 {nn} 1 {nn}\n2 1 0 {nn}\n")
+        _write_rows(fh, "%d\n", np.arange(1, nn + 1)[:, None])
+        _write_rows(fh, "%.17g %.17g 0\n", xy)
+        fh.write(f"$EndNodes\n$Elements\n6 {nb + nc} 1 {nb + nc}\n")
+        eid = 1
+        blocks = [(1, t, 1, e) for e, t in edges] + \
+            [(2, t, 2, cells[tags == t]) for t in (1, 2)]
+        for edim, tag, etype, conn in blocks:
+            fh.write(f"{edim} {tag} {etype} {len(conn)}\n")
+            ids = np.arange(eid, eid + len(conn))[:, None]
+            _write_rows(fh, "%d" + " %d" * conn.shape[1] + "\n",
+                        np.hstack([ids, conn + 1]))
+            eid += len(conn)
+        fh.write("$EndElements\n")
+
+
+def _write_exodus(path, xy, cells, tags, edges):
+    """The same mesh as an Exodus II file: element blocks 1 and 2 (the
+    regions, in the gmsh file's cell order) and side sets 1-4 (each
+    boundary edge as its triangle's local side)."""
+    from scipy.io import netcdf_file
+    from firedrake_tpu_torch.mesh.io_msh import match_rows
+    sides = np.sort(cells[:, [[0, 1], [1, 2], [2, 0]]], axis=2).reshape(-1, 2)
+    nc = netcdf_file(path, "w")
+    nc.createDimension("num_dim", 2)
+    nc.createDimension("num_nodes", len(xy))
+    nc.createDimension("num_elem", len(cells))
+    nc.createDimension("num_el_blk", 2)
+    nc.createDimension("num_side_sets", len(edges))
+    for k, ax in enumerate(("coordx", "coordy")):
+        nc.createVariable(ax, "d", ("num_nodes",))[:] = xy[:, k]
+    nc.createVariable("eb_prop1", "i", ("num_el_blk",))[:] = [1, 2]
+    for b in (1, 2):
+        conn = cells[tags == b] + 1
+        nc.createDimension(f"num_el_in_blk{b}", len(conn))
+        nc.createDimension(f"num_nod_per_el{b}", 3)
+        var = nc.createVariable(f"connect{b}", "i", (
+            f"num_el_in_blk{b}", f"num_nod_per_el{b}"))
+        var.elem_type = "TRI3"
+        var[:] = conn
+    nc.createVariable("ss_prop1", "i", ("num_side_sets",))[:] = \
+        [t for _, t in edges]
+    for s, (e, _) in enumerate(edges, start=1):
+        at = match_rows(sides, np.sort(e, axis=1))
+        nc.createDimension(f"num_side_ss{s}", len(e))
+        nc.createVariable(f"elem_ss{s}", "i", (f"num_side_ss{s}",))[:] = \
+            at // 3 + 1
+        nc.createVariable(f"side_ss{s}", "i", (f"num_side_ss{s}",))[:] = \
+            at % 3 + 1
+    nc.close()
+
+
+def _meshio_file(tmp, n):
+    """Write the jittered square at n as a gmsh v4.1 file in `tmp`:
+    (path, seconds, the arrays)."""
+    import os
+    arrays = _jittered_square(n)
+    path = os.path.join(tmp, f"square_{n}.msh")
+    t = time.perf_counter()
+    _write_gmsh41(path, *arrays)
+    return path, time.perf_counter() - t, arrays
+
+
+def _meshio_tmp():
+    """A temporary directory in the checkout's build directory."""
+    import os
+    import tempfile
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "firedrake_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    return tempfile.TemporaryDirectory(prefix="meshio_", dir=build)
+
+
+def _same_mesh(a, b):
+    """Cells, coordinates and both marker arrays bit for bit."""
+    return all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in (
+        (a.topology.cell_vertices, b.topology.cell_vertices),
+        (a._vertex_coords, b._vertex_coords),
+        (a.cell_markers, b.cell_markers),
+        (a.facet_markers, b.facet_markers)))
+
+
+def _meshio_measures(fd, mesh):
+    """The tags' measures: each boundary side 1, both regions 1 together,
+    region 1 the area of its tagged cells summed in numpy (within 1e-12).
+    Returns the largest deviation."""
+    one = fd.Constant(1.0)
+    dev = {f"ds({k})": abs(fd.assemble(one * fd.ds(k, domain=mesh)) - 1)
+           for k in (1, 2, 3, 4)}
+    a1 = fd.assemble(one * fd.dx(1, domain=mesh))
+    a2 = fd.assemble(one * fd.dx(2, domain=mesh))
+    p = mesh._vertex_coords[mesh.topology.cell_vertices]
+    e1, e2 = p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]
+    area = 0.5 * np.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0])
+    dev["dx(1)+dx(2)"] = abs(a1 + a2 - 1)
+    dev["dx(1)"] = abs(a1 - area[mesh.cell_markers == 1].sum())
+    print("  measures: " + " ".join(f"{k} {v:.3e}" for k, v in dev.items()))
+    return max(dev.values())
+
+
+def meshio_solve(fd, mesh, label):
+    """The Neumann Helmholtz solve on the file mesh, counted over set-up,
+    assembly and solve; K1 held to its plain version on the route's inputs
+    of a and L after it.  Returns the counts, the problem and the gates
+    that failed."""
+    from firedrake_tpu_torch.assemble import get_assembler
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")     # a non-converged solve warns
+        with _Counts() as counts:
+            p, setup_s = _sync_time(lambda: _neumann_on(fd, mesh))
+            _, cold_s = _sync_time(lambda: (fd.assemble(p["a"]),
+                                            fd.assemble(p["L"])))
+            _, solve_s = _sync_time(p["solver"].solve)
+    asm = get_assembler(p["a"])
+    for form in (p["a"], p["L"]):
+        _route_k1_checks(get_assembler(form), label)
+    solver, uh = p["solver"], p["uh"]
+    its = solver.ksp_iterations
+    nodal, l2 = _gather_errors(fd, p)
+    want = CPU_REHEARSAL_ITS.get(label)
+    cfg = MESHIO
+    print(f"{label}: dofs {uh.function_space().dim} route "
+          f"{'stencil' if asm._stencil is not None else 'gather'} setup_s "
+          f"{setup_s:.3f} assembly_cold_s {cold_s:.3f} solve_s "
+          f"{solve_s:.4f} iterations {its} (CPU rehearsal {want}) "
+          f"ms_per_iteration {1e3 * solve_s / max(its, 1):.4f} converged "
+          f"{solver.converged} max_nodal_err {nodal:.4e} (bound "
+          f"{cfg['nodal']}) l2_err {l2:.4e} (bound {cfg['l2']}) on "
+          f"{uh.dat.device} k1_launches {counts.k1} lowerer_evals "
+          f"{counts.lowerer}")
+    failed = [msg for bad, msg in (
+        (not uh.dat.is_cuda, "solution is not on the card"),
+        (asm._stencil is not None, "the file mesh took the stencil route"),
+        (not solver.converged, "solve did not converge"),
+        (counts.k1 <= 0 or counts.lowerer, "cell integrals bypassed K1"),
+        (want is None or abs(its - want) > 0.01 * want,
+         f"{its} iterations, the CPU rehearsal took {want}"),
+        (not (nodal < cfg["nodal"] and l2 < cfg["l2"]),
+         f"errors {nodal}, {l2} above bounds")) if bad]
+    return counts, p, [f"{label}: {m}" for m in failed]
+
+
+def _query_points(mesh, seed=MESHIO_SEED):
+    """POINTS_N seeded points: 32 vertices and 32 facet midpoints of the
+    mesh, 16 outside the square and the rest uniform inside it, the 80 at
+    seeded places.  Returns the points and the places of the 80 (the
+    outside ones last)."""
+    rng = np.random.default_rng(seed + 1)
+    vc = mesh._vertex_coords
+    fv = mesh.topology.facet_vertices
+    vert = vc[rng.choice(len(vc), 32, replace=False)]
+    mid = vc[fv[rng.choice(len(fv), 32, replace=False)]].mean(axis=1)
+    t = rng.uniform(0, 2 * np.pi, 16)
+    out = 0.5 + (0.75 + 0.5 * rng.random(16))[:, None] * np.stack(
+        [np.cos(t), np.sin(t)], axis=1)
+    pts = rng.random((POINTS_N, 2))
+    where = rng.choice(POINTS_N, 80, replace=False)
+    pts[where] = np.concatenate([vert, mid, out])
+    return pts, where
+
+
+def points_run(fd, mesh, uh, label):
+    """points_1m: uh.at on a million points (the host's candidate search
+    and the device's inversion apart), a CPU run on a 10,000-point subset
+    in the same process, a VertexOnlyMesh with its input-ordering round
+    trip and a misfit functional, and uh interpolated onto P1 of
+    UnitSquareMesh(XMESH_N)."""
+    from firedrake_tpu_torch import pointeval as PE
+    from firedrake_tpu_torch.device import to_numpy
+    pts, where = _query_points(mesh)
+    outside = np.zeros(POINTS_N, dtype=bool)
+    outside[where[64:]] = True
+    with _Counts() as counts, _StageTimes(POINT_STAGES) as st:
+        vals, at_s = _sync_time(lambda: uh.at(pts, dont_raise=True))
+    x, y = pts[:, 0], pts[:, 1]
+    exact = np.cos(np.pi * x) * np.cos(np.pi * y)
+    fv = mesh.topology.facet_vertices
+    hmax = float(np.linalg.norm(mesh._vertex_coords[fv[:, 1]]
+                                - mesh._vertex_coords[fv[:, 0]],
+                                axis=1).max())
+    bound = MESHIO["nodal"] + 0.5 * np.pi ** 2 * hmax ** 2
+    err = float(np.abs(vals[~outside] - exact[~outside]).max())
+    host_s = st.secs["host_candidates"] + st.secs["host_ball"]
+    print(f"{label}: points {POINTS_N} at_s {at_s:.3f} locate_s "
+          f"{host_s + st.secs['device_inversion']:.3f} (host candidate "
+          f"search {host_s:.3f}: first pass "
+          f"{st.secs['host_candidates']:.3f}, whole ball "
+          f"{st.secs['host_ball']:.3f} for {len(st.results['host_ball'])} "
+          f"call(s); device inversion {st.secs['device_inversion']:.3f}) "
+          f"eval_ms {1e3 * st.secs['evaluate']:.3f} not_found "
+          f"{int(np.isnan(vals).sum())} max|u_h(p) - u(p)| {err:.4e} "
+          f"(bound {bound:.4e}: nodal {MESHIO['nodal']} + pi^2 hmax^2 / 2, "
+          f"hmax {hmax:.4e}) k1_launches {counts.k1}")
+    if not np.array_equal(np.isnan(vals), outside):
+        raise AssertionError(f"{label}: NaN away from the outside points")
+    if not err <= bound:
+        raise AssertionError(f"{label}: a value off by {err} > {bound}")
+    # the card against the CPU on a subset holding the 80 special points
+    rng = np.random.default_rng(MESHIO_SEED + 2)
+    rest = np.setdiff1d(np.arange(POINTS_N), where)
+    sub = np.sort(np.concatenate([where, rng.choice(
+        rest, POINTS_CPU - len(where), replace=False)]))
+    cells_card, _ = PE._locate(mesh, pts[sub])
+    fd.set_device("cpu")
+    try:
+        (cells_cpu, refs_cpu), cpu_s = _sync_time(
+            lambda: PE._locate(mesh, pts[sub]))
+        vals_cpu = to_numpy(PE.evaluate(uh, cells_cpu, refs_cpu))
+    finally:
+        fd.set_device(torch.device("cuda"))
+    scale = float(np.nanmax(np.abs(vals)))
+    rel = float(np.nanmax(np.abs(vals_cpu - vals[sub]))) / scale
+    same_nan = np.array_equal(np.isnan(vals_cpu), np.isnan(vals[sub]))
+    print(f"  cpu subset {len(sub)}: cells equal "
+          f"{np.array_equal(cells_card, cells_cpu)} max|card - cpu| / "
+          f"max|u_h| {rel:.3e} cpu_s {cpu_s:.3f}")
+    if not (np.array_equal(cells_card, cells_cpu) and same_nan
+            and rel <= 1e-14):
+        raise AssertionError(f"{label}: the card and the CPU disagree")
+    # VertexOnlyMesh on the same points
+    with _Counts() as vcounts:
+        vom, vom_s = _sync_time(lambda: fd.VertexOnlyMesh(
+            mesh, pts, missing_points_behaviour="ignore"))
+        P0 = fd.FunctionSpace(vom, "DG", 0)
+        u_vom, vi_s = _sync_time(lambda: fd.interpolate(uh, P0))
+        back = fd.interpolate(u_vom, fd.FunctionSpace(vom.input_ordering,
+                                                      "DG", 0))
+        found = ~outside
+        y_obs = exact[found] + 1e-3 * rng.standard_normal(int(found.sum()))
+        obs = fd.Function(P0, val=y_obs)
+        J, j_s = _sync_time(lambda: fd.assemble((u_vom - obs) ** 2
+                                                * fd.dx))
+    J_np = float(np.sum((to_numpy(u_vom.dat) - y_obs) ** 2))
+    round_trip = np.array_equal(to_numpy(back.dat), vals, equal_nan=True)
+    print(f"  VertexOnlyMesh: vertices {vom.num_cells} build_s {vom_s:.3f} "
+          f"interpolate_s {vi_s:.3f} input_ordering round trip bit for bit "
+          f"{round_trip} misfit {J!r} numpy {J_np!r} assemble_s {j_s:.4f}")
+    if vom.num_cells != POINTS_N - 16 or not round_trip:
+        raise AssertionError(f"{label}: VertexOnlyMesh lost its points")
+    if not abs(J - J_np) <= 1e-12 * J_np:
+        raise AssertionError(f"{label}: misfit {J} against {J_np}")
+    # cross-mesh interpolation, held to uh.at of the target's nodes
+    m2 = fd.UnitSquareMesh(XMESH_N, XMESH_N)
+    V2 = fd.FunctionSpace(m2, "CG", 1)
+    f2, x_s = _sync_time(lambda: fd.Function(V2).interpolate(uh))
+    X = fd.Function(fd.VectorFunctionSpace(m2, "CG", 1)).interpolate(
+        fd.SpatialCoordinate(m2))
+    ref = uh.at(to_numpy(X.dat).reshape(-1, 2))
+    xerr = float(np.abs(to_numpy(f2.dat) - ref).max())
+    print(f"  cross-mesh onto P1 of UnitSquareMesh({XMESH_N}): nodes "
+          f"{V2.dim} interpolate_s {x_s:.3f} max|I u_h - u_h.at(nodes)| "
+          f"{xerr:.3e}")
+    if not xerr <= 1e-12 * float(np.abs(ref).max()):
+        raise AssertionError(f"{label}: cross-mesh interpolation off by "
+                             f"{xerr}")
+    counts.k1 += vcounts.k1
+    counts.lowerer += vcounts.lowerer
+    return counts
+
+
+def meshio_phase():
+    """gmsh_helmholtz_p1_1024 (read, solve, tags' measures), the Exodus
+    copy of its mesh, points_1m."""
+    import os
+    t0 = phase("meshio")
+    import firedrake_tpu_torch as fd
+    fd.set_device(torch.device("cuda"))
+    label = "gmsh_helmholtz_p1_1024"
+    used = {}
+    with _meshio_tmp() as tmp:
+        path, write_s, arrays = _meshio_file(tmp, MESHIO_N)
+        mesh, read_s = _sync_time(lambda: fd.Mesh(path))
+        print(f"{label}: file {os.path.getsize(path)} bytes (gmsh v4.1 "
+              f"ASCII) write_s {write_s:.3f} read_s {read_s:.3f} cells "
+              f"{mesh.num_cells} vertices {mesh.num_vertices} tagged "
+              f"facets {int((mesh.facet_markers > 0).sum())}")
+        # a failed gate of the solve is raised after the other cases ran
+        used[label], p, failed = meshio_solve(fd, mesh, label)
+        worst = _meshio_measures(fd, mesh)
+        if not worst <= 1e-12:
+            raise AssertionError(f"{label}: a tag's measure off by {worst}")
+        exo = os.path.join(tmp, "square.exo")
+        _, exo_w = _sync_time(lambda: _write_exodus(exo, *arrays))
+        mexo, exo_r = _sync_time(lambda: fd.Mesh(exo))
+        same = _same_mesh(mesh, mexo)
+        print(f"  exodus copy: {os.path.getsize(exo)} bytes write_s "
+              f"{exo_w:.3f} read_s {exo_r:.3f} equal to the gmsh read bit "
+              f"for bit {same}")
+        if not same:
+            raise AssertionError(f"{label}: the Exodus copy differs")
+        del mexo
+    used["points_1m"] = points_run(fd, mesh, p["uh"], "points_1m")
+    del p, mesh
+    _release("meshio")
+    if failed:
+        raise AssertionError("meshio phase: " + "; ".join(failed))
+    phase_done("meshio", t0)
+    return used
+
+
+def meshio_cpu(labels, tag, study=False):
+    """gmsh_helmholtz_p1_1024 on the CPU: at full size (the CG iterations
+    the card must match within 1%; run on the card's host) or at the
+    study's levels (errors and their ratios per level)."""
+    import firedrake_tpu_torch as fd
+    label = "gmsh_helmholtz_p1_1024"
+    if label not in labels:
+        return
+    fd.set_device("cpu")
+    prev = None
+    for n in (MESHIO["study"] if study else (MESHIO_N,)):
+        t0 = time.perf_counter()
+        with _meshio_tmp() as tmp:
+            mesh = fd.Mesh(_meshio_file(tmp, n)[0])
+        p = _neumann_on(fd, mesh)
+        p["solver"].solve()
+        nodal, l2 = _gather_errors(fd, p)
+        rates = ("" if prev is None else
+                 f" nodal_ratio {prev[0] / nodal:.3f} l2_ratio "
+                 f"{prev[1] / l2:.3f}")
+        print(f"{tag} {label} n {n}: dofs {p['uh'].function_space().dim} "
+              f"iterations {p['solver'].ksp_iterations} converged "
+              f"{p['solver'].converged} max_nodal_err {nodal:.4e} l2_err "
+              f"{l2:.4e}{rates} seconds {time.perf_counter() - t0:.1f} "
+              f"host_max_rss_gib {_max_rss_gib():.2f}", flush=True)
+        prev = (nodal, l2)
+
+
 def main():
     t0 = time.perf_counter()
     device_phase()
@@ -5432,6 +5852,7 @@ def main():
     ddm_used, huge_rows = ddm_phase()
     used.update(ddm_used)
     used.update(adjoint_phase())
+    used.update(meshio_phase())
     used["gmg_p2_tet_16m"], k1_action = north_star_phase()
     for label, c in used.items():
         print(f"launches {label}: k1 {c.k1} k2 {c.k2} k2_large "
@@ -5545,7 +5966,7 @@ def only(names):
               "extruded": extruded_phase, "fieldsplit": fieldsplit_phase,
               "multilevel": multilevel_phase, "pcd_limit": pcd_limit,
               "ddm": ddm_phase, "adjoint": adjoint_phase,
-              "ml_rounding": ml_rounding}
+              "meshio": meshio_phase, "ml_rounding": ml_rounding}
     for name in names:
         phases[name]()
     print("only: done")

@@ -33,11 +33,18 @@ tensor_product.py), sum-factorised Q_k on quads and hexes
 (compiler/spectral.py) and quad, hex, extruded and semi-coarsened
 hierarchies; p-multigrid, FAS and the line, star, FDM and facet-split
 PCs; BDDC (solvers/bddc.py), deflated Newton (deflation.py) and the
-eigensolvers (eigensolver.py: host ARPACK or a device LOBPCG).
+eigensolvers (eigensolver.py: host ARPACK or a device LOBPCG); the
+``Mesh()`` factory and the gmsh, Exodus II, CGNS and netgen readers
+(mesh/io_*.py, netgen_mesh.py), point evaluation (pointeval.py,
+``Function.at``), VertexOnlyMesh (vertexonly.py) and HDF5 checkpoints
+(io/checkpoint.py).
 """
 from .language import *            # noqa: F401,F403  (UFL surface)
 from .mesh.utility import *        # noqa: F401,F403
 from .mesh.topology import MeshTopology
+from .mesh.geometry import Mesh as _MeshClass
+from .vertexonly import VertexOnlyMesh
+from .pointeval import PointNotInDomainError
 from .functionspace import (FunctionSpace, VectorFunctionSpace,
                             TensorFunctionSpace, RestrictedFunctionSpace)
 from .mixed import MixedFunctionSpace
@@ -65,7 +72,8 @@ from .solvers.pcs import (PCBase, AssembledPC, AuxiliaryOperatorPC,
 from .mg import MeshHierarchy, HierarchyBase, prolong, restrict, inject
 from .mg.mesh import (ExtrudedMeshHierarchy, SemiCoarsenedExtrudedHierarchy,
                       NonNestedHierarchy)
-from .io import VTKFile, File
+from .io import (VTKFile, File, CheckpointFile, DumbCheckpoint,
+                 FILE_CREATE, FILE_READ, FILE_UPDATE)
 from .parloops import par_loop, READ, WRITE, RW, INC, MIN, MAX
 from . import fml
 from .slope_limiter import VertexBasedLimiter
@@ -77,3 +85,34 @@ from math import pi
 #: the reference's label for untagged facets (firedrake/mesh.py:87);
 #: dS(UNMARKED)/ds(UNMARKED) select facets with no marker
 UNMARKED = -1
+
+
+def Mesh(arg, name=None, **kwargs):
+    """Mesh factory (reference: firedrake/mesh.py:3275): pass a mesh
+    object, a vector coordinate Function (curved / higher-order
+    geometry), a mesh file path — gmsh .msh (ASCII v2.2/v4.1), Exodus II
+    .e/.exo, or CGNS .cgns (reference reads all three via DMPlex,
+    firedrake/mesh.py:376-461) — or a netgen mesh."""
+    if isinstance(arg, _MeshClass):
+        return arg
+    if isinstance(arg, Function):
+        from .mesh.geometry import make_mesh_from_coordinates
+        return make_mesh_from_coordinates(arg, name=name)
+    if isinstance(arg, str):
+        if arg.endswith(".msh"):
+            from .mesh.io_msh import read_msh
+            return read_msh(arg, name=name)
+        if arg.endswith((".e", ".exo", ".exo2", ".gen")):
+            from .mesh.io_exodus import read_exodus
+            return read_exodus(arg, name=name)
+        if arg.endswith(".cgns"):
+            from .mesh.io_cgns import read_cgns
+            return read_cgns(arg, name=name)
+        raise NotImplementedError(
+            f"mesh format of {arg!r} (.msh/.exo/.cgns supported)")
+    if hasattr(arg, "Coordinates") and (hasattr(arg, "Elements2D")
+                                        or hasattr(arg, "Elements3D")):
+        # netgen/NGSolve mesh (reference: firedrake/netgen.py)
+        from .netgen_mesh import mesh_from_netgen
+        return mesh_from_netgen(arg, name=name or "netgenmesh")
+    raise TypeError(type(arg))

@@ -34,8 +34,9 @@ rules).  On the gather route, cell integrals of scalar Lagrange Q_k
 (k >= 2) on quads and hexes take the sum-factorised plan
 (compiler/spectral.py).
 
-Still raising NotImplementedError, each naming its ROADMAP.md queue 1
-item: complex scalars (item 17), vertex-only meshes (item 18).
+Forms on a VertexOnlyMesh are point sums (vertexonly.py).  Still raising
+NotImplementedError, naming its ROADMAP.md queue 1 item: complex scalars
+(item 17).
 """
 from __future__ import annotations
 
@@ -353,10 +354,6 @@ class FormAssembler:
         self.mesh = form.mesh()
         if self.mesh is None:
             raise ValueError("form has no mesh")
-        if getattr(self.mesh, "is_vertex_only", False):
-            raise NotImplementedError(
-                "vertex-only assembly is not ported yet: ROADMAP.md "
-                "queue 1, item 18")
         self.coefficients = form.coefficients()
         self.constants = form.constants()
         # mixed-precision kernel execution (compiler/precision.py), read
@@ -754,6 +751,10 @@ def assemble(form, tensor=None, bcs=None, mat_type="aij",
         raise TypeError(f"cannot assemble {type(form)}")
     if form.empty():
         return 0.0
+    if getattr(form.mesh(), "is_vertex_only", False) and not diagonal:
+        # point sums over the mesh's vertices (vertexonly.py)
+        from .vertexonly import vom_assemble
+        return vom_assemble(form)
     assembler = get_assembler(form, bcs, mat_type, zero_bc_nodes)
     if diagonal:
         d = assembler.assemble_diagonal()

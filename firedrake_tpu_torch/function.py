@@ -113,18 +113,25 @@ class Function(Coefficient):
                              "space")
         return self
 
-    # ----------------------------------------------- not yet ported
+    # ---------------------------------------------- point evaluation
     def at(self, *args, **kwargs):
-        _unported("Function.at (point evaluation)", 18)
+        """Evaluate at physical points (reference: function.py:569): a
+        host array, NaN where ``dont_raise`` lets a point go unfound."""
+        from .pointeval import at as _at
+        if len(args) == 1:
+            return _at(self, args[0], **kwargs)
+        return _at(self, np.asarray(args, dtype=float), **kwargs)
 
     def __call__(self, arg):
-        # u('+') / u('-') restrict, as for every Coefficient
+        # u('+') / u('-') restrict, as for every Coefficient; else point
+        # evaluation
         if isinstance(arg, str) and arg in ("+", "-"):
             return super().__call__(arg)
-        _unported("Function(x) (point evaluation)", 18)
+        return self.at(arg)
 
     def vector(self):
-        _unported("Function.vector", 18)
+        """The dof vector: the dat itself (a tensor on the device)."""
+        return self.dat
 
     def riesz_representation(self, riesz_map="L2"):
         """Primal/dual conversion (reference: cofunction.py:412
@@ -254,11 +261,6 @@ class Constant(ConstantBase):
     def __init__(self, value, domain=None, name=None):
         super().__init__(value)
         self.name = name or f"c_{self.count}"
-
-
-def _unported(what, item):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue "
-                              f"1, item {item}")
 
 
 def _eval_pointwise(expr, V):

@@ -5,9 +5,10 @@ evaluate the expression at each cell's node points and write the node
 values.  Moment spaces (RT, BDM, N1curl) contract the Piola pullback of
 the expression with their quadrature-form dual basis.  Coefficients on
 H(div)/H(curl) spaces are read through their dof signs or transforms.
+Onto a VertexOnlyMesh, and from a Function on another mesh, interpolation
+is point evaluation (vertexonly.py, pointeval.py).
 
-Not ported yet: cross-mesh interpolation and interpolation matrices
-(ROADMAP.md queue 1, item 18)."""
+Not ported yet: interpolation matrices (ROADMAP.md queue 1, item 18)."""
 from __future__ import annotations
 
 import numpy as np
@@ -216,13 +217,52 @@ def _expr_meshes(expr):
     return out
 
 
+def _node_coordinates(V):
+    """Physical coordinates of every global node of a Lagrange space: the
+    affine map of each cell's vertices at the element's nodes, each node
+    taken from the last cell that holds it (the JAX package's)."""
+    mesh = V.mesh_obj
+    ref = V.scalar_element.nodes
+    coords = mesh._vertex_coords[mesh.topology.cell_vertices]
+    v0 = coords[:, 0]
+    d = mesh.cell.dim
+    J = np.stack([coords[:, i + 1] - coords[:, 0] for i in range(d)],
+                 axis=-1)
+    phys = v0[:, None, :] + np.einsum("cgt,nt->cng", J, ref)
+    out = np.zeros((V.num_nodes, mesh.geometric_dimension))
+    out[V.cell_node_map.reshape(-1)] = phys.reshape(-1, phys.shape[-1])
+    return out
+
+
+def _cross_mesh_interpolate(f_src, f_dst):
+    """Interpolate a Function from another mesh by point evaluation at the
+    target's nodes (reference: interpolation.py:411 CrossMeshInterpolator
+    via VertexOnlyMesh point location); nodes outside the source mesh
+    get 0."""
+    from .pointeval import _locate, evaluate
+    V = f_dst.space
+    if V.scalar_element.family not in ("Lagrange",
+                                       "Discontinuous Lagrange"):
+        raise NotImplementedError("cross-mesh interpolation needs a nodal "
+                                  "target space")
+    cells, refs = _locate(f_src.function_space().mesh_obj,
+                          _node_coordinates(V))
+    f_dst.dat = torch.nan_to_num(evaluate(f_src, cells, refs)).reshape(-1)
+    return f_dst
+
+
 def interpolate_onto(expr, f: Function):
     from .language.core import as_expr as _ae
     e0 = _ae(expr)
+    if getattr(f.space.mesh_obj, "is_vertex_only", False):
+        from .vertexonly import vom_interpolate
+        return vom_interpolate(e0, f)
     meshes = _expr_meshes(e0)
     if meshes and id(f.space.mesh_obj) not in meshes:
-        raise NotImplementedError("cross-mesh interpolation is not "
-                                  "ported yet")
+        if isinstance(expr, Function):
+            return _cross_mesh_interpolate(expr, f)
+        raise NotImplementedError("cross-mesh interpolation of general "
+                                  "expressions: wrap in a Function first")
     expr = _as_expr_checked(expr, f.space)
     V = f.space
     # constants key the cache: the built program binds the cached

@@ -741,3 +741,64 @@ def test_adjoint_gradient_and_hessian_on_card_match_cpu(on_cuda):
     for ours, ref in ((gg, gc), (Hg, Hc)):
         assert float((ours - ref).abs().max()) <= 1e-10 * float(
             ref.abs().max())
+
+
+def _point_set(mesh, n, seed):
+    """n seeded points: uniform ones, every 7th vertex, facet midpoints
+    and a few outside the domain."""
+    rng = np.random.default_rng(seed)
+    vc = mesh._vertex_coords
+    fv = mesh.topology.facet_vertices
+    g = vc.shape[1]
+    return np.concatenate([rng.random((n, g)), vc[::7],
+                           vc[fv[::5]].mean(axis=1),
+                           1.0 + rng.random((8, g))])
+
+
+@pytest.mark.parametrize("cell", ["triangle", "quadrilateral",
+                                  "tetrahedron", "curved"])
+def test_point_location_and_evaluation_on_card_match_cpu(on_cuda, cell):
+    """pointeval on the card against the CPU: the located cells equal and
+    the values within 1e-14 of max|u|, on a few thousand points with exact
+    vertices and facet midpoints (affine, bilinear, tetrahedral and
+    P2-coordinate cells), and a VertexOnlyMesh's interpolation and misfit
+    on the card against the CPU's."""
+    from firedrake_tpu_torch import pointeval as PE
+    T.set_device("cpu")
+    if cell == "tetrahedron":
+        mesh = T.UnitCubeMesh(6, 5, 4)
+    elif cell == "curved":
+        base = T.UnitSquareMesh(8, 8)
+        X = T.SpatialCoordinate(base)
+        Vc = T.VectorFunctionSpace(base, "CG", 2)
+        mesh = T.Mesh(T.Function(Vc).interpolate(T.as_vector(
+            [X[0] + 0.05 * T.sin(np.pi * X[0]) * T.sin(np.pi * X[1]),
+             X[1]])))
+    else:
+        mesh = T.UnitSquareMesh(12, 10,
+                                quadrilateral=cell == "quadrilateral")
+    V = T.FunctionSpace(mesh, "CG", 2)
+    x = T.SpatialCoordinate(mesh)
+    u = T.Function(V).interpolate(T.cos(3 * x[0]) * (1 + x[1] ** 2))
+    pts = _point_set(mesh, 3000, seed=len(cell))
+    cells_cpu, refs_cpu = PE._locate(mesh, pts)
+    vals_cpu = u.at(pts, dont_raise=True)
+    vom_cpu = T.VertexOnlyMesh(mesh, pts, missing_points_behaviour="ignore")
+    uv_cpu = T.interpolate(u, T.FunctionSpace(vom_cpu, "DG", 0))
+    J_cpu = T.assemble(uv_cpu ** 2 * T.dx)
+    T.set_device("cuda")
+    cells, refs = PE._locate(mesh, pts)
+    assert refs.is_cuda
+    vals = u.at(pts, dont_raise=True)
+    vom = T.VertexOnlyMesh(mesh, pts, missing_points_behaviour="ignore")
+    uv = T.interpolate(u, T.FunctionSpace(vom, "DG", 0))
+    assert uv.dat.is_cuda
+    J = T.assemble(uv ** 2 * T.dx)
+    assert np.array_equal(cells, cells_cpu)
+    assert (cells >= 0).sum() == len(pts) - 8
+    scale = np.nanmax(np.abs(vals_cpu))
+    assert np.array_equal(np.isnan(vals), np.isnan(vals_cpu))
+    assert np.nanmax(np.abs(vals - vals_cpu)) <= 1e-14 * scale
+    assert np.abs(uv.dat.cpu().numpy()
+                  - uv_cpu.dat.numpy()).max() <= 1e-14 * scale
+    assert abs(J - J_cpu) <= 1e-13 * J_cpu

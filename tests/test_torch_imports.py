@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import firedrake_tpu_torch as T
+from firedrake_tpu_torch.device import to_numpy
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -20,9 +21,13 @@ def _cpu():
     T.set_device("cpu")
 
 
+#: one fresh interpreter for both probes below: its first line is the
+#: device the port chose before anything asked, its second the modules of
+#: jax, triton or the JAX package that importing every port module loaded
 _PROBE = """
 import importlib, pkgutil, sys
 import firedrake_tpu_torch as pkg
+print(pkg.get_device())
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
@@ -36,22 +41,21 @@ print(" ".join(bad))
 """
 
 
-def test_port_imports_no_jax_or_triton():
+@pytest.fixture(scope="module")
+def probe():
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "", f"port imported: {res.stdout}"
+    return (res.stdout + "\n").split("\n")
 
 
-def test_device_defaults_to_cuda():
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    res = subprocess.run(
-        [sys.executable, "-c",
-         "import firedrake_tpu_torch as T; print(T.get_device())"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "cuda"
+def test_port_imports_no_jax_or_triton(probe):
+    assert probe[1].strip() == "", f"port imported: {probe[1]}"
+
+
+def test_device_defaults_to_cuda(probe):
+    assert probe[0].strip() == "cuda"
     assert T.get_device() == torch.device("cpu")   # this module asked
 
 
@@ -59,10 +63,7 @@ def test_device_defaults_to_cuda():
 #: with the ROADMAP.md queue 1 item that brings it
 NOT_YET_PORTED = {
     # item 18: meshes, I/O and tooling
-    18: ["Mesh", "VertexOnlyMesh", "PointNotInDomainError", "Interpolator",
-         "CheckpointFile", "DumbCheckpoint", "FILE_CREATE", "FILE_READ",
-         "FILE_UPDATE",
-         "assemble_mixed_mass_matrix", "AdaptiveMeshHierarchy",
+    18: ["Interpolator", "assemble_mixed_mass_matrix", "AdaptiveMeshHierarchy",
          "GeometryProjectedMeshHierarchy", "OpenCascadeMeshHierarchy",
          "TransferManager", "RandomGenerator", "PCG64", "parameters",
          "Parameters", "set_log_level", "info", "warning", "error",
@@ -107,9 +108,6 @@ def _mass_solve(V, params):
 @pytest.mark.parametrize("call, item", [
     (lambda V, u: _mass_solve(V, {
         "pc_type": "python", "pc_python_type": "firedrake.HiptmairPC"}), 18),
-    (lambda V, u: u.at((0.5, 0.5)), 18),
-    (lambda V, u: u((0.5, 0.5)), 18),
-    (lambda V, u: u.vector(), 18),
     (lambda V, u: T.assemble(T.Constant(1j) * T.TestFunction(V) * T.dx),
      17),
     (lambda V, u: V.mesh().refine_marked_elements(np.ones(8)), 18),
@@ -122,6 +120,27 @@ def test_unported_methods_name_their_item(call, item):
         call(V, u)
     # restriction still works through Function.__call__
     assert type(u("+")).__name__ == "Restricted"
+
+
+@pytest.mark.parametrize("call", [
+    lambda u: u.at((0.3, 0.6)),
+    lambda u: u((0.3, 0.6)),
+    lambda u: u.vector(),
+])
+def test_point_evaluation_calls_match_jax(call):
+    """u.at(x), u(x) and u.vector(), which raised naming item 18 before
+    point evaluation was ported, give the JAX package's values."""
+    import firedrake_tpu as J
+    got = []
+    for pkg in (J, T):
+        mesh = pkg.UnitSquareMesh(2, 2)
+        x = pkg.SpatialCoordinate(mesh)
+        u = pkg.Function(pkg.FunctionSpace(mesh, "CG", 2)).interpolate(
+            x[0] * x[0] + 3 * x[1])
+        got.append(np.asarray(to_numpy(call(u)) if pkg is T
+                              else call(u), dtype=float))
+    assert got[0].shape == got[1].shape
+    assert np.abs(got[1] - got[0]).max() <= 1e-14
 
 
 def _spectral_gather():
