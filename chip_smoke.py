@@ -20,7 +20,8 @@
                                           # phases alone (main, slate,
                                           # dg_mixed, gather, nonlinear,
                                           # extruded, fieldsplit,
-                                          # multilevel, ddm, adjoint)
+                                          # multilevel, ddm, adjoint,
+                                          # meshio, transfer)
     python3 chip_smoke.py --only ml_rounding
                                           # pmg_p4_256's and fdm_q4_256's
                                           # errornorms taken apart: card
@@ -318,7 +319,40 @@ failure raises and the exit code is non-zero):
              the heat gradient and the covariance's B x, B^-1 x, norm
              and first seeded sample within 1e-10 of max|CPU|.
              `--only adjoint` runs it alone.
-14. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
+14. transfer — each case with every launch count set to 0 before its
+             counted run and read after; every gate is checked after
+             all four ran: hiptmair_n1curl_576 (test_hiptmair.py's
+             H(curl) Riesz map of a constant on N1curl1 of
+             MeshHierarchy(UnitSquareMesh(36), 4), 996,480 dofs, CG to
+             1e-8 with HiptmairPC: Jacobi on the fine level, one V-cycle
+             on the 332,929-dof P1 potential space; G's build, matvec
+             and transpose times; Jacobi-CG's count beside it; gates:
+             errornorm(f, u_h) < 1e-6, the CPU rehearsal's count +-1);
+             gtmg_hybrid_rt1_512 (test_gtmg.py's mixed Poisson at 512^2
+             by hybridization, the 787,456-dof trace by CG + GTMGPC with
+             a P1 coarse space; stage times by CUDA events; K2 held bit
+             for bit to its plain version on Slate's blocks; gates: the
+             DG0 error below twice the study's extrapolation, the
+             rehearsal's count +-1); nonnested_gmg_p1_1024 (P1 Poisson
+             by CG + GMG on NonNestedHierarchy over jittered 160^2,
+             400^2 and 1024^2 meshes, each made by Mesh() on a jittered
+             coordinate Function; the cross-mesh transfers' build and
+             point location timed apart; gates: rel_residual <= 1e-10,
+             the nodal error below twice the study's bound, the card
+             within 1e-10 of the CPU at (10, 25, 64) in this process);
+             supermesh_p1_512_384 (supermesh_project from P1 on a
+             jittered 512^2 mesh onto P1 on a jittered 384^2 mesh:
+             candidate pairs, clipping on the card and accumulation
+             timed apart; the row sums' miss against int phi_i taken
+             apart by the clipping's two tolerances; gates: mass within
+             1e-12 relative, the mixed mass matrix's rows within 1e-15
+             of int phi_i (absolute), and within 1e-12 relative with
+             exact clipping and every fan piece kept, the L2 error below
+             twice the study's, the clipping on the card equal to the
+             CPU's within 1e-12 at (24, 18)); K1 held to its plain
+             version on the inputs of every form of its family that
+             each case assembled.  `--only transfer` runs it alone.
+15. gmg_p2_tet_16m — the 16M-dof north star (the JAX bench's cg_gmg_16m):
              -lap u = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on the
              boundary, P2 on MeshHierarchy(UnitCubeMesh(8), 4) (12,582,912
              tets, 16,974,593 dofs), CG + GMG (Chebyshev(2) + Jacobi) with
@@ -2012,7 +2046,9 @@ def cpu_study(labels):
                                        "poisson_mixed_rt1_256"] \
         + list(SLATE_LABELS) + list(EXTRUDED_STUDY) \
         + ["stokes_th_schur_256"] + list(ML_STUDY) + ["eigen_p1_512",
-                                                       "gmsh_helmholtz_p1_1024"]
+                                                       "gmsh_helmholtz_p1_1024"] \
+        + list(TRANSFER_STUDY)
+    transfer_cpu(labels, "cpu_study", study=True)
     meshio_cpu(labels, "cpu_study", study=True)
     multilevel_cpu([lb for lb in ML_STUDY if lb in labels], "cpu_study",
                    study=True)
@@ -2058,7 +2094,9 @@ def cpu_rehearsal(labels):
     labels = labels or list(GMG) + list(GATHER) + list(NONLINEAR_LABELS) \
         + ["dg_advection_512"] + list(SLATE_LABELS) + list(EXTRUDED_LABELS) \
         + list(FIELDSPLIT_LABELS) + list(MULTILEVEL_LABELS) \
-        + ["deflation_bratu_p1_1024", "gmsh_helmholtz_p1_1024"]
+        + ["deflation_bratu_p1_1024", "gmsh_helmholtz_p1_1024"] \
+        + [lb for lb in TRANSFER_LABELS if lb != "supermesh_p1_512_384"]
+    transfer_cpu(labels, "cpu_rehearsal")
     meshio_cpu(labels, "cpu_rehearsal")
     multilevel_cpu([lb for lb in labels if lb in MULTILEVEL_LABELS],
                    "cpu_rehearsal")
@@ -2073,7 +2111,7 @@ def cpu_rehearsal(labels):
     for label in labels:
         if label in NONLINEAR_LABELS or label in SLATE_LABELS \
                 or label in EXTRUDED_LABELS or label in FIELDSPLIT_LABELS \
-                or label in MULTILEVEL_LABELS \
+                or label in MULTILEVEL_LABELS or label in TRANSFER_LABELS \
                 or label in ("deflation_bratu_p1_1024",
                              "gmsh_helmholtz_p1_1024"):
             continue
@@ -5831,6 +5869,565 @@ def meshio_cpu(labels, tag, study=False):
         prev = (nodal, l2)
 
 
+
+# ------------------------------------------------------------ transfer phase
+# hiptmair_n1curl_576: test_hiptmair.py's _riesz at full width, N1curl1 on
+# the finest level of MeshHierarchy(UnitSquareMesh(36), 4) (996,480 dofs),
+# CG + HiptmairPC; the potential space P1 (332,929 dofs) by one V-cycle
+# (K1 on every level).  gtmg_hybrid_rt1_512: test_gtmg.py's mixed Poisson
+# at 512^2 (RT1 x DG0, 1,311,744 dofs; trace 787,456), the trace by CG +
+# GTMGPC with a P1 coarse space (263,169 dofs, host LU).
+# nonnested_gmg_p1_1024: P1 Poisson with test_nonnested.py's source by CG
+# + GMG on NonNestedHierarchy over jittered 160^2, 400^2 and 1024^2 meshes
+# (1,050,625 dofs).  supermesh_p1_512_384: P1 on a jittered 512^2 mesh
+# projected by supermesh_project onto P1 on a jittered 384^2 mesh.
+HIP_BASE, HIP_LEVELS = 36, 4
+HIP_SP = {"ksp_type": "cg", "ksp_rtol": 1e-8, "pc_type": "python",
+          "pc_python_type": "firedrake.HiptmairPC",
+          "hiptmair_mg_levels_ksp_type": "preonly",
+          "hiptmair_mg_levels_pc_type": "jacobi",
+          "hiptmair_mg_coarse_ksp_type": "preonly",
+          "hiptmair_mg_coarse_pc_type": "mg"}
+HIP_JACOBI_SP = {"ksp_type": "cg", "ksp_rtol": 1e-8, "pc_type": "jacobi",
+                 "ksp_max_it": 20000}
+GTMG_N = 512
+GTMG_SP = {"pc_type": "hybridization",
+           "hybridization": {"ksp_type": "cg", "ksp_rtol": 1e-10,
+                             "pc_type": "python",
+                             "pc_python_type": "firedrake.GTMGPC"}}
+NN_SIZES, NN_SEEDS, NN_JITTER = (160, 400, 1024), (31, 32, 33), 0.2
+NN_SP = {"ksp_type": "cg", "ksp_rtol": 1e-11, "pc_type": "mg"}
+NN_SMALL = (10, 25, 64)            # held to the CPU in process
+SM_SIZES, SM_SEEDS = (512, 384), (41, 42)
+SM_SMALL = (24, 18)                # held to the CPU in process
+TRANSFER_LABELS = ("hiptmair_n1curl_576", "gtmg_hybrid_rt1_512",
+                   "nonnested_gmg_p1_1024", "supermesh_p1_512_384")
+#: the CPU study's sizes: the finest mesh of each case, divided down
+TRANSFER_STUDY = {"gtmg_hybrid_rt1_512": (32, 64, 128),
+                  "nonnested_gmg_p1_1024": (128, 256, 512),
+                  "supermesh_p1_512_384": (64, 128, 256)}
+#: CG iterations of --cpu-rehearsal at full size (the card within one;
+#: the card's host, 427.4 s, 17.9 s and 37.6 s)
+TRANSFER_ITS = {"hiptmair_n1curl_576": 3181, "gtmg_hybrid_rt1_512": 10,
+                "nonnested_gmg_p1_1024": 14}
+#: the error bounds: twice the study's extrapolation to full size
+#: (python3 chip_smoke.py --cpu-study <label>: the DG0 L2 error 1.3642e-5,
+#: 3.4184e-6, 8.5511e-7 at 32, 64, 128; the nodal error 8.0513e-6,
+#: 1.9164e-6, 5.3861e-7 at 128, 256, 512; the projection's L2 error
+#: 3.2107e-4, 8.0286e-5, 2.0078e-5 at 64, 128, 256)
+TRANSFER_ERR = {"gtmg_hybrid_rt1_512": 1.0701e-07,
+                "nonnested_gmg_p1_1024": 3.0275e-07,
+                "supermesh_p1_512_384": 1.0043e-05}
+HIP_RIESZ_ERR = 1e-6               # test_hiptmair.py's gate
+#: the projection's mass (relative); the mixed mass matrix's row sums
+#: against int phi_i: relative once the clipping's two tolerances are off
+#: (exact clipping, every fan piece kept), absolute for the matrix as
+#: built.  The JAX package's tolerances drop fan pieces with |det J| <
+#: 1e-16, each less than 5e-17 of a row, and keep vertices within 1e-14 /
+#: |edge| of a clipping line; _row_sum_sources measures each.  At 512/384
+#: the dropped pieces make the whole miss (5.415e-17 of 5.401e-17 at the
+#: worst row, the tolerance 1.7e-21, 1.4e-19 left; NVIDIA H100 80GB HBM3,
+#: 700.00 W), so the matrix is held to twenty such pieces a row.  The
+#: clipping on the card against the CPU (relative)
+SM_CONSERVE, SM_ROWSUM, SM_CARD_CPU = 1e-12, 1e-12, 1e-12
+SM_ROWSUM_ABS = 20 * 5e-17
+NN_CARD_CPU = 1e-10
+
+
+def _jittered_mesh(fd, n, seed, jitter=NN_JITTER):
+    """UnitSquareMesh(n) with its interior vertices moved by up to
+    jitter / n in each coordinate (seeded), made a mesh of its own by
+    Mesh() on the coordinate Function (the gather route)."""
+    base = fd.UnitSquareMesh(n, n)
+    X = fd.Function(fd.VectorFunctionSpace(base, "CG", 1)).interpolate(
+        fd.SpatialCoordinate(base))
+    xy = X.dat.reshape(-1, 2).cpu().numpy().copy()
+    inner = ((xy > 1e-12) & (xy < 1 - 1e-12)).all(axis=1)
+    rng = np.random.default_rng(seed)
+    xy[inner] += rng.uniform(-jitter / n, jitter / n, (int(inner.sum()), 2))
+    X.dat = torch.as_tensor(xy.reshape(-1), device=X.dat.device)
+    return fd.Mesh(X)
+
+
+def _hiptmair_problem(fd, base=HIP_BASE, levels=HIP_LEVELS, params=HIP_SP):
+    hier = fd.MeshHierarchy(fd.UnitSquareMesh(base, base), levels)
+    V = fd.FunctionSpace(hier[-1], "N1curl", 1)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    f = fd.Constant((1.0, 2.0))
+    a = (fd.inner(fd.curl(u), fd.curl(v)) + fd.inner(u, v)) * fd.dx
+    L = fd.inner(f, v) * fd.dx
+    bcs = [fd.DirichletBC(V, f, "on_boundary")]
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(a, L, uh, bcs=bcs),
+        solver_parameters=params)
+    return dict(V=V, f=f, a=a, L=L, bcs=bcs, uh=uh, solver=solver)
+
+
+def _gtmg_problem(fd, n, params=GTMG_SP):
+    mesh = fd.UnitSquareMesh(n, n)
+    x = fd.SpatialCoordinate(mesh)
+    P1 = fd.FunctionSpace(mesh, "CG", 1)
+    RT = fd.FunctionSpace(mesh, "RT", 1)
+    DG = fd.FunctionSpace(mesh, "DG", 0)
+    W = fd.MixedFunctionSpace([RT, DG])
+    sigma, u = fd.TrialFunctions(W)
+    tau, v = fd.TestFunctions(W)
+    f = fd.Function(DG).interpolate(-2 * (x[0] - 1) * x[0]
+                                    - 2 * (x[1] - 1) * x[1])
+    a = (fd.inner(sigma, tau) - fd.inner(u, fd.div(tau))
+         + fd.inner(fd.div(sigma), v)) * fd.dx
+    w = fd.Function(W)
+    appctx = {"get_coarse_space": lambda: P1,
+              "get_coarse_operator": lambda: fd.inner(
+                  fd.grad(fd.TrialFunction(P1)),
+                  fd.grad(fd.TestFunction(P1))) * fd.dx,
+              "coarse_space_bcs": fd.DirichletBC(P1, 0.0, "on_boundary")}
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(a, fd.inner(f, v) * fd.dx, w),
+        solver_parameters=params, appctx=appctx)
+    exact = fd.Function(DG).interpolate(x[0] * (1 - x[0]) * x[1]
+                                        * (1 - x[1]))
+    return dict(W=W, w=w, solver=solver, exact=exact, P1=P1)
+
+
+def _nonnested_problem(fd, sizes=NN_SIZES, seeds=NN_SEEDS):
+    hier = fd.NonNestedHierarchy(*[_jittered_mesh(fd, n, s)
+                                   for n, s in zip(sizes, seeds)])
+    mesh = hier[-1]
+    V = fd.FunctionSpace(mesh, "CG", 1)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    x, y = fd.SpatialCoordinate(mesh)
+    a = fd.inner(fd.grad(u), fd.grad(v)) * fd.dx
+    L = 2 * (x * (1 - x) + y * (1 - y)) * v * fd.dx
+    bc = fd.DirichletBC(V, 0.0, "on_boundary")
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(a, L, uh, bcs=[bc]),
+        solver_parameters=NN_SP)
+    exact = fd.Function(V).interpolate(x * (1 - x) * y * (1 - y))
+    return dict(V=V, a=a, L=L, bc=bc, uh=uh, solver=solver, exact=exact)
+
+
+def _supermesh_problem(fd, sizes=SM_SIZES):
+    ms, md = (_jittered_mesh(fd, n, s) for n, s in zip(sizes, SM_SEEDS))
+    Vs, Vd = fd.FunctionSpace(ms, "CG", 1), fd.FunctionSpace(md, "CG", 1)
+    x, y = fd.SpatialCoordinate(ms)
+    f = fd.Function(Vs).interpolate(fd.sin(math.pi * x) * fd.sin(
+        math.pi * y) + x)
+    xd, yd = fd.SpatialCoordinate(md)
+    exact = fd.sin(math.pi * xd) * fd.sin(math.pi * yd) + xd
+    return dict(Vs=Vs, Vd=Vd, f=f, exact=exact)
+
+
+def _transfer_errors(fd, label, p):
+    """The case's error: the DG0 error of the hybridized solve, the nodal
+    error of the non-nested solve, the projection's L2 error."""
+    if label == "gtmg_hybrid_rt1_512":
+        return fd.errornorm(p["exact"], p["w"].subfunctions[1])
+    if label == "nonnested_gmg_p1_1024":
+        return float((p["uh"].dat - p["exact"].dat).abs().max())
+    return fd.errornorm(p["exact"], p["u"])
+
+
+def _gate(failed, ok, text):
+    print(("  gate ok: " if ok else "  GATE FAILED: ") + text)
+    if not ok:
+        failed.append(text)
+
+
+def _its_gate(failed, label, its):
+    want = TRANSFER_ITS[label]
+    _gate(failed, want is not None and abs(its - want) <= 1,
+          f"{label}: {its} CG iterations, the CPU rehearsal took {want}")
+
+
+HIP_STAGES = (
+    ("hiptmair_setup", _TP + "solvers.hiptmair", "HiptmairPC.initialize_ctx"),
+    ("build_G", _TP + "interpolation", "operator_matrix"),
+    ("transpose_G", _TP + "assembly.matrix", "Matrix.transpose"),
+    ("potential_mg_setup", _TP + "mg.vcycle", "GMGPreconditioner"),
+    ("solve", _TP + "solving", "_run_ksp"))
+
+
+def hiptmair_run(fd, label="hiptmair_n1curl_576"):
+    """CG + HiptmairPC on the H(curl) Riesz map of a constant; Jacobi-CG's
+    count beside it; G's build, matvec and transpose times."""
+    failed = []
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _hiptmair_problem(fd))
+    with _Counts() as counts, _StageTimes(HIP_STAGES) as st, \
+            _K1Inputs() as k1in:
+        _, solve_s = _sync_time(p["solver"].solve)
+    its = p["solver"].ksp_iterations
+    err = fd.errornorm(p["f"], p["uh"])
+    G = st.results["build_G"][0]
+    GT = G.transpose()
+    zc = torch.ones(G.shape[1], dtype=torch.float64, device="cuda")
+    zf = torch.ones(G.shape[0], dtype=torch.float64, device="cuda")
+    mv = _cuda_ms(lambda: G.matvec(zc), reps=20, warm=3)
+    tmv = _cuda_ms(lambda: GT.matvec(zf), reps=20, warm=3)
+    sa_mv = _cuda_ms(lambda: G.transpose_matvec(zf), reps=20, warm=3)
+    sec = st.secs
+    print(f"{label}: dofs {p['V'].dim} potential_dofs {G.shape[1]} "
+          f"problem_setup_s {setup_s:.3f} first_solve_s {solve_s:.3f} "
+          f"hiptmair_setup_s {sec['hiptmair_setup']:.3f} (inclusive: "
+          f"build_G_s {sec['build_G']:.3f} transpose_G_s "
+          f"{sec['transpose_G']:.3f} potential_mg_setup_s "
+          f"{sec['potential_mg_setup']:.3f}) solve_s {sec['solve']:.3f} "
+          f"iterations {its} ms_per_iteration "
+          f"{1e3 * sec['solve'] / max(its, 1):.4f} errornorm_f "
+          f"{err:.3e} G nnz {G.nnz} G_matvec_ms {mv:.4f} "
+          f"GT_matvec_ms {tmv:.4f} (transpose_matvec scatter-add "
+          f"{sa_mv:.4f}) device_peak {torch.cuda.max_memory_allocated()} "
+          f"k1_launches {counts.k1} lowerer_evals {counts.lowerer}")
+    k1in.check(label, counts.k1)
+    # Jacobi-CG on the same problem, for its count
+    uj = fd.Function(p["V"])
+    jac = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(p["a"], p["L"], uj, bcs=p["bcs"]),
+        solver_parameters=HIP_JACOBI_SP)
+    _, jac_s = _sync_time(jac.solve)
+    print(f"{label}: jacobi_cg iterations {jac.ksp_iterations} "
+          f"converged {jac.converged} solve_s {jac_s:.3f} (hiptmair {its})")
+    _gate(failed, p["uh"].dat.is_cuda and p["solver"].converged,
+          f"{label}: converged on the card")
+    _gate(failed, err < HIP_RIESZ_ERR,
+          f"{label}: errornorm(f, u_h) {err:.3e} < {HIP_RIESZ_ERR}")
+    _its_gate(failed, label, its)
+    _gate(failed, counts.k1 > 0, f"{label}: K1 launched {counts.k1}")
+    del p, jac, uj, st, G, GT
+    return counts, failed
+
+
+GTMG_STAGES = (
+    ("slate_assembly", _TP + "solvers.hybridization", "assemble_slate"),
+    ("k2", _TP + "ops.batched_inverse", "batched_inv"),
+    ("gtmg_setup", _TP + "solvers.gtmg", "GTMGPC.initialize_ctx"),
+    ("interpolation_matrix", _TP + "interpolation", "Interpolator.assemble"),
+    ("trace_cg", _TP + "solvers.krylov", "KSP_METHODS.cg"),
+    ("back_substitution", _TP + "solvers.hybridization",
+     "_back_substitute"))
+
+
+def gtmg_run(fd, label="gtmg_hybrid_rt1_512"):
+    """The hybridized mixed Poisson, its trace by CG + GTMGPC, stage times
+    by CUDA events; K2 held bit for bit to its plain version on the
+    path's own blocks."""
+    failed = []
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _gtmg_problem(fd, GTMG_N))
+    with _Counts() as counts, _EventStages(GTMG_STAGES) as st, \
+            _K1Inputs() as k1in:
+        _, solve_s = _sync_time(p["solver"].solve)
+    its = p["solver"].ksp_iterations
+    err = _transfer_errors(fd, label, p)
+    ms = st.ms()
+    print(f"{label}: dofs {p['W'].dim} coarse_dofs {p['P1'].dim} "
+          f"problem_setup_s {setup_s:.3f} solve_s {solve_s:.3f} stage_ms "
+          "(exclusive/inclusive/calls) "
+          + " ".join(f"{k} {v[0]:.3f}/{v[1]:.3f}/{v[2]}"
+                     for k, v in ms.items())
+          + f" trace_cg_iterations {its} (hybridized_rt2_256's Jacobi "
+          f"trace solve: 1440) l2_err_u {err:.4e} device_peak "
+          f"{torch.cuda.max_memory_allocated()} k1_launches {counts.k1} "
+          f"k2_launches {counts.k2} lowerer_evals {counts.lowerer}")
+    k1in.check(label, counts.k1)
+    row = _k2_path_row(label, st.first_args["k2"][0])
+    bound = TRANSFER_ERR[label]
+    _gate(failed, p["w"].dat.is_cuda and p["solver"].converged,
+          f"{label}: converged on the card")
+    _gate(failed, bound is not None and err < bound,
+          f"{label}: DG0 error {err:.4e} < {bound}")
+    _its_gate(failed, label, its)
+    _gate(failed, counts.k1 > 0 and counts.k2 > 0,
+          f"{label}: K1 launched {counts.k1}, K2 {counts.k2}")
+    _gate(failed, row["bit_for_bit"],
+          f"{label}: K2 bit for bit with its plain version on "
+          f"{tuple(row['shape'])}")
+    del p, st
+    return counts, failed, row
+
+
+NN_STAGES = (
+    ("cross_mesh_matrix", _TP + "interpolation", "cross_mesh_scalar_matrix"),
+    ("point_location", _TP + "interpolation", "_locate_robust"),
+    ("pc_setup", _TP + "mg.vcycle", "GMGPreconditioner"),
+    ("level_assembly", _TP + "assemble", "assemble"),
+    ("solve", _TP + "solving", "_run_ksp"))
+
+
+def nonnested_run(fd, label="nonnested_gmg_p1_1024"):
+    """CG + GMG over the non-nested jittered meshes; the cross-mesh
+    transfers' build timed apart (each level pair: the fine nodes located
+    in the coarse mesh, then the reverse); the same solve at NN_SMALL on
+    the card and the CPU in this process."""
+    failed = []
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _nonnested_problem(fd))
+    with _Counts() as counts, _StageTimes(NN_STAGES) as st, \
+            _K1Inputs() as k1in:
+        _, solve_s = _sync_time(p["solver"].solve)
+    its = p["solver"].ksp_iterations
+    err = _transfer_errors(fd, label, p)
+    rel = _rel_residual(fd, p["a"], p["L"], p["bc"], p["uh"])
+    sec, calls = st.secs, st.calls
+    pairs = [f"{a:.3f}/{b:.3f}" for a, b in zip(
+        calls["point_location"][0::2], calls["point_location"][1::2])]
+    print(f"{label}: meshes {NN_SIZES} jitter {NN_JITTER} dofs "
+          f"{p['V'].dim} problem_setup_s {setup_s:.3f} first_solve_s "
+          f"{solve_s:.3f} pc_setup_s {sec['pc_setup']:.3f} "
+          f"(inclusive: cross_mesh_matrix_s {sec['cross_mesh_matrix']:.3f}"
+          f", point location fine-in-coarse/coarse-in-fine s per level "
+          f"pair {' '.join(pairs)}; level_assembly_s "
+          f"{sec['level_assembly']:.3f}) solve_s {sec['solve']:.3f} "
+          f"iterations {its} ms_per_iteration "
+          f"{1e3 * sec['solve'] / max(its, 1):.4f} rel_residual {rel:.3e} "
+          f"max_nodal_err {err:.4e} device_peak "
+          f"{torch.cuda.max_memory_allocated()} k1_launches {counts.k1} "
+          f"lowerer_evals {counts.lowerer}")
+    k1in.check(label, counts.k1)
+    # the same solve at NN_SMALL on the card and on the CPU, in process
+    small = _nonnested_problem(fd, NN_SMALL)
+    small["solver"].solve()
+    fd.set_device("cpu")
+    try:
+        small_cpu = _nonnested_problem(fd, NN_SMALL)
+        small_cpu["solver"].solve()
+    finally:
+        fd.set_device(torch.device("cuda"))
+    ref = small_cpu["uh"].dat
+    diff = float((small["uh"].dat.cpu() - ref).abs().max()
+                 / ref.abs().max())
+    print(f"{label}: at {NN_SMALL} card_vs_cpu {diff:.3e} iterations "
+          f"{small['solver'].ksp_iterations} (cpu "
+          f"{small_cpu['solver'].ksp_iterations})")
+    bound = TRANSFER_ERR[label]
+    _gate(failed, p["uh"].dat.is_cuda and p["solver"].converged,
+          f"{label}: converged on the card")
+    _gate(failed, rel <= 1e-10, f"{label}: rel_residual {rel:.3e} <= 1e-10")
+    _gate(failed, bound is not None and err < bound,
+          f"{label}: nodal error {err:.4e} < {bound}")
+    _gate(failed, diff <= NN_CARD_CPU,
+          f"{label}: card and CPU at {NN_SMALL} within {NN_CARD_CPU}")
+    _its_gate(failed, label, its)
+    _gate(failed, counts.k1 > 0, f"{label}: K1 launched {counts.k1}")
+    del p, st, small, small_cpu
+    return counts, failed
+
+
+SM_STAGES = (
+    ("candidate_pairs", _TP + "supermesh", "_candidate_pairs"),
+    ("clipping", _TP + "supermesh", "_pair_masses_2d"),
+    ("accumulation", _TP + "assembly.matrix", "entry_matrix"),
+    ("target_mass", _TP + "assemble", "assemble"),
+    ("mass_solve", _TP + "solving", "direct_solve"))
+
+
+def _small_mixed_mass(fd, device):
+    fd.set_device(device)
+    try:
+        p = _supermesh_problem(fd, SM_SMALL)
+        M = fd.assemble_mixed_mass_matrix(p["Vd"], p["Vs"])
+        return M.sparsity, M.data.cpu()
+    finally:
+        fd.set_device(torch.device("cuda"))
+
+
+def _row_sum_sources(fd, p, phi):
+    """The mixed mass matrix's row sums against int phi_i, taken apart by
+    the two tolerances of the clipping (the JAX package's): each row
+    summed by index_add_ over the pairs' local matrices as built (_EPS,
+    _MIN_DETJ), with every fan piece kept (_MIN_DETJ = 0), and with exact
+    clipping as well (_EPS = 0).  Returns the three row-sum vectors."""
+    from firedrake_tpu_torch import supermesh as SM
+    from firedrake_tpu_torch.elements.quadrature import make_quadrature
+    VA, VB = p["Vd"], p["Vs"]
+    mA, mB = VA.mesh_obj, VB.mesh_obj
+    xA = mA._vertex_coords[mA.topology.cell_vertices]
+    xB = mB._vertex_coords[mB.topology.cell_vertices]
+    a, b = SM._candidate_pairs(xA, xB)
+    dev = phi.device
+    ia, ib = (torch.as_tensor(i, device=dev) for i in (a, b))
+    args = (torch.as_tensor(SM._cell_loops(xA, "triangle"), device=dev)[ia],
+            torch.as_tensor(SM._cell_loops(xB, "triangle"), device=dev)[ib],
+            torch.as_tensor(xA, device=dev)[ia],
+            torch.as_tensor(xB, device=dev)[ib], True, VA.scalar_element,
+            VB.scalar_element, make_quadrature("triangle", 2),
+            np.asarray(mA.cell.vertices, dtype=float))
+    rows_of = torch.as_tensor(np.asarray(VA.cell_node_map, dtype=np.int64),
+                              device=dev)[ia].reshape(-1)
+    saved = SM._EPS, SM._MIN_DETJ
+    out = []
+    try:
+        for eps, min_detj in (saved, (saved[0], 0.0), (0.0, 0.0)):
+            SM._EPS, SM._MIN_DETJ = eps, min_detj
+            loc, _ = SM._pair_masses_2d(*args)
+            out.append(torch.zeros_like(phi).index_add_(
+                0, rows_of, loc.sum(dim=-1).reshape(-1)))
+            del loc
+    finally:
+        SM._EPS, SM._MIN_DETJ = saved
+    return out
+
+
+def supermesh_run(fd, label="supermesh_p1_512_384"):
+    """supermesh_project across the jittered meshes: candidate pairs on
+    the host, clipping and integration on the card, the accumulation,
+    the mass solve, each timed; conservation and the mixed mass
+    matrix's row sums, taken apart by the clipping's two tolerances; the
+    clipping held to the CPU at SM_SMALL."""
+    from firedrake_tpu_torch.supermesh import supermesh_project
+    failed = []
+    torch.cuda.reset_peak_memory_stats()
+    p, setup_s = _sync_time(lambda: _supermesh_problem(fd))
+    with _Counts() as counts, _StageTimes(SM_STAGES) as st, \
+            _K1Inputs() as k1in:
+        p["u"], proj_s = _sync_time(
+            lambda: supermesh_project(p["f"], p["Vd"]))
+    M = st.results["accumulation"][0]
+    sec = st.secs
+    mass_f = float(fd.assemble(p["f"] * fd.dx))
+    mass_u = float(fd.assemble(p["u"] * fd.dx))
+    phi = fd.assemble(fd.TestFunction(p["Vd"]) * fd.dx).dat
+    rows = M.matvec(torch.ones(M.shape[1], dtype=torch.float64,
+                               device="cuda"))
+    row_abs = float((rows - phi).abs().max())
+    phi_max = float(phi.abs().max())
+    # the miss taken apart: the fan pieces below _MIN_DETJ, the clipping
+    # tolerance _EPS, and what is left with neither (rounding)
+    r_jax, r_keep, r_exact = _row_sum_sources(fd, p, phi)
+    dropped, tol = r_keep - r_jax, r_exact - r_keep
+    left = float((r_exact - phi).abs().max())
+    by_add = float((r_jax - phi).abs().max())
+    w = int((rows - phi).abs().argmax())
+    print(f"{label}: row sums against int phi_i (max {phi_max:.4e}): "
+          f"matrix {row_abs:.3e}; by index_add_ {by_add:.3e}"
+          f" of which dropped fan pieces {float(dropped.abs().max()):.3e} "
+          f"({int((dropped != 0).sum())} rows) and the clipping tolerance "
+          f"{float(tol.abs().max()):.3e} ({int((tol != 0).sum())} rows); "
+          f"with both off {left:.3e} (relative {left / phi_max:.3e}); "
+          f"worst row {w}: miss {float(rows[w] - phi[w]):.3e} dropped "
+          f"{float(dropped[w]):.3e} tolerance {float(tol[w]):.3e} left "
+          f"{float(r_exact[w] - phi[w]):.3e}")
+    err = _transfer_errors(fd, label, p)
+    dP, mP = _small_mixed_mass(fd, "cuda"), _small_mixed_mass(fd, "cpu")
+    same = (np.array_equal(dP[0].coo_rows, mP[0].coo_rows)
+            and np.array_equal(dP[0].coo_cols, mP[0].coo_cols))
+    small_diff = float((dP[1] - mP[1]).abs().max() / mP[1].abs().max()) \
+        if same else float("inf")
+    npairs = len(st.results["candidate_pairs"][0][0])
+    print(f"{label}: cells {p['Vs'].mesh().num_cells} -> "
+          f"{p['Vd'].mesh().num_cells} candidate_pairs {npairs} "
+          f"mixed_mass nnz {M.nnz} problem_setup_s {setup_s:.3f} "
+          f"project_s {proj_s:.3f} "
+          + " ".join(f"{k}_s {v:.3f}" for k, v in sec.items())
+          + f" |int u - int f|/|int f| {abs(mass_u - mass_f) / abs(mass_f):.3e}"
+          f" row_sums_vs_int_phi {row_abs:.3e} (relative "
+          f"{row_abs / phi_max:.3e}) l2_err {err:.4e} small "
+          f"{SM_SMALL} card_vs_cpu {small_diff:.3e} pattern_equal {same} "
+          f"device_peak {torch.cuda.max_memory_allocated()} k1_launches "
+          f"{counts.k1}")
+    k1in.check(label, counts.k1)
+    bound = TRANSFER_ERR[label]
+    _gate(failed, p["u"].dat.is_cuda, f"{label}: projection on the card")
+    _gate(failed, abs(mass_u - mass_f) <= SM_CONSERVE * abs(mass_f),
+          f"{label}: mass conserved within {SM_CONSERVE}")
+    _gate(failed, left <= SM_ROWSUM * phi_max,
+          f"{label}: with exact clipping and every fan piece, row sums "
+          f"equal int phi_i within {SM_ROWSUM} relative")
+    _gate(failed, row_abs <= SM_ROWSUM_ABS,
+          f"{label}: row sums of the matrix equal int phi_i within "
+          f"{SM_ROWSUM_ABS} absolute")
+    _gate(failed, bound is not None and err < bound,
+          f"{label}: L2 error {err:.4e} < {bound}")
+    _gate(failed, small_diff <= SM_CARD_CPU,
+          f"{label}: clipping on the card equals the CPU's at {SM_SMALL}")
+    _gate(failed, counts.k1 > 0, f"{label}: K1 launched {counts.k1}")
+    del p, st, M, r_jax, r_keep, r_exact
+    return counts, failed
+
+
+def transfer_phase():
+    """hiptmair_n1curl_576, gtmg_hybrid_rt1_512, nonnested_gmg_p1_1024,
+    supermesh_p1_512_384; every gate is checked after all four ran."""
+    t0 = phase("transfer")
+    import firedrake_tpu_torch as fd
+    fd.set_device(torch.device("cuda"))
+    used, failed = {}, []
+    used["hiptmair_n1curl_576"], f = hiptmair_run(fd)
+    failed += f
+    _release("hiptmair_n1curl_576")
+    used["gtmg_hybrid_rt1_512"], f, k2_row = gtmg_run(fd)
+    failed += f
+    _release("gtmg_hybrid_rt1_512")
+    used["nonnested_gmg_p1_1024"], f = nonnested_run(fd)
+    failed += f
+    _release("nonnested_gmg_p1_1024")
+    used["supermesh_p1_512_384"], f = supermesh_run(fd)
+    failed += f
+    _release("supermesh_p1_512_384")
+    if failed:
+        raise AssertionError("transfer phase: " + "; ".join(failed))
+    phase_done("transfer", t0)
+    return used, {"gtmg_hybrid_rt1_512": k2_row}
+
+
+def transfer_cpu(labels, tag, study=False):
+    """The transfer phase's cases on the CPU: at full size (the CG counts
+    the card must match; run on the card's host) or at the study's sizes
+    (the errors, their ratios and the extrapolation to full size)."""
+    import firedrake_tpu_torch as fd
+    from firedrake_tpu_torch.supermesh import supermesh_project
+    fd.set_device("cpu")
+    for label in labels:
+        if label not in TRANSFER_LABELS:
+            continue
+        if study and label not in TRANSFER_STUDY:
+            continue
+        full = {"gtmg_hybrid_rt1_512": GTMG_N,
+                "nonnested_gmg_p1_1024": NN_SIZES[-1],
+                "supermesh_p1_512_384": SM_SIZES[0]}.get(label)
+        sizes = TRANSFER_STUDY[label] if study else (full,)
+        errs = []
+        for n in sizes:
+            t0 = time.perf_counter()
+            its = None
+            if label == "hiptmair_n1curl_576":
+                p = _hiptmair_problem(fd)
+                p["solver"].solve()
+                its, err = p["solver"].ksp_iterations, fd.errornorm(
+                    p["f"], p["uh"])
+            elif label == "gtmg_hybrid_rt1_512":
+                p = _gtmg_problem(fd, n)
+                p["solver"].solve()
+                its = p["solver"].ksp_iterations
+            elif label == "nonnested_gmg_p1_1024":
+                p = _nonnested_problem(fd, tuple(
+                    k * n // NN_SIZES[-1] for k in NN_SIZES))
+                p["solver"].solve()
+                its = p["solver"].ksp_iterations
+            else:
+                p = _supermesh_problem(fd, (n, n * SM_SIZES[1]
+                                            // SM_SIZES[0]))
+                p["u"] = supermesh_project(p["f"], p["Vd"])
+            if label != "hiptmair_n1curl_576":
+                err = _transfer_errors(fd, label, p)
+            errs.append(err)
+            rate = ("" if len(errs) < 2 else
+                    f" ratio {errs[-2] / errs[-1]:.3f}")
+            print(f"{tag} {label} n {n}: iterations {its} err {err:.4e}"
+                  f"{rate} seconds {time.perf_counter() - t0:.1f} "
+                  f"host_max_rss_gib {_max_rss_gib():.2f}", flush=True)
+        if study and len(errs) >= 2:
+            r = errs[-2] / errs[-1]
+            steps = round(math.log2(full / sizes[-1]))
+            print(f"{tag} {label}: extrapolated to n {full}: "
+                  f"{errs[-1] / r ** steps:.4e} (last ratio {r:.3f} over "
+                  f"{steps} halvings); bound (twice) "
+                  f"{2 * errs[-1] / r ** steps:.4e}", flush=True)
+
+
 def main():
     t0 = time.perf_counter()
     device_phase()
@@ -5853,6 +6450,8 @@ def main():
     used.update(ddm_used)
     used.update(adjoint_phase())
     used.update(meshio_phase())
+    transfer_used, transfer_k2 = transfer_phase()
+    used.update(transfer_used)
     used["gmg_p2_tet_16m"], k1_action = north_star_phase()
     for label, c in used.items():
         print(f"launches {label}: k1 {c.k1} k2 {c.k2} k2_large "
@@ -5892,8 +6491,9 @@ def main():
          "library_ms": k2["library_ms"],
          "torch_ms": k2["library_ms"],
          # on the slate phase's own blocks: hybridized_rt2_256's packed
-         # broken mixed matrices, scpc_p5_128's interior blocks
-         "paths": k2_paths},
+         # broken mixed matrices, scpc_p5_128's interior blocks, and
+         # gtmg_hybrid_rt1_512's (transfer phase)
+         "paths": {**k2_paths, **transfer_k2}},
         # the large variant (33 <= n <= 128), same source: the Vanka
         # patches (n = 39) of the fieldsplit phase, the line (n = 65) and
         # extruded star (n = 117) patches of the multilevel phase
@@ -5966,7 +6566,8 @@ def only(names):
               "extruded": extruded_phase, "fieldsplit": fieldsplit_phase,
               "multilevel": multilevel_phase, "pcd_limit": pcd_limit,
               "ddm": ddm_phase, "adjoint": adjoint_phase,
-              "meshio": meshio_phase, "ml_rounding": ml_rounding}
+              "meshio": meshio_phase, "transfer": transfer_phase,
+              "ml_rounding": ml_rounding}
     for name in names:
         phases[name]()
     print("only: done")

@@ -37,7 +37,9 @@ eigensolvers (eigensolver.py: host ARPACK or a device LOBPCG); the
 ``Mesh()`` factory and the gmsh, Exodus II, CGNS and netgen readers
 (mesh/io_*.py, netgen_mesh.py), point evaluation (pointeval.py,
 ``Function.at``), VertexOnlyMesh (vertexonly.py) and HDF5 checkpoints
-(io/checkpoint.py).
+(io/checkpoint.py); interpolation matrices (``Interpolator``,
+interpolation.py), HiptmairPC and GTMGPC, non-nested hierarchies and
+TransferManager (mg/), and supermesh projection (supermesh.py).
 """
 from .language import *            # noqa: F401,F403  (UFL surface)
 from .mesh.utility import *        # noqa: F401,F403
@@ -57,7 +59,7 @@ from .assemble import assemble, get_assembler, FormAssembler
 from .assembly.sparsity import Sparsity
 from .assembly.matrix import Matrix, MatView
 from .norms import norm, errornorm
-from .interpolation import interpolate
+from .interpolation import interpolate, Interpolator
 from .solving import (solve, LinearVariationalProblem,
                       LinearVariationalSolver, NonlinearVariationalProblem,
                       NonlinearVariationalSolver, LinearSolver)
@@ -70,6 +72,8 @@ from .solvers.snes import AuxiliaryOperatorSNES
 from .solvers.pcs import (PCBase, AssembledPC, AuxiliaryOperatorPC,
                           MassInvPC, PCDPC)
 from .mg import MeshHierarchy, HierarchyBase, prolong, restrict, inject
+from .mg.transfer import TransferManager
+from .supermesh import assemble_mixed_mass_matrix
 from .mg.mesh import (ExtrudedMeshHierarchy, SemiCoarsenedExtrudedHierarchy,
                       NonNestedHierarchy)
 from .io import (VTKFile, File, CheckpointFile, DumbCheckpoint,

@@ -49,6 +49,22 @@ def ell_matvec(ell_data, x, tables):
     return (ell_data * xg).sum(dim=1)
 
 
+def entry_matrix(nrows, ncols, rows, cols, vals, row_space=None,
+                 col_space=None):
+    """The Matrix whose entry (rows[k], cols[k]) is the sum of every
+    vals[k] aimed at it: the Sparsity from the host index arrays (1x1
+    blocks, as the JAX package builds its interpolation matrices), the
+    values summed on their device in the order of k (the gather route's
+    accumulation plan, the same on every run and device)."""
+    from ..assemble import _accumulation
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1, 1)
+    cols = np.asarray(cols, dtype=np.int64).reshape(-1, 1)
+    sp = Sparsity(nrows, ncols, [(rows, cols)])
+    pos = np.asarray(sp.block_positions[0], dtype=np.int64)
+    acc = _accumulation(pos, sp.nnz, vals.device)
+    return Matrix(sp, acc(vals.reshape(-1)), row_space, col_space)
+
+
 class MatView:
     """Reference-compatible ``A.M`` handle (pyop2 Mat role): ``.values`` is
     the dense array."""
@@ -161,6 +177,23 @@ class Matrix:
         contrib = self.data * y.index_select(0, t["rows"])
         return self.data.new_zeros(self.sparsity.ncols).index_add_(
             0, t["cols"], contrib)
+
+    def transpose(self):
+        """A^T as a Matrix of its own: the Sparsity of the transposed
+        pattern (built on the host once per Sparsity) and this matrix's
+        values gathered into its order on the device.  Its matvec is the
+        ELL row sum, which runs in a fixed order on every device, where
+        transpose_matvec's scatter-add does not on the card."""
+        s = self.sparsity
+        hit = s.__dict__.get("_transposed")
+        if hit is None:
+            perm = np.lexsort((s.coo_rows, s.coo_cols))
+            spT = Sparsity(s.ncols, s.nrows,
+                           [(s.coo_cols[perm, None], s.coo_rows[perm, None])])
+            hit = s._transposed = (spT, perm)
+        spT, perm = hit
+        data = self.data[torch.as_tensor(perm, device=self.data.device)]
+        return Matrix(spT, data, self.col_space, self.row_space)
 
     # ------------------------------------------------------------- export
     def to_scipy(self):

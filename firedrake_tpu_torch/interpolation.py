@@ -8,7 +8,14 @@ H(div)/H(curl) spaces are read through their dof signs or transforms.
 Onto a VertexOnlyMesh, and from a Function on another mesh, interpolation
 is point evaluation (vertexonly.py, pointeval.py).
 
-Not ported yet: interpolation matrices (ROADMAP.md queue 1, item 18)."""
+Interpolation as a linear operator: ``operator_matrix`` (the discrete
+exterior derivatives of HiptmairPC), ``cross_mesh_scalar_matrix``
+(NonNestedHierarchy transfers) and ``Interpolator.assemble`` (same-mesh,
+cross-mesh and VertexOnlyMesh targets).  The sparsity is built on the
+host as in the JAX package; the values are computed and summed on the
+device, each entry's contributions in a fixed order (the gather route's
+accumulation plan), and ``Matrix.transpose`` gives the adjoint as a
+matrix of its own, so that restriction sums in a fixed order too."""
 from __future__ import annotations
 
 import numpy as np
@@ -18,7 +25,7 @@ from .language.core import Expr, Argument
 from .compiler.preprocess import push_grad
 from .compiler.lowering import PointsContext, Lowerer
 from .function import Function
-from .device import as_tensor, get_device
+from .device import as_tensor, get_device, to_numpy
 
 _interp_cache: dict = {}
 
@@ -309,3 +316,326 @@ def interpolate(expr, V, **kwargs):
         return interpolate_onto(expr, V)
     f = Function(V)
     return interpolate_onto(expr, f)
+
+
+# ------------------------------------------------- interpolation operators
+def _vmapped_cells(kern, ce):
+    """kern vmapped over the cells of ce (ncell, nvert, gdim), CELL_CHUNK
+    cells at a time."""
+    kb = torch.func.vmap(kern)
+    out = None
+    for c0 in range(0, ce.shape[0], CELL_CHUNK):
+        v = kb(ce[c0:c0 + CELL_CHUNK])
+        if out is None:
+            out = v.new_empty((ce.shape[0],) + v.shape[1:])
+        out[c0:c0 + CELL_CHUNK] = v
+    return out
+
+
+def operator_matrix(expr: Expr, V):
+    """Sparse matrix of the linear interpolation operator u -> I_V(expr(u)),
+    where ``expr`` holds exactly one Argument (the source trial) and V is
+    a moment (dual-quadrature) space: the discrete gradient G: CG_k ->
+    N1curl_k with expr = grad(TrialFunction(CG)), the exterior derivative
+    HiptmairPC needs (reference: hiptmair.py:204 interpolate(dminus(trial),
+    V); the JAX package's interpolation.operator_matrix).
+
+    Per cell, on the device: the expression lowered at the target's dual
+    points with the trial axis kept (all cells in one vmapped batch),
+    pulled back by the target's Piola map and contracted with the dual
+    weights into a local (n_target, n_source) matrix; rows converted to
+    the target's canonical dofs, columns from the source's; a shared
+    target dof is the average over the cells that hold it."""
+    from .compiler.smallmat import det as _sdet, inv as _sinv
+    from .assembly.matrix import entry_matrix
+    from .language.core import Coefficient, ConstantBase
+
+    args = {t for t in expr.traverse() if isinstance(t, Argument)}
+    if len(args) != 1:
+        raise ValueError("operator_matrix needs exactly one Argument")
+    if any(isinstance(t, (Coefficient, ConstantBase))
+           for t in expr.traverse()):
+        raise NotImplementedError("operator_matrix with coefficients")
+    (arg,) = args
+    Vs = arg.function_space()
+    mesh = V.mesh_obj
+    assert Vs.mesh_obj is mesh
+    gdim = mesh.geometric_dimension
+    elem = V.element
+    dpts, dwts = elem.dual_quadrature()    # (nd, nq, tdim), (nd, nq, vd)
+    nd, nq, tdim = dpts.shape
+    pts = dpts.reshape(nd * nq, tdim)
+    integrand = push_grad(expr)
+    if Vs.block_size != 1:
+        raise NotImplementedError("operator_matrix vector sources")
+    nj = Vs.element.ndof
+    mapping = getattr(elem, "mapping", "identity")
+
+    def kern(coords_e):
+        ctx = PointsContext(mesh, pts, coords_e)
+        low = Lowerer(ctx, None, arg, {}, {})
+        v = low.eval(integrand, None)      # (1, nj, nd*nq) + shape
+        v = torch.broadcast_to(v, (1, nj, len(pts)) + integrand.shape)[0]
+        return v.reshape((nj, len(pts), -1))   # (nj, nd*nq, vd)
+
+    dev = get_device()
+    cmap3 = mesh.coordinates.function_space().cell_dof_map.reshape(
+        mesh.num_cells, -1, gdim)
+    ce = mesh.device_coordinates()[torch.as_tensor(
+        cmap3.astype(np.int64), device=dev)]     # (ncell, nvert, gdim)
+    vals = _vmapped_cells(kern, ce)              # (nc, nj, nd*nq, vd)
+    # pull the physical values back to the target's reference cell
+    # (affine cells: constant J = [v_i - v_0])
+    J = torch.stack([ce[:, i + 1] - ce[:, 0] for i in range(tdim)],
+                    dim=-1)                      # (nc, gdim, tdim)
+    if mapping == "contravariant":
+        uref = _sdet(J)[:, None, None, None] * torch.einsum(
+            "cij,cnqj->cnqi", _sinv(J), vals)
+    elif mapping == "covariant":
+        uref = torch.einsum("cji,cnqj->cnqi", J, vals)
+    else:
+        uref = vals
+    uref = uref.reshape(uref.shape[0], nj, nd, nq, -1)
+    dw = torch.as_tensor(np.asarray(dwts, dtype=np.float64).reshape(
+        nd, nq, -1), device=dev)
+    loc = torch.einsum("nqv,cjnqv->cnj", dw, uref)   # (nc, nd, nj)
+    if getattr(V, "has_dof_signs", False):
+        loc = loc * torch.as_tensor(V.cell_dof_signs,
+                                    device=dev)[:, :, None]
+    elif getattr(V, "has_dof_transforms", False):
+        loc = torch.einsum("cij,cjk->cik", torch.as_tensor(
+            np.linalg.inv(V.cell_dof_transforms), device=dev), loc)
+    # source canonical -> local columns: w_loc = S w_can / T @ w_can
+    if getattr(Vs, "has_dof_signs", False):
+        loc = loc * torch.as_tensor(Vs.cell_dof_signs,
+                                    device=dev)[:, None, :]
+    elif getattr(Vs, "has_dof_transforms", False):
+        loc = torch.einsum("cnj,cjk->cnk", loc, torch.as_tensor(
+            Vs.cell_dof_transforms, device=dev))
+    rows_sc = V.cell_dof_map.astype(np.int64)    # (nc, nd)
+    cols_sc = Vs.cell_dof_map.astype(np.int64)   # (nc, nj)
+    # shared target dofs are written by every adjacent cell: average
+    mult = np.zeros(V.dim)
+    np.add.at(mult, rows_sc.reshape(-1), 1.0)
+    loc = loc / torch.as_tensor(mult[rows_sc], device=dev)[:, :, None]
+    nc = rows_sc.shape[0]
+    rows_e = np.broadcast_to(rows_sc[:, :, None], (nc, nd, nj))
+    cols_e = np.broadcast_to(cols_sc[:, None, :], (nc, nd, nj))
+    return entry_matrix(V.dim, Vs.dim, rows_e, cols_e, loc)
+
+
+def scalar_node_positions(V):
+    """(num_nodes, gdim) physical positions of a nodal space's scalar
+    nodes, evaluated through the mesh coordinate element (curved-mesh
+    aware); host numpy, as the JAX package's."""
+    mesh = V.mesh_obj
+    cspace = mesh.coordinate_space
+    g = mesh.geometric_dimension
+    ctab = cspace.scalar_element.tabulate(
+        np.asarray(V.scalar_element.nodes), 0)[0]        # (nd, ndc)
+    cdofs = to_numpy(mesh.coordinates.dat)[
+        np.asarray(cspace.cell_dof_map)].reshape(mesh.num_cells, -1, g)
+    pos_cells = np.einsum("ni,cig->cng", ctab, cdofs)    # (nc, nd, g)
+    pos = np.zeros((V.sdata.num_nodes, g))
+    pos[np.asarray(V.sdata.cell_node_map)] = pos_cells
+    return pos
+
+
+def _ref_inside(cellname, r, tol):
+    """Which reference coordinates r (n, tdim) lie inside the reference
+    cell within tol (a bool tensor)."""
+    if cellname in ("interval", "triangle", "tetrahedron"):
+        return (r.amin(dim=-1) >= -tol) & (r.sum(dim=-1) <= 1.0 + tol)
+    if cellname in ("quadrilateral", "hexahedron"):
+        return (r.amin(dim=-1) >= -tol) & (r.amax(dim=-1) <= 1.0 + tol)
+    if cellname == "prism":
+        return ((r[:, :2].amin(dim=-1) >= -tol)
+                & (r[:, :2].sum(dim=-1) <= 1.0 + tol)
+                & (r[:, 2] >= -tol) & (r[:, 2] <= 1.0 + tol))
+    return torch.ones(len(r), dtype=torch.bool, device=r.device)
+
+
+def _nearest_cells(mesh, pts, k=8):
+    """For each point, the cell whose centroid is nearest (squared
+    distance as the JAX package computes it, then the lower cell number):
+    one k-d tree query for k candidates each."""
+    from .pointeval import _host_geometry, _sorted_candidates
+    geo = _host_geometry(mesh)
+    k = min(k, len(geo["centroids"]))
+    _, cand = geo["tree"].query(pts, k=k, workers=-1)
+    cand = np.asarray(cand, dtype=np.int64).reshape(len(pts), k)
+    return _sorted_candidates(geo, pts, cand)[0][:, 0]
+
+
+def _locate_robust(mesh, pts, allow_extrapolate=False, tol_inside=5e-2):
+    """Point location that tolerates nodes marginally outside the mesh
+    (non-matching boundaries of non-nested hierarchies): widen the
+    containment tolerance, then fall back to the nearest cell, for all
+    remaining points in one k-d tree query and one batched inversion.
+
+    The nearest-cell fallback is bounded by default: a point whose
+    reference coordinates land farther than ``tol_inside`` outside the
+    nearest cell is outside the mesh, and extrapolating there would give
+    wrong values silently (the reference raises unless
+    allow_missing_dofs=True).  NonNestedTransfer passes
+    allow_extrapolate=True."""
+    from .pointeval import _locate, _reference_coords, PointNotInDomainError
+    pts = np.ascontiguousarray(np.asarray(pts, dtype=np.float64))
+    cells, refs = _locate(mesh, pts, tol=1e-10)
+    for tol in (1e-6, 1e-2):
+        missing = cells < 0
+        if not missing.any():
+            return cells, refs
+        idx = np.nonzero(missing)[0]
+        c2, r2 = _locate(mesh, pts[idx], tol=tol)
+        cells[idx] = c2
+        refs[torch.as_tensor(idx, device=refs.device)] = r2
+    missing = np.nonzero(cells < 0)[0]
+    if len(missing):
+        near = _nearest_cells(mesh, pts[missing])
+        dev = refs.device
+        r, ok = _reference_coords(
+            mesh, torch.as_tensor(near, device=dev),
+            torch.as_tensor(pts[missing], device=dev))
+        bad = ~ok
+        if not allow_extrapolate:
+            bad = bad | ~_ref_inside(mesh.cell.name, r, tol_inside)
+        bad = np.nonzero(bad.cpu().numpy())[0]
+        if len(bad):
+            # the first offending point, as the JAX package's loop meets it
+            i = bad[0]
+            if not bool(ok[i]):
+                raise ValueError(f"point {pts[missing[i]]} not locatable")
+            raise PointNotInDomainError(
+                f"point {pts[missing[i]]} is outside the source mesh "
+                "(pass allow_missing_dofs=True to extrapolate from the "
+                "nearest cell)")
+        cells[missing] = near
+        refs[torch.as_tensor(missing, device=dev)] = r
+    return cells, refs
+
+
+def cross_mesh_entries(Vs, Vd, allow_extrapolate=False):
+    """Per-target-scalar-node interpolation entries between nodal spaces
+    on different meshes: rows_sc (nn, 1) and cols_sc (nn, nsrc) on the
+    host, loc (nn, 1, nsrc) on the device with loc[i, 0, j] = phi_j^s at
+    target node i."""
+    from .pointeval import basis_at
+    pos = scalar_node_positions(Vd)
+    cells, refs = _locate_robust(Vs.mesh_obj, pos,
+                                 allow_extrapolate=allow_extrapolate)
+    loc = basis_at(Vs.scalar_element, refs)
+    rows_sc = np.arange(len(pos), dtype=np.int64)[:, None]
+    cols_sc = np.asarray(Vs.cell_node_map, dtype=np.int64)[cells]
+    return rows_sc, cols_sc, loc[:, None, :]
+
+
+def cross_mesh_scalar_matrix(Vs, Vd):
+    """The cross-mesh interpolation operator over scalar node numberings
+    as a device Matrix (NonNestedHierarchy transfers).  Extrapolation from
+    the nearest cell is allowed here: non-nested hierarchy levels have
+    marginally non-matching boundaries."""
+    from .assembly.matrix import entry_matrix
+    rows_sc, cols_sc, loc = cross_mesh_entries(Vs, Vd,
+                                               allow_extrapolate=True)
+    rows = np.repeat(rows_sc.ravel(), cols_sc.shape[1])
+    return entry_matrix(Vd.sdata.num_nodes, Vs.sdata.num_nodes, rows,
+                        cols_sc.ravel(), loc[:, 0, :])
+
+
+class Interpolator:
+    """Reusable interpolator (reference: interpolation.py Interpolator).
+
+    When ``expr`` is an Argument or Function of a source space, the
+    interpolation is a linear operator: ``assemble()`` makes the sparse
+    matrix I (target dim x source dim) and ``interpolate(cof,
+    adjoint=True)`` applies I^T (the data-assimilation adjoint), by I^T
+    kept as a matrix of its own.  Identity-mapped (Lagrange-family)
+    sources; targets are same-mesh or other-mesh nodal spaces, or a
+    VertexOnlyMesh P0DG space."""
+
+    def __init__(self, expr, V, allow_missing_dofs=False):
+        self.expr = expr
+        self.V = V
+        self.allow_missing_dofs = allow_missing_dofs
+        self._mat = None
+        self._matT = None
+
+    def _source_space(self):
+        if isinstance(self.expr, (Argument, Function)):
+            return self.expr.function_space()
+        raise NotImplementedError(
+            "interpolation matrices need a bare Function/Argument "
+            "expression")
+
+    def assemble(self):
+        """The interpolation operator as a Matrix."""
+        if self._mat is not None:
+            return self._mat
+        from .assembly.matrix import entry_matrix
+        from .pointeval import basis_at
+        Vs = self._source_space()
+        Vd = self.V
+        src = Vs.scalar_element
+        if getattr(src, "mapping", "identity") != "identity":
+            raise NotImplementedError("interpolation matrices of Piola-"
+                                      "mapped sources")
+        bs = Vs.block_size
+        mesh_d = Vd.mesh_obj
+        dev = get_device()
+        if getattr(mesh_d, "is_vertex_only", False):
+            # rows: one per (point, component); cols: parent cell dofs
+            assert mesh_d.parent is Vs.mesh_obj
+            loc = basis_at(src, as_tensor(mesh_d.refs))[:, None, :]
+            rows_sc = np.arange(len(mesh_d.cells))[:, None]
+            cols_sc = Vs.cell_node_map[mesh_d.cells]
+            n_rownodes = len(mesh_d.cells)
+        elif Vd.mesh_obj is not Vs.mesh_obj:
+            # cross-mesh: one row per target scalar node, located in the
+            # source mesh
+            rows_sc, cols_sc, loc = cross_mesh_entries(
+                Vs, Vd, allow_extrapolate=self.allow_missing_dofs)
+            n_rownodes = Vd.num_nodes
+        else:
+            tab = src.tabulate(Vd.scalar_element.nodes, 0)[0]
+            rows_sc = Vd.cell_node_map
+            cols_sc = Vs.cell_node_map
+            # shared CG target nodes are written by several cells: scale
+            # by multiplicity so the sum averages (values agree for
+            # continuous data)
+            mult = np.zeros(Vd.num_nodes)
+            np.add.at(mult, rows_sc.reshape(-1), 1.0)
+            loc = torch.as_tensor(
+                np.broadcast_to(tab, (Vs.mesh_obj.num_cells,) + tab.shape)
+                / mult[rows_sc][:, :, None], device=dev)
+            n_rownodes = Vd.num_nodes
+        nc, ndst, nsrc = loc.shape
+        comp = np.arange(bs)
+        # (nc, ndst, nsrc, bs): component c of node i maps from component
+        # c of node j (node-major interleave on both sides)
+        rows_e = (rows_sc[:, :, None, None] * bs
+                  + comp[None, None, None, :]) \
+            * np.ones((1, 1, nsrc, 1), dtype=np.int64)
+        cols_e = (cols_sc[:, None, :, None] * bs
+                  + comp[None, None, None, :]) \
+            * np.ones((1, ndst, 1, 1), dtype=np.int64)
+        vals_e = torch.broadcast_to(loc[:, :, :, None], (nc, ndst, nsrc, bs))
+        self._mat = entry_matrix(n_rownodes * bs, Vs.dim, rows_e, cols_e,
+                                 vals_e)
+        return self._mat
+
+    def interpolate(self, source=None, output=None, adjoint=False):
+        from .function import Cofunction
+        if adjoint:
+            if self._matT is None:
+                self._matT = self.assemble().transpose()
+            out = output or Cofunction(self._source_space())
+            out.dat = self._matT.matvec(as_tensor(source.dat))
+            return out
+        if source is not None and not isinstance(self.expr, Function):
+            f = output or Function(self.V)
+            f.dat = self.assemble().matvec(as_tensor(source.dat))
+            return f
+        f = output or Function(self.V)
+        return interpolate_onto(source if source is not None
+                                else self.expr, f)

@@ -12,10 +12,9 @@ Structured utility meshes (triangles, quads, tets, hexes) refine keeping
 their grid numbering (_refine_structured), so every level takes the
 stencil path.  Extruded hierarchies refine their base meshes and the
 layers (ExtrudedMeshHierarchy), or the layers alone
-(SemiCoarsenedExtrudedHierarchy).
-
-Not ported yet (NotImplementedError naming the ROADMAP item): non-nested
-hierarchies.
+(SemiCoarsenedExtrudedHierarchy).  NonNestedHierarchy links meshes
+that do not nest; its transfers interpolate across meshes
+(mg/transfer.py NonNestedTransfer).
 """
 from __future__ import annotations
 
@@ -27,12 +26,6 @@ from ..mesh.geometry import Mesh
 __all__ = ["MeshHierarchy", "HierarchyBase", "NonNestedHierarchy",
            "refine_mesh",
            "ExtrudedMeshHierarchy", "SemiCoarsenedExtrudedHierarchy"]
-
-_NOT_PORTED = {
-    "non-nested": "non-nested hierarchies are not ported yet: ROADMAP.md "
-                  "queue 1, item 18 (cross-mesh transfer, supermesh)",
-}
-
 
 def _refine_triangle(mesh: Mesh):
     topo = mesh.topology
@@ -491,4 +484,11 @@ def SemiCoarsenedExtrudedHierarchy(base_mesh, height=1.0, nref=1,
 
 
 def NonNestedHierarchy(*meshes):
-    raise NotImplementedError(_NOT_PORTED["non-nested"])
+    """Hierarchy over arbitrary (non-nested) meshes of the same domain;
+    transfers go through cross-mesh node interpolation
+    (mg/transfer.py NonNestedTransfer).  Reference:
+    firedrake/mg/mesh.py:442 NonNestedHierarchy."""
+    ms = list(meshes)
+    for mc, mf in zip(ms, ms[1:]):
+        mf._nonnested_coarse = mc
+    return HierarchyBase(ms)

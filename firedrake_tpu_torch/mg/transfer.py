@@ -13,7 +13,14 @@ numpy, as in the JAX package; the transfers are plain torch functions:
 On structured hierarchies (StructuredTransfer) each is a handful of
 strided slices and strided slice-adds, with no index arrays.
 
-Not ported yet: the non-nested and adaptive transfers.
+Between the levels of a NonNestedHierarchy (NonNestedTransfer) the
+transfers are cross-mesh interpolation matrices: prolongation locates the
+fine nodes in the coarse mesh, injection the coarse nodes in the fine
+mesh, and restriction applies the prolongation's transpose, kept as a
+matrix of its own so that its sums run in a fixed order.
+TransferManager moves non-nodal spaces through an embedding DG space.
+
+Not ported yet: the adaptive transfers.
 """
 from __future__ import annotations
 
@@ -24,8 +31,9 @@ import torch
 
 from ..device import as_tensor
 
-__all__ = ["LevelTransfer", "StructuredTransfer", "get_transfer",
-           "prolong", "restrict", "inject"]
+__all__ = ["LevelTransfer", "StructuredTransfer", "NonNestedTransfer",
+           "TransferManager", "get_transfer", "prolong", "restrict",
+           "inject"]
 
 
 def _geometric_child_maps(mc, mf, type_of=None):
@@ -318,17 +326,52 @@ def _structured_ok(Vc, Vf):
 _transfer_cache = {}
 
 
+class NonNestedTransfer:
+    """Transfers between levels of a NonNestedHierarchy: prolongation is
+    cross-mesh node interpolation (fine nodes evaluate the coarse function
+    wherever they land), restriction its transpose, injection the reverse
+    interpolation (the JAX package's mg/transfer.py NonNestedTransfer;
+    reference: firedrake/mg/mesh.py:442).  Vector spaces apply the scalar
+    matrices component by component."""
+
+    def __init__(self, Vc, Vf):
+        from ..interpolation import cross_mesh_scalar_matrix
+        if getattr(Vc.scalar_element, "mapping", "identity") != "identity":
+            raise NotImplementedError("non-nested transfer: nodal spaces")
+        self.bs = Vc.block_size
+        self._P = cross_mesh_scalar_matrix(Vc, Vf)   # fine <- coarse
+        self._PT = self._P.transpose()               # coarse <- fine duals
+        self._I = cross_mesh_scalar_matrix(Vf, Vc)   # coarse <- fine
+
+    def _apply(self, A, x):
+        if self.bs == 1:
+            return A.matvec(x)
+        xm = x.reshape(-1, self.bs)
+        return torch.stack([A.matvec(xm[:, k].contiguous())
+                            for k in range(self.bs)], dim=1).reshape(-1)
+
+    def prolong_fn(self, cdat):
+        return self._apply(self._P, cdat)
+
+    def restrict_fn(self, fdual):
+        return self._apply(self._PT, fdual)
+
+    def inject_fn(self, fdat):
+        return self._apply(self._I, fdat)
+
+
 def get_transfer(Vc, Vf):
     """The transfer between two consecutive levels' spaces, cached by
-    (coarse mesh, fine mesh, element, device)."""
-    from .mesh import _NOT_PORTED
+    (coarse mesh, fine mesh, element, device).  A non-nested level is
+    tested first: its meshes may also be structured."""
     from ..device import get_device
     key = (id(Vc.mesh_obj), id(Vf.mesh_obj), hash(Vc.element),
            str(get_device()))
     if key not in _transfer_cache:
-        if getattr(Vf.mesh_obj, "_nonnested_coarse", None) is not None:
-            raise NotImplementedError(_NOT_PORTED["non-nested"])
-        if _structured_ok(Vc, Vf):
+        if getattr(Vf.mesh_obj, "_nonnested_coarse", None) \
+                is Vc.mesh_obj:
+            _transfer_cache[key] = NonNestedTransfer(Vc, Vf)
+        elif _structured_ok(Vc, Vf):
             _transfer_cache[key] = StructuredTransfer(Vc, Vf)
         elif (getattr(Vf.mesh_obj, "_c2f_cells", None) is None
                 and getattr(Vf.mesh_obj, "parent_cells", None)
@@ -361,3 +404,47 @@ def inject(fine, coarse):
     t = get_transfer(coarse.function_space(), fine.function_space())
     coarse.dat = t.inject_fn(as_tensor(fine.dat))
     return coarse
+
+
+class TransferManager:
+    """Reference: firedrake/mg/embedded.py TransferManager.  Spaces whose
+    elements are not nodal Lagrange move through an equivalent vector DG
+    space: interpolate into it, transfer, project back.  Nodal spaces (CG
+    and DG, vector and tensor) go straight through the level transfers."""
+
+    def _is_nodal(self, V):
+        fam = V.scalar_element.family
+        return fam in ("Lagrange", "Discontinuous Lagrange")
+
+    def _embedding_space(self, V):
+        from ..functionspace import VectorFunctionSpace
+        deg = V.scalar_element.degree
+        d = V.mesh_obj.geometric_dimension
+        return VectorFunctionSpace(V.mesh_obj, "DG", deg, dim=d)
+
+    def _via_embedding(self, op, src, dst):
+        from ..function import Function
+        from ..interpolation import interpolate_onto
+        from ..projection import project
+        gs = Function(self._embedding_space(src.function_space()))
+        interpolate_onto(src, gs)
+        gd = Function(self._embedding_space(dst.function_space()))
+        op(gs, gd)
+        project(gd, dst)
+        return dst
+
+    def prolong(self, coarse, fine):
+        if self._is_nodal(coarse.function_space()):
+            return prolong(coarse, fine)
+        return self._via_embedding(prolong, coarse, fine)
+
+    def inject(self, fine, coarse):
+        if self._is_nodal(fine.function_space()):
+            return inject(fine, coarse)
+        return self._via_embedding(inject, fine, coarse)
+
+    def restrict(self, fine_dual, coarse_dual):
+        if self._is_nodal(fine_dual.function_space()):
+            return restrict(fine_dual, coarse_dual)
+        raise NotImplementedError("embedded restriction of duals: use "
+                                  "nodal residual spaces")

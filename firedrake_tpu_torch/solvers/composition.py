@@ -164,9 +164,8 @@ def build_pc(ctx: OpCtx, params: dict, prefix: str = ""):
     make = _PCS.get(pc_type)
     if make is None:
         raise NotImplementedError(
-            f"pc_type {pc_type!r} (prefix {prefix!r}) is not ported yet "
-            "(Hiptmair and GTMG wait for ROADMAP.md queue 1, item 18's "
-            f"interpolation operators); available: {sorted(_PCS)}")
+            f"pc_type {pc_type!r} (prefix {prefix!r}) is not ported yet; "
+            f"available: {sorted(_PCS)}")
     return make(ctx, params, prefix)
 
 
@@ -278,7 +277,7 @@ def _resolve_python_pc(name):
     dotted path is imported (a user's AuxiliaryOperatorPC subclass)."""
     from . import pcs as _pcs
     short = name.rsplit(".", 1)[-1]
-    if short in _pcs.__all__ or short in _pcs._UNPORTED:
+    if short in _pcs.__all__:
         return getattr(_pcs, short)
     if "." in name and not name.startswith("firedrake."):
         import importlib

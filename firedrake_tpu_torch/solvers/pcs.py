@@ -16,11 +16,10 @@ zoo).
 A PC is built once at solver set-up; `apply` is a callable on device
 tensors.  FDMPC and P1PC (solvers/fdm.py), ASMLinesmoothPC,
 ASMExtrudedStarPC and ASMGridLinePC (solvers/asm.py) and FacetSplitPC
-(solvers/facet_split.py) and BDDCPC (solvers/bddc.py) are resolved here
-by name, as in the JAX package.  CovariancePC (preconditioners/
-covariance.py) pairs with adjoint/covariance.py's CovarianceMat.  The
-JAX package's other python PCs (HiptmairPC, GTMGPC) raise
-NotImplementedError naming their ROADMAP.md queue 1 item.
+(solvers/facet_split.py), HiptmairPC (solvers/hiptmair.py), GTMGPC
+(solvers/gtmg.py) and BDDCPC (solvers/bddc.py) are resolved here by name,
+as in the JAX package.  CovariancePC (preconditioners/covariance.py)
+pairs with adjoint/covariance.py's CovarianceMat.
 """
 from __future__ import annotations
 
@@ -32,18 +31,15 @@ from ..device import as_tensor
 
 __all__ = ["PCBase", "AssembledPC", "AuxiliaryOperatorPC", "MassInvPC",
            "PCDPC", "FDMPC", "P1PC", "ASMLinesmoothPC",
-           "ASMExtrudedStarPC", "ASMGridLinePC", "FacetSplitPC", "BDDCPC",
-           "CovariancePC"]
+           "ASMExtrudedStarPC", "ASMGridLinePC", "FacetSplitPC",
+           "HiptmairPC", "GTMGPC", "BDDCPC", "CovariancePC"]
 
 #: python PCs of the other solver modules, bound on first use (those
 #: modules import PCBase from here)
 _LATE = {"FDMPC": "fdm", "P1PC": "fdm", "ASMLinesmoothPC": "asm",
          "ASMExtrudedStarPC": "asm", "ASMGridLinePC": "asm",
-         "FacetSplitPC": "facet_split", "BDDCPC": "bddc"}
-
-#: the JAX package's python PCs not ported yet, and their ROADMAP.md
-#: queue 1 items
-_UNPORTED = {"HiptmairPC": 18, "GTMGPC": 18}
+         "FacetSplitPC": "facet_split", "HiptmairPC": "hiptmair",
+         "GTMGPC": "gtmg", "BDDCPC": "bddc"}
 
 
 def __getattr__(name):
@@ -51,10 +47,6 @@ def __getattr__(name):
     if mod is not None:
         return getattr(importlib.import_module(f".{mod}", __package__),
                        name)
-    item = _UNPORTED.get(name)
-    if item is not None:
-        raise NotImplementedError(
-            f"{name} is not ported yet: ROADMAP.md queue 1, item {item}")
     raise AttributeError(name)
 
 

@@ -5,8 +5,10 @@ gather route's matrix and vectors, Newton (assembled and matrix-free
 Jacobians), the Krylov methods, the slope limiter, an RT1 x DG0 block
 assembly and a hybridized and an SCPC solve (K2 on the Slate path),
 Stokes by Vanka (K2's large variant) and by a Schur fieldsplit, line
-smoothers on 65- and 129-dof columns and the adjoint's gradient and
-Hessian action on the card against the CPU.
+smoothers on 65- and 129-dof columns, the adjoint's gradient and
+Hessian action, the supermesh clipping, and Hiptmair and GTMG solves
+(restriction by transposes kept as matrices of their own: equal CG
+counts) on the card against the CPU.
 Marked `cuda`; skips where torch
 has no CUDA device.  Run on a machine with an NVIDIA GPU with
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
@@ -802,3 +804,83 @@ def test_point_location_and_evaluation_on_card_match_cpu(on_cuda, cell):
     assert np.abs(uv.dat.cpu().numpy()
                   - uv_cpu.dat.numpy()).max() <= 1e-14 * scale
     assert abs(J - J_cpu) <= 1e-13 * J_cpu
+
+
+def _mixed_mass(device, kind):
+    T.set_device(device)
+    if kind == "quad":
+        mA = T.UnitSquareMesh(12, 10, quadrilateral=True)
+        mB = T.UnitSquareMesh(9, 13, quadrilateral=True)
+    else:
+        mA, mB = T.UnitSquareMesh(12, 10), T.UnitSquareMesh(9, 13)
+    M = T.assemble_mixed_mass_matrix(T.FunctionSpace(mA, "CG", 1),
+                                     T.FunctionSpace(mB, "CG", 2))
+    return M.sparsity, M.data.cpu().numpy()
+
+
+@pytest.mark.parametrize("kind", ["triangle", "quad"])
+def test_supermesh_clipping_on_card_matches_cpu(on_cuda, kind):
+    """The mixed mass matrix of a few hundred cells each side, clipped on
+    the card (and by batched Newton on quads), against the CPU."""
+    sp_d, d = _mixed_mass("cuda", kind)
+    sp_c, c = _mixed_mass("cpu", kind)
+    assert np.array_equal(sp_d.coo_rows, sp_c.coo_rows)
+    assert np.array_equal(sp_d.coo_cols, sp_c.coo_cols)
+    assert np.abs(d - c).max() <= 1e-12 * np.abs(c).max()
+
+
+def _transfer_solves(device):
+    """GTMG's default transfer (restriction by the transpose as a matrix of
+    its own) and HiptmairPC's G^T: CG counts and solutions."""
+    T.set_device(device)
+    out = []
+    mesh = T.UnitSquareMesh(16, 16)
+    V = T.FunctionSpace(mesh, "N1curl", 1)
+    u, v = T.TrialFunction(V), T.TestFunction(V)
+    f = T.Constant((1.0, 2.0))
+    uh = T.Function(V)
+    s = T.LinearVariationalSolver(
+        T.LinearVariationalProblem(
+            (T.inner(T.curl(u), T.curl(v)) + T.inner(u, v)) * T.dx,
+            T.inner(f, v) * T.dx, uh,
+            bcs=[T.DirichletBC(V, f, "on_boundary")]),
+        solver_parameters={"ksp_type": "cg", "ksp_rtol": 1e-10,
+                           "pc_type": "python",
+                           "pc_python_type": "firedrake.HiptmairPC"})
+    s.solve()
+    out.append((s.ksp_iterations, uh.dat.cpu().numpy()))
+    P1 = T.FunctionSpace(mesh, "CG", 1)
+    RT = T.FunctionSpace(mesh, "RT", 1)
+    DG = T.FunctionSpace(mesh, "DG", 0)
+    W = T.MixedFunctionSpace([RT, DG])
+    sigma, p = T.TrialFunctions(W)
+    tau, q = T.TestFunctions(W)
+    x = T.SpatialCoordinate(mesh)
+    w = T.Function(W)
+    s = T.LinearVariationalSolver(
+        T.LinearVariationalProblem(
+            (T.inner(sigma, tau) - T.inner(p, T.div(tau))
+             + T.inner(T.div(sigma), q)) * T.dx,
+            T.inner(T.sin(3 * x[0]) * x[1], q) * T.dx, w),
+        solver_parameters={
+            "pc_type": "hybridization",
+            "hybridization": {"ksp_type": "cg", "ksp_rtol": 1e-10,
+                              "pc_type": "python",
+                              "pc_python_type": "firedrake.GTMGPC"}},
+        appctx={"get_coarse_space": lambda: P1,
+                "get_coarse_operator": lambda: T.inner(
+                    T.grad(T.TrialFunction(P1)),
+                    T.grad(T.TestFunction(P1))) * T.dx,
+                "coarse_space_bcs": T.DirichletBC(P1, 0.0, "on_boundary")})
+    s.solve()
+    out.append((s.ksp_iterations, w.subfunctions[1].dat.cpu().numpy()))
+    return out
+
+
+def test_fixed_order_transposes_repeat_cpu_counts_on_card(on_cuda):
+    """Restriction through Matrix.transpose sums in a fixed order: the CG
+    counts of a Hiptmair and a GTMG solve on the card equal the CPU's."""
+    for (its_d, ud), (its_c, uc) in zip(_transfer_solves("cuda"),
+                                         _transfer_solves("cpu")):
+        assert its_d == its_c
+        assert np.abs(ud - uc).max() <= 1e-9 * np.abs(uc).max()

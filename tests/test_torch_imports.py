@@ -63,9 +63,8 @@ def test_device_defaults_to_cuda(probe):
 #: with the ROADMAP.md queue 1 item that brings it
 NOT_YET_PORTED = {
     # item 18: meshes, I/O and tooling
-    18: ["Interpolator", "assemble_mixed_mass_matrix", "AdaptiveMeshHierarchy",
-         "GeometryProjectedMeshHierarchy", "OpenCascadeMeshHierarchy",
-         "TransferManager", "RandomGenerator", "PCG64", "parameters",
+    18: ["AdaptiveMeshHierarchy", "GeometryProjectedMeshHierarchy",
+         "OpenCascadeMeshHierarchy", "RandomGenerator", "PCG64", "parameters",
          "Parameters", "set_log_level", "info", "warning", "error",
          "debug", "info_red", "info_blue", "info_green", "DEBUG", "INFO",
          "WARNING", "ERROR", "CRITICAL", "timed_region", "timed_function",
@@ -99,15 +98,7 @@ def test_import_swap_names_have_items():
         f"listed but ported: {sorted(set(listed) - missing)}")
 
 
-def _mass_solve(V, params):
-    T.solve(T.TrialFunction(V) * T.TestFunction(V) * T.dx
-            == T.TestFunction(V) * T.dx, T.Function(V),
-            solver_parameters=params)
-
-
 @pytest.mark.parametrize("call, item", [
-    (lambda V, u: _mass_solve(V, {
-        "pc_type": "python", "pc_python_type": "firedrake.HiptmairPC"}), 18),
     (lambda V, u: T.assemble(T.Constant(1j) * T.TestFunction(V) * T.dx),
      17),
     (lambda V, u: V.mesh().refine_marked_elements(np.ones(8)), 18),
@@ -120,6 +111,35 @@ def test_unported_methods_name_their_item(call, item):
         call(V, u)
     # restriction still works through Function.__call__
     assert type(u("+")).__name__ == "Restricted"
+
+
+def _hiptmair_riesz(fd, python_type):
+    """An N1curl Riesz map of a constant by CG with the python PC named
+    python_type: (solution, CG iterations)."""
+    V = fd.FunctionSpace(fd.UnitSquareMesh(3, 3), "N1curl", 1)
+    u, v = fd.TrialFunction(V), fd.TestFunction(V)
+    f = fd.Constant((1.0, 2.0))
+    uh = fd.Function(V)
+    solver = fd.LinearVariationalSolver(
+        fd.LinearVariationalProblem(
+            (fd.inner(fd.curl(u), fd.curl(v)) + fd.inner(u, v)) * fd.dx,
+            fd.inner(f, v) * fd.dx, uh,
+            bcs=[fd.DirichletBC(V, f, "on_boundary")]),
+        solver_parameters={"ksp_type": "cg", "ksp_rtol": 1e-10,
+                           "pc_type": "python",
+                           "pc_python_type": python_type})
+    solver.solve()
+    return np.asarray(to_numpy(uh.dat)), int(solver.ksp_iterations)
+
+
+def test_hiptmair_python_type_resolves_and_matches_jax():
+    """pc_python_type "firedrake.HiptmairPC", which raised naming item 18
+    before HiptmairPC was ported, solves as the JAX package's does."""
+    import firedrake_tpu as J
+    uj, its_j = _hiptmair_riesz(J, "firedrake_tpu.HiptmairPC")
+    ut, its_t = _hiptmair_riesz(T, "firedrake.HiptmairPC")
+    assert its_t == its_j
+    assert np.abs(ut - uj).max() <= 1e-10 * np.abs(uj).max()
 
 
 @pytest.mark.parametrize("call", [

@@ -274,8 +274,10 @@ def test_unported_hierarchies_and_levels_raise():
                                1)) == 2
     assert [m._layers for m in T.mg.mesh.ExtrudedMeshHierarchy(
         _square(T), layers=2)] == [2] * len(_square(T))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        T.NonNestedHierarchy(T.UnitSquareMesh(2, 2), T.UnitSquareMesh(3, 3))
+    nn = T.NonNestedHierarchy(T.UnitSquareMesh(2, 2), T.UnitSquareMesh(3, 3))
+    assert type(T.mg.transfer.get_transfer(
+        T.FunctionSpace(nn[0], "CG", 1), T.FunctionSpace(nn[1], "CG", 1))
+    ).__name__ == "NonNestedTransfer"
     mesh = _square(T).meshes[-1]
     V = T.FunctionSpace(mesh, "CG", 1)
     a, bcs = _poisson(T, V)
